@@ -3,33 +3,48 @@
 
     python3 chip_smoke.py
 
+Two main paths, each a Simulation of 4096 envs driven through its public
+entry points (reset, step, refresh), and the five kernels they run:
+
+- g1: Mjlab-Velocity-Flat-Unitree-G1 physics (nconmax 35, pyramidal cone):
+  kin_com, crb_packed, vel_smooth and newton_assemble_solve cone 0;
+- yam: Mjlab-Lift-Cube-Yam physics (nconmax 55, elliptic cone with
+  impratio 10, a joint equality, a mocap base, the box contact families):
+  kin_com with mocap frames, crb_packed, vel_smooth and
+  newton_assemble_solve cone 1 (the elliptic kernel).
+
+Both: dt 0.005, 10 Newton / 20 line-search iterations, implicitfast.
+
 Phases, each of which raises on a failure (no phase failure is caught):
 
 1. build the CUDA kernels from mjlab_tpu_torch/csrc (nvcc, one process per
    source, all at once) and print the build time;
-2. build the Mjlab-Velocity-Flat-Unitree-G1 physics model and a Simulation
-   of 4096 envs (nconmax 35, dt 0.005, 10 Newton / 20 line-search
-   iterations, implicitfast, pyramidal cone);
-3. reset, seed a state from the knees-bent keyframe plus numpy noise and
-   settle it for a few control steps with ctrl held at the keyframe;
-4. hold each kernel against its plain PyTorch version on that state, at
-   the G1 shapes and 4096 envs (float32; TF32 matmuls off), and time both
-   (the tolerances are those of the CPU parity tests; qfrc_constraint of
-   an env whose Newton iteration count differs between the two, a flip of
-   the f32 acceptance test at convergence, is held at the force
-   tolerance);
-5. the main path: 25 control steps of 4 physics substeps plus the
-   kinematic refresh, random ctrl from a seeded generator, timed with CUDA
-   events after one warm control step; every kernel's launch count must
-   show the path went through it;
+then for each path:
+2. build the model from the file the repo keeps and a Simulation;
+3. reset, seed a state (G1: the knees-bent keyframe plus numpy noise; YAM:
+   half the envs at the task's reset state, half pinching the cube, with
+   noise on the arm, so that the kernels meet every contact regime) and
+   settle it for a few control steps;
+4. hold each kernel of the path against its plain PyTorch version on that
+   state, at the path's shapes (float32; TF32 matmuls off), and time both
+   (the tolerances are those of the CPU parity tests; qfrc_constraint
+   under the iteration-count rule of solver_kernels.qfrc_errors, and the
+   count of envs whose Newton iteration counts differ is printed);
+5. the main path on the path's traffic (G1: the settled state, random
+   ctrl around the keyframe; YAM: the task's own, every env reset and
+   random actions, as bench.py): 25 control steps of 4 physics substeps
+   plus the kinematic refresh, ctrl from a seeded generator, timed with
+   CUDA events after one warm control step; the launch counts, set to 0
+   just before and read just after, must show the path went through each
+   of its kernels (and through the solve kernel of its cone only);
 6. the output is right: finite qpos, no diverged-state resets, and three
    steps of a 64-env Simulation on the card agree with the same steps on
-   the CPU (the plain versions) within the step tolerances of
-   tests/test_torch_step.py.
+   the CPU (the plain versions) within the step tolerances (E2E_TOL), with
+   the same active contact slots in every env.
 
 The line before the last is the card's name and power limit (nvidia-smi);
-the lines before hold the kernels (JSON), the substep breakdown and the
-physics throughput. The last line is {"ok": true, "device": {...}}. Exits
+the lines before hold the kernels (JSON), the substep breakdowns and the
+physics throughputs. The last line is {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when there is no CUDA card.
 """
 
@@ -48,6 +63,7 @@ CONTROL_STEPS = 25
 DECIMATION = 4
 SETTLE_STEPS = 10
 SEED = 0
+PATHS = ("g1", "yam")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and f32
 # rate outside the tensor cores, at the full 700 W power limit
@@ -58,8 +74,31 @@ PEAK_F32_FLOPS = 67e12
 # tests/test_torch_solver.py): relative to max(1, |plain|max)
 TOL_FRAMES = 2e-6  # kin_com outputs
 TOL_SMOOTH = 5e-6  # crb_packed, vel_smooth
-TOL_SOLVE = 2e-3  # qacc, qfrc_constraint, a_smooth, qacc_int
-TOL_FORCE = 6e-3  # per-row constraint forces
+# the solve kernels: phys/solver_kernels.py SOLVE_TOL and FORCE_TOL
+# 64 envs x 3 steps on the card against the CPU: the step tolerances of
+# tests/test_torch_step.py; under the elliptic cone the contact dynamics
+# amplify an f32 difference about 3x per step, so the YAM path takes the
+# elliptic multistep tolerances of tests/test_pallas2_solver.py
+E2E_TOL = {
+    "g1": (("qpos", 1e-4), ("qvel", 1e-3), ("qacc", 5e-3)),
+    "yam": (("qpos", 2e-4), ("qvel", 2e-2), ("qacc", 5e-3)),
+}
+
+# the TPU kernels the rows replace
+REPLACES = {
+    "kin_com": "mjlab_tpu/phys/smooth_pallas.py:237",
+    "crb_packed": "mjlab_tpu/phys/smooth_pallas.py:321",
+    "vel_smooth": "mjlab_tpu/phys/smooth_pallas.py:389",
+    "newton_assemble_solve": "mjlab_tpu/phys/solver_pallas2.py:623",
+    "newton_assemble_solve_elliptic": "mjlab_tpu/phys/solver_pallas2.py:623",
+}
+SOURCES = {
+    "kin_com": "mjlab_tpu_torch/csrc/kin_com.cu",
+    "crb_packed": "mjlab_tpu_torch/csrc/crb_packed.cu",
+    "vel_smooth": "mjlab_tpu_torch/csrc/vel_smooth.cu",
+    "newton_assemble_solve": "mjlab_tpu_torch/csrc/newton_solve.cu",
+    "newton_assemble_solve_elliptic": "mjlab_tpu_torch/csrc/newton_solve_elliptic.cu",
+}
 
 
 def log(*a):
@@ -109,11 +148,12 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
 
 def kin_com_flops(m, ncg: int) -> int:
     # per body: frame 70 (+135 per hinge/slide/ball joint, 15 for a free
-    # joint's normalisation), xipos 36, com 10, cinert 130; per dof: cdof
-    # 20; per collision geom: frame 36 + rotation 90
+    # joint's normalisation, 15 for a mocap frame's), xipos 36, com 10,
+    # cinert 130; per dof: cdof 20; per collision geom: frame 36 + rotation 90
     njoint_moving = int(np.sum(m.jnt_type != 0))
+    nfree = int(np.sum(m.jnt_type == 0))
     return (
-        (m.nbody - 1) * 70 + njoint_moving * 135 + 15
+        (m.nbody - 1) * 70 + njoint_moving * 135 + 15 * (nfree + m.nmocap)
         + m.nbody * (36 + 10 + 130) + m.nv * 20 + ncg * 126
     )
 
@@ -141,8 +181,9 @@ def _ancestor_counts(m):
 
 
 def newton_flops(nv, nlim, nlive, nact, iters, ls) -> float:
-    """FLOPs of the fused solve for one env: nlive contact rows built and
-    carried, nact of them active in the Hessian, iters Newton iterations."""
+    """FLOPs of the pyramidal solve for one env: nlive contact rows built
+    and carried, nact of them active in the Hessian, iters Newton
+    iterations."""
     chol = nv**3 / 3 + 3 * nv * nv
     solve = 4 * nv * nv
     matvec = 2 * nv * nv
@@ -158,49 +199,77 @@ def newton_flops(nv, nlim, nlive, nact, iters, ls) -> float:
     return build + setup + iters * per_iter + tail
 
 
+def newton_flops_elliptic(nv, nlim, neq, R, nlive, ncon, nblock, iters, ls) -> float:
+    """FLOPs of the elliptic solve for one env: nlive contact rows of ncon
+    contacts, nblock of them with a nonzero cone block, neq equality
+    rows, iters Newton iterations."""
+    chol = nv**3 / 3 + 3 * nv * nv
+    solve = 4 * nv * nv
+    matvec = 2 * nv * nv
+    rows = 2 * nv * (nlive + neq)
+    state = 5 * R + 15  # one contact's 3-zone state
+    cost = 6 * nv + 4 * nlim + ncon * (state + 6) + 5 * neq
+    forces = ncon * (state + 8 * R) + rows
+    build = 48 * nv * nlive
+    setup = chol + solve + 2 * (nv + nlim + rows + matvec + cost)
+    hessian = (
+        ncon * (state + 12 * R * R) + 2 * nv * nblock * R * R
+        + nv * (nv + 1) * R * nblock + 1.5 * nv * nv * neq
+    )
+    probe = 6 * nv + 5 * nlim + ncon * (state + 10 * R + 10 * R + 15) + 6 * neq
+    per_iter = (
+        matvec + forces + hessian + chol + solve + rows + matvec
+        + (12 + ls) * probe + matvec + cost
+    )
+    tail = forces + matvec + chol + solve
+    return build + setup + iters * per_iter + tail
+
+
 # ---------------------------------------------------------------------------
-# phases
+# the two paths
 # ---------------------------------------------------------------------------
 
 
-def build_kernels():
-    from mjlab_tpu_torch import cuda_build
-
-    t0 = time.perf_counter()
-    times = cuda_build.build_all()
-    log(f"[build] {len(times)} kernels built in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc, sm_90a): " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
-    for name in cuda_build.SOURCES:
-        log(f"[build] {name}: {cuda_build.ptxas_report(name).splitlines()[-1:]}")
-
-
-def make_sim(num_envs: int, device: str):
-    """A Simulation of the G1 flat-velocity model, read from the model file
-    the repo keeps (MuJoCo, the model compiler, need not be installed),
-    and the knees-bent keyframe (qpos, ctrl)."""
+def make_sim(path: str, num_envs: int, device: str):
+    """A Simulation of the path's model, read from the model file the repo
+    keeps (MuJoCo, the model compiler, need not be installed), and the
+    path's initial state of one env."""
     from mjlab_tpu_torch.sim.sim import Simulation
-    from mjlab_tpu_torch.tasks.velocity.config.g1 import physics
 
-    m, key_qpos, key_ctrl = physics.load_saved_model(device=device)
-    sim = Simulation(num_envs, physics.sim_cfg(), m, device=device)
-    return sim, (key_qpos, key_ctrl)
+    if path == "g1":
+        from mjlab_tpu_torch.tasks.velocity.config.g1 import physics
+
+        m, key_qpos, key_ctrl = physics.load_saved_model(device=device)
+        state = {"qpos": key_qpos, "ctrl": key_ctrl}
+    else:
+        from mjlab_tpu_torch.tasks.manipulation.config.yam import physics
+
+        m, state = physics.load_saved_model(device=device)
+    return Simulation(num_envs, physics.sim_cfg(), m, device=device), state
 
 
-def seed_state(sim, keyframe, seed: int):
-    """Keyframe plus numpy noise; ctrl at the keyframe."""
-    key_qpos, key_ctrl = keyframe
+def seed_state(sim, path: str, state: dict, seed: int):
+    """G1: the keyframe plus numpy noise, ctrl at the keyframe. YAM: half
+    the envs at the task's reset state, half pinching the cube, noise on
+    the arm. Returns the ctrl the settling holds."""
     m = sim.model
     E = sim.num_envs
-    rng = np.random.default_rng(seed)
-    qpos = np.tile(key_qpos, (E, 1))
-    qpos[:, 7:] += 0.05 * rng.standard_normal((E, m.nq - 7))
-    qpos[:, 2] += 0.02 * rng.standard_normal(E)
-    qvel = 0.1 * rng.standard_normal((E, m.nv))
-    ctrl = np.tile(key_ctrl, (E, 1))
     t = lambda x: torch.as_tensor(x, dtype=sim.dtype, device=sim.device)  # noqa: E731
     sim.reset()
-    sim.data = sim.data.replace(qpos=t(qpos), qvel=t(qvel), ctrl=t(ctrl))
-    return t(ctrl)
+    if path == "g1":
+        rng = np.random.default_rng(seed)
+        qpos = np.tile(state["qpos"], (E, 1))
+        qpos[:, 7:] += 0.05 * rng.standard_normal((E, m.nq - 7))
+        qpos[:, 2] += 0.02 * rng.standard_normal(E)
+        qvel = 0.1 * rng.standard_normal((E, m.nv))
+        ctrl = np.tile(state["ctrl"], (E, 1))
+        sim.data = sim.data.replace(qpos=t(qpos), qvel=t(qvel), ctrl=t(ctrl))
+    else:
+        from mjlab_tpu_torch.tasks.manipulation.config.yam import physics
+
+        batch = physics.task_states(m, state, E, seed)
+        sim.data = sim.data.replace(**{k: t(v) for k, v in batch.items()})
+    return sim.data.ctrl.clone()
 
 
 def control_step(sim, ctrl=None):
@@ -211,11 +280,27 @@ def control_step(sim, ctrl=None):
     sim.refresh()
 
 
-def check_kernels(sim) -> list[dict]:
-    """Each kernel against its plain version on the settled state."""
+def build_kernels():
+    from mjlab_tpu_torch import cuda_build
+
+    t0 = time.perf_counter()
+    times = cuda_build.build_all()
+    log(f"[build] {len(times)} kernels built in {time.perf_counter() - t0:.1f} s "
+        f"(nvcc, sm_90a): " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
+    for name in cuda_build.SOURCES:
+        for line in cuda_build.ptxas_report(name).splitlines():
+            if "registers" in line:
+                log(f"[build] {name}: {line}")
+
+
+def check_kernels(sim, path: str) -> dict:
+    """Each kernel of the path against its plain version on the settled
+    state: {kernel name: its numbers at the path's shapes}."""
     from mjlab_tpu_torch.phys import smooth_kernels as sk
     from mjlab_tpu_torch.phys import solver_kernels as sv
-    from mjlab_tpu_torch.phys.hybrid import contact_stack, has_implicit, solve_args
+    from mjlab_tpu_torch.phys.hybrid import (
+        contact_stack, has_implicit, mocap_planes, solve_args,
+    )
     from mjlab_tpu_torch.phys.lm.base import Params
 
     m, d = sim.model, sim.data
@@ -224,71 +309,68 @@ def check_kernels(sim) -> list[dict]:
     qT = d.qpos.T.contiguous()
     vT = d.qvel.T.contiguous()
     ctrlT = d.ctrl.T.contiguous()
+    mcT, mcqT = mocap_planes(m, d)
     xfrcT = d.xfrc_applied.permute(1, 2, 0).contiguous()
     qfaT = d.qfrc_applied.T.contiguous()
-    rows = []
+    out = {}
 
-    def record(name, source, replaces, errs, outs_in_bytes, flops, fn_k, fn_p,
-               reps):
+    def record(name, errs, outs_in_bytes, flops, fn_k, fn_p, reps, abs_err):
         for label, (err, tol) in errs.items():
-            log(f"[check] {name} {label}: rel err {err:.3e} (tol {tol:.0e})")
+            log(f"[check] {path} {name} {label}: rel err {err:.3e} (tol {tol:.0e})")
             if not err < tol:
-                raise AssertionError(f"{name} {label}: {err:.3e} >= {tol:.0e}")
+                raise AssertionError(f"{path} {name} {label}: {err:.3e} >= {tol:.0e}")
         ms = cuda_ms(fn_k, reps)
         plain_ms = cuda_ms(fn_p, 2)
         b_ms, b_by = bound(outs_in_bytes, flops * E)
-        rows.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=None, max_abs_err=None, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        ))
-        log(f"[time] {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        out[name] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            bytes=outs_in_bytes, flops=flops * E,
+            max_abs_err=abs_err, max_rel_err=max(e for e, _ in errs.values()),
+        )
+        log(f"[time] {path} {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
 
-    # kernel 1: kin_com
-    outs_k = sk.kin_com(m, qT)
-    outs_p = sk.kin_com_plain(m, qT)
+    # kernel 1: kin_com (with the mocap frames where the model has them)
+    outs_k = sk.kin_com(m, qT, mcT, mcqT)
+    outs_p = sk.kin_com_plain(m, qT, mcT, mcqT)
     names = ("gxpos", "gxmat", "subcom", "cdof", "cinA", "cinc", "xipos",
              "xpos", "xquat")
-    errs = {n: (rel_err(p, k), TOL_FRAMES) for n, p, k in zip(names, outs_p, outs_k)}
-    record("kin_com", "mjlab_tpu_torch/csrc/kin_com.cu",
-           "mjlab_tpu/phys/smooth_pallas.py:237", errs,
-           nbytes(qT, *outs_k), kin_com_flops(m, len(sk.collision_geoms(m))),
-           lambda: sk.kin_com(m, qT), lambda: sk.kin_com_plain(m, qT), 20)
-    rows[-1]["max_abs_err"] = max(max_abs(p, k) for p, k in zip(outs_p, outs_k))
+    mocap_in = (mcT, mcqT) if m.nmocap else ()
+    record("kin_com",
+           {n: (rel_err(p, k), TOL_FRAMES) for n, p, k in zip(names, outs_p, outs_k)},
+           nbytes(qT, *mocap_in, *outs_k),
+           kin_com_flops(m, len(sk.collision_geoms(m))),
+           lambda: sk.kin_com(m, qT, mcT, mcqT),
+           lambda: sk.kin_com_plain(m, qT, mcT, mcqT), 20,
+           max(max_abs(p, k) for p, k in zip(outs_p, outs_k)))
     gxpos, gxmat, subcom, cdof, cinA, cinc, xipos, _, _ = outs_p
 
     # kernel 2: crb_packed
     qm_k = sk.crb_packed(m, cdof, cinA, cinc)
     qm_p = sk.crb_packed_plain(m, cdof, cinA, cinc)
-    record("crb_packed", "mjlab_tpu_torch/csrc/crb_packed.cu",
-           "mjlab_tpu/phys/smooth_pallas.py:321",
-           {"qM_pairs": (rel_err(qm_p, qm_k), TOL_SMOOTH)},
+    record("crb_packed", {"qM_pairs": (rel_err(qm_p, qm_k), TOL_SMOOTH)},
            nbytes(cdof, cinA, cinc, qm_k), crb_flops(m, qm_k.shape[0]),
            lambda: sk.crb_packed(m, cdof, cinA, cinc),
-           lambda: sk.crb_packed_plain(m, cdof, cinA, cinc), 20)
-    rows[-1]["max_abs_err"] = max_abs(qm_p, qm_k)
+           lambda: sk.crb_packed_plain(m, cdof, cinA, cinc), 20,
+           max_abs(qm_p, qm_k))
 
     # kernel 3: vel_smooth
     xq = (subcom, xipos, xfrcT, qfaT)
     vs_k = sk.vel_smooth(m, qT, vT, ctrlT, cdof, cinA, cinc, xq)
     vs_p = sk.vel_smooth_plain(m, qT, vT, ctrlT, cdof, cinA, cinc, xq)
     names = ("qfrc_smooth", "actuator_force", "actuator_velocity", "mh_diag")
-    record("vel_smooth", "mjlab_tpu_torch/csrc/vel_smooth.cu",
-           "mjlab_tpu/phys/smooth_pallas.py:389",
+    record("vel_smooth",
            {n: (rel_err(p, k), TOL_SMOOTH) for n, p, k in zip(names, vs_p, vs_k)},
-           nbytes(qT, vT, ctrlT, cdof, cinA, cinc, subcom, xipos, xfrcT, qfaT,
-                  *vs_k),
+           nbytes(qT, vT, ctrlT, cdof, cinA, cinc, subcom, xipos, xfrcT, qfaT, *vs_k),
            vel_smooth_flops(m),
            lambda: sk.vel_smooth(m, qT, vT, ctrlT, cdof, cinA, cinc, xq),
            lambda: sk.vel_smooth_plain(m, qT, vT, ctrlT, cdof, cinA, cinc, xq),
-           20)
-    rows[-1]["max_abs_err"] = max(max_abs(p, k) for p, k in zip(vs_p, vs_k))
+           20, max(max_abs(p, k) for p, k in zip(vs_p, vs_k)))
     qfs, _, _, mh_diag = vs_p
 
-    # kernel 4: newton_assemble_solve (cone 0), on the plain versions' inputs
-    P = Params(m, E)
-    k = contact_stack(m, P, qT, vT, gxpos, gxmat, subcom)
+    # kernel 4 / 5: newton_assemble_solve (the path's cone), on the plain
+    # versions' inputs
+    k = contact_stack(m, Params(m, E), qT, vT, gxpos, gxmat, subcom)
     qM_cm = sk.qm_dense_cm(m, qm_p)
     Mh_cm = None
     if has_implicit(m):
@@ -302,40 +384,125 @@ def check_kernels(sim) -> list[dict]:
     so_p = sv.newton_assemble_solve_plain(*args, **kw, iters=it_p)
     names = ("qacc", "f_noncontact", "f_contact", "qfrc_constraint",
              "qacc_smooth", "qacc_int")
-    tols = (TOL_SOLVE, TOL_FORCE, TOL_FORCE, TOL_SOLVE, TOL_SOLVE, TOL_SOLVE)
+    S, F = sv.SOLVE_TOL, sv.FORCE_TOL
+    tols = (S, F, F, S, S, S)
     errs = {n: (rel_err(p, kk), t) for n, p, kk, t in zip(names, so_p, so_k, tols)}
-    # At convergence the acceptance test compares two f32 costs that differ
-    # by rounding, so the Newton iteration count of an env depends on the
-    # order of its sums (two builds of the kernel, with and without FMA
-    # contraction, disagree as often). Where the counts agree, qfrc is held
-    # at the solve tolerance; where they differ by that one step it is held
-    # at the per-row force tolerance, qfrc being J^T f.
+    # qfrc_constraint under the iteration-count rule (sv.qfrc_errors: under
+    # the elliptic cone relative to the row forces' scale); its own scale,
+    # the row forces' and the errors on its own scale are printed beside
     same = it_k == it_p
-    scale = max(1.0, float(so_p[3].abs().max()))
-    diff = (so_p[3].double() - so_k[3].double()).abs().max(0).values / scale
     del errs["qfrc_constraint"]
-    errs["qfrc_constraint, equal iteration counts"] = (
-        float(diff[same].max()) if same.any() else 0.0, TOL_SOLVE)
-    errs["qfrc_constraint, iteration counts differ"] = (
-        float(diff[~same].max()) if (~same).any() else 0.0, TOL_FORCE)
-    nlive = (args[20] != 0).sum(0).double()
-    nact = (so_p[2] > 0).sum(0).double()
-    flops = float(sum(
-        newton_flops(nv, kw["nlim"], nl, na, it, kw["ls_iterations"])
-        for nl, na, it in zip(nlive.tolist(), nact.tolist(), it_p.tolist())
-    )) / E
-    log(f"[check] newton: iterations mean {it_k.double().mean():.2f} kernel, "
+    for label, e_t in sv.qfrc_errors(so_p, so_k, it_p, it_k, kw["cone"]).items():
+        errs[f"qfrc_constraint, {label}"] = e_t
+    own = sv.qfrc_errors(so_p, so_k, it_p, it_k, 0)
+    qfrc_scale = float(so_p[3].abs().max())
+    force_scale = max(float(so_p[1].abs().max()), float(so_p[2].abs().max()))
+    log(f"[check] {path} qfrc_constraint: |qfrc|max {qfrc_scale:.4g}, row forces "
+        f"|f|max {force_scale:.4g} (ratio {force_scale / max(1.0, qfrc_scale):.3g}); "
+        "on qfrc's own scale: " + ", ".join(f"{k} {e:.3e}" for k, (e, _) in own.items()))
+    on = args[20]
+    K, R = kw["K"], kw["R"]
+    nlive = (on != 0).sum(0).double()
+    if kw["cone"]:
+        name = "newton_assemble_solve_elliptic"
+        ncon = (on[:K] != 0).sum(0).double()
+        nblock = (so_p[2][:K] != 0).sum(0).double()
+        flops = float(sum(
+            newton_flops_elliptic(nv, kw["nlim"], kw["neq"], R, nl, nc, nb, it,
+                                  kw["ls_iterations"])
+            for nl, nc, nb, it in zip(nlive.tolist(), ncon.tolist(),
+                                      nblock.tolist(), it_p.tolist())
+        )) / E
+        rows_note = (f"contacts mean {float(ncon.mean()):.1f}, with a cone "
+                     f"block {float(nblock.mean()):.1f}")
+    else:
+        name = "newton_assemble_solve"
+        nact = (so_p[2] > 0).sum(0).double()
+        flops = float(sum(
+            newton_flops(nv, kw["nlim"], nl, na, it, kw["ls_iterations"])
+            for nl, na, it in zip(nlive.tolist(), nact.tolist(), it_p.tolist())
+        )) / E
+        rows_note = f"active rows {float(nact.mean()):.1f}"
+    smem = (f"smem {sv.elliptic_smem_bytes(nv, K, R, kw['neq'], kw['nlim'])} bytes "
+            "per env; " if kw["cone"] else "")
+    log(f"[check] {path} {name}: {smem}iterations mean {it_k.double().mean():.2f} kernel, "
         f"{it_p.double().mean():.2f} plain, different in {int((~same).sum())} "
-        f"of {E} envs; live contact rows mean {float(nlive.mean()):.1f}, "
-        f"active {float(nact.mean()):.1f}")
+        f"of {E} envs; live contact rows mean {float(nlive.mean()):.1f}, {rows_note}")
     in_args = [a for a in args if a.shape[0] > 1]
-    record("newton_assemble_solve", "mjlab_tpu_torch/csrc/newton_solve.cu",
-           "mjlab_tpu/phys/solver_pallas2.py:623",
-           errs, nbytes(*in_args, *so_k), flops,
+    record(name, errs, nbytes(*in_args, *so_k), flops,
            lambda: sv.newton_assemble_solve(*args, **kw),
-           lambda: sv.newton_assemble_solve_plain(*args, **kw), 10)
-    rows[-1]["max_abs_err"] = max(max_abs(p, kk) for p, kk in zip(so_p, so_k))
-    return rows
+           lambda: sv.newton_assemble_solve_plain(*args, **kw), 10,
+           max(max_abs(p, kk) for p, kk in zip(so_p, so_k)))
+    out[name]["iteration_counts_differ"] = int((~same).sum())
+    return out
+
+
+def traffic(sim, path: str, state: dict, ctrl0, seed: int):
+    """Put the path's traffic on sim; return the function that draws each
+    control step's ctrl. G1: the settled state, ctrl0 + 0.3 N(0, 1). YAM:
+    the task's own, as bench.py measures it: every env reset to the task's
+    reset state (yam.reset_states: home keyframe, the cube where the lifting
+    command puts it), then random actions 0.5 N(0, 1) scaled by the task's
+    action scale around the home targets, SETTLE_STEPS control steps of it
+    before the timed run (bench.py's warm-up chunk)."""
+    gen = torch.Generator(device=sim.device).manual_seed(seed)
+    t = lambda x: torch.as_tensor(x, dtype=sim.dtype, device=sim.device)  # noqa: E731
+    if path == "g1":
+        noise = 0.3
+    else:
+        from mjlab_tpu_torch.tasks.manipulation.config.yam import physics
+
+        sim.reset()
+        batch = physics.reset_states(sim.model, state, sim.num_envs, seed)
+        sim.data = sim.data.replace(**{k: t(v) for k, v in batch.items()})
+        ctrl0 = sim.data.ctrl.clone()
+        noise = 0.5 * physics.action_scale(sim.model)
+
+    def random_ctrl():
+        return ctrl0 + noise * torch.randn(ctrl0.shape, generator=gen,
+                                           device=sim.device)
+
+    if path == "yam":
+        for _ in range(SETTLE_STEPS):
+            control_step(sim, random_ctrl())
+        torch.cuda.synchronize()
+        log(f"[traffic] yam: the task's reset and random actions, {SETTLE_STEPS} "
+            f"control steps; contacts active per env "
+            f"{float(sim.data.con_sel_active.sum(1).double().mean()):.2f}")
+    return random_ctrl
+
+
+def main_path(sim, random_ctrl) -> dict:
+    """CONTROL_STEPS control steps with random_ctrl's ctrl, the launch
+    counts set to 0 just before and read just after."""
+    from mjlab_tpu_torch.phys import smooth_kernels as sk
+    from mjlab_tpu_torch.phys import solver_kernels as sv
+
+    control_step(sim, random_ctrl())  # warm
+    torch.cuda.synchronize()
+    ctrls = [random_ctrl() for _ in range(CONTROL_STEPS)]
+    wrappers = (sk.kin_com, sk.crb_packed, sk.vel_smooth, sv.newton_assemble_solve)
+    for w in wrappers:
+        w.launches = 0
+    sv.newton_assemble_solve.launches_by_cone = [0, 0]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for c in ctrls:
+        control_step(sim, c)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_cone = list(sv.newton_assemble_solve.launches_by_cone)
+    launches = {
+        "kin_com": sk.kin_com.launches, "crb_packed": sk.crb_packed.launches,
+        "vel_smooth": sk.vel_smooth.launches,
+        "newton_assemble_solve": by_cone[0],
+        "newton_assemble_solve_elliptic": by_cone[1],
+    }
+    return dict(launches=launches, dev_ms=start.elapsed_time(end), wall=wall,
+                random_ctrl=random_ctrl)
 
 
 def device_profile(sim, ctrl) -> dict:
@@ -394,26 +561,139 @@ def breakdown(sim, steps: int) -> dict:
     return out
 
 
-def end_to_end_check(seed: int):
+def end_to_end_check(path: str, seed: int):
     """3 steps of a 64-env Simulation on the card against the same steps
     on the CPU (the plain versions): the kernels carry the whole step."""
-    sims = [make_sim(64, dev) for dev in ("cuda", "cpu")]
-    for s, key in sims:
-        seed_state(s, key, seed + 1)
+    sims = [make_sim(path, 64, dev) for dev in ("cuda", "cpu")]
+    for s, state in sims:
+        seed_state(s, path, state, seed + 1)
     sims = [s for s, _ in sims]
     for _ in range(3):
         for s in sims:
             s.step()
     dc, dp = (s.data for s in sims)
-    sel_same = float((dc.con_sel.cpu() == dp.con_sel).all(dim=1).double().mean())
-    for f, tol in (("qpos", 1e-4), ("qvel", 1e-3), ("qacc", 5e-3)):
+    for f, tol in E2E_TOL[path]:
         err = rel_err(getattr(dp, f), getattr(dc, f).cpu())
-        log(f"[e2e] 64 envs x 3 steps, card vs CPU: {f} rel err {err:.3e} (tol {tol:.0e})")
+        log(f"[e2e] {path} 64 envs x 3 steps, card vs CPU: {f} rel err {err:.3e} "
+            f"(tol {tol:.0e})")
         if not err < tol:
-            raise AssertionError(f"end-to-end {f}: {err:.3e} >= {tol:.0e}")
-    log(f"[e2e] envs with the same contact selection: {sel_same:.3f}")
+            raise AssertionError(f"{path} end-to-end {f}: {err:.3e} >= {tol:.0e}")
+    # every env must select the same active contact slots; their order may
+    # differ where mirrored slots tie to a few f32 ulps
+    sel_c, act_c = dc.con_sel.cpu(), dc.con_sel_active.cpu()
+    sel_p, act_p = dp.con_sel, dp.con_sel_active
+    same_order = float((sel_c == sel_p).all(dim=1).double().mean())
+    differ = [e for e in range(sel_p.shape[0])
+              if not torch.equal(sel_c[e][act_c[e]].sort().values,
+                                 sel_p[e][act_p[e]].sort().values)]
+    log(f"[e2e] {path} envs with the same active contact slots: "
+        f"{sel_p.shape[0] - len(differ)} of {sel_p.shape[0]}; in the same order: "
+        f"{same_order:.3f}")
+    if differ:
+        raise AssertionError(f"{path}: envs {differ} select other active slots "
+                             "on the card than on the CPU")
     if not bool(torch.isfinite(dc.qpos).all()):
-        raise AssertionError("non-finite qpos on the card")
+        raise AssertionError(f"{path}: non-finite qpos on the card")
+
+
+def run_path(path: str) -> tuple[dict, dict, dict]:
+    """Phases 2-6 of one path: (kernel numbers, launches, summary)."""
+    sim, state = make_sim(path, NUM_ENVS, "cuda")
+    m = sim.model
+    log(f"[model] {path}: nq {m.nq} nv {m.nv} nu {m.nu} nbody {m.nbody} "
+        f"ngeom {m.ngeom} nmocap {m.nmocap} neq {m.neq_jnt}, {m.pairs.ncon} "
+        f"contact slots, K {m.ncon_max}, R {m.rows_per_con}, cone "
+        f"{int(m.opt.cone)}, nefc {m.nefc}; {NUM_ENVS} envs")
+    ctrl0 = seed_state(sim, path, state, SEED)
+    for _ in range(SETTLE_STEPS):
+        control_step(sim, ctrl0)
+    torch.cuda.synchronize()
+    log(f"[settle] {path}: {SETTLE_STEPS} control steps; contacts active per "
+        f"env {float(sim.data.con_sel_active.sum(1).double().mean()):.1f}")
+
+    kernels = check_kernels(sim, path)
+
+    run = main_path(sim, traffic(sim, path, state, ctrl0, SEED))
+    launches = run["launches"]
+    substeps = CONTROL_STEPS * DECIMATION
+    elliptic = int(m.opt.cone) != 0
+    expected = {
+        "kin_com": substeps + CONTROL_STEPS, "crb_packed": substeps,
+        "vel_smooth": substeps,
+        "newton_assemble_solve": 0 if elliptic else substeps,
+        "newton_assemble_solve_elliptic": substeps if elliptic else 0,
+    }
+    log(f"[main] {path} launches {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"{path} kernel launches {launches} != {expected}")
+
+    d = sim.data
+    if not bool(torch.isfinite(d.qpos).all()):
+        raise AssertionError(f"{path}: non-finite qpos after the main path")
+    resets = int(d.ncheck_reset.sum())
+    overflow = int(d.ncon_overflow.sum())
+    log(f"[main] {path} diverged-state resets {resets}, contact-slot overflow "
+        f"{overflow}; contacts active per env at the end "
+        f"{float(d.con_sel_active.sum(1).double().mean()):.2f}")
+    if resets:
+        raise AssertionError(f"{path}: {resets} diverged-state resets")
+    dev_ms = run["dev_ms"]
+    env_steps = NUM_ENVS * CONTROL_STEPS / (dev_ms / 1e3)
+    log(f"[main] {path} {CONTROL_STEPS} control steps x {DECIMATION} substeps + "
+        f"refresh at {NUM_ENVS} envs: {dev_ms:.1f} ms (CUDA events), "
+        f"{run['wall'] * 1e3:.1f} ms (host clock); {dev_ms / CONTROL_STEPS:.2f} ms "
+        f"per control step")
+    log(f"[main] {path} physics env-steps/s at {NUM_ENVS} envs: {env_steps:.1f}")
+
+    parts = breakdown(sim, 4)
+    sub = sum(v for k, v in parts.items() if k != "refresh")
+    log(f"[breakdown] {path} ms per substep: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items() if k != "refresh")
+        + f" (sum {sub:.3f}); refresh {parts['refresh']:.3f} ms per control step")
+    prof = device_profile(sim, run["random_ctrl"]())
+    if prof["kernels"]:
+        log(f"[profile] {path} one control step: {prof['kernels']} CUDA kernels, "
+            f"device busy {prof['busy_ms']:.2f} ms of a {prof['span_ms']:.2f} ms "
+            f"span, idle share {prof['idle_share']:.3f} (under the profiler)")
+    else:
+        log(f"[profile] {path}: torch.profiler recorded no CUDA kernels: idle "
+            "share not measured")
+    del sim, d
+    torch.cuda.empty_cache()
+
+    end_to_end_check(path, SEED)
+    summary = {"physics_env_steps_per_s": env_steps, "ms_per_control_step":
+               dev_ms / CONTROL_STEPS, "ms_per_substep": sub,
+               "breakdown_ms_per_substep": parts, "profile": prof}
+    return kernels, launches, summary
+
+
+def kernel_rows(per_path: dict, launches: dict) -> list[dict]:
+    """One row per kernel. The smooth kernels run on both paths: their row
+    holds the YAM path's numbers (this slice's main path) and every
+    path's under "per_path"; the solve kernel of each cone is a row of its
+    own, from the path that runs it."""
+    rows = []
+    for name in REPLACES:
+        runs = {p: per_path[p][name] for p in PATHS if name in per_path[p]}
+        top = "yam" if "yam" in runs else "g1"
+        r = runs[top]
+        row = dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=launches[top][name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None, path=top,
+            launches_per_control_step=launches[top][name] / CONTROL_STEPS,
+            max_rel_err=r["max_rel_err"], bytes=r["bytes"], flops=r["flops"],
+        )
+        if "iteration_counts_differ" in r:
+            row["iteration_counts_differ"] = r["iteration_counts_differ"]
+        if len(runs) > 1:
+            row["per_path"] = {
+                p: dict(runs[p], launches=launches[p][name]) for p in runs
+            }
+        rows.append(row)
+    return rows
 
 
 def main() -> int:
@@ -421,8 +701,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 2
-    from mjlab_tpu_torch.phys import smooth_kernels as sk
-    from mjlab_tpu_torch.phys import solver_kernels as sv
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -430,104 +708,19 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    # 1. build
     build_kernels()
-
-    # 2-3. model, simulation, settled state
-    sim, keyframe = make_sim(NUM_ENVS, "cuda")
-    m = sim.model
-    log(f"[model] G1 flat velocity: nq {m.nq} nv {m.nv} nu {m.nu} nbody "
-        f"{m.nbody} ngeom {m.ngeom}, {m.pairs.ncon} contact slots, K "
-        f"{m.ncon_max}, nefc {m.nefc}; {NUM_ENVS} envs")
-    ctrl0 = seed_state(sim, keyframe, SEED)
-    for _ in range(SETTLE_STEPS):
-        control_step(sim, ctrl0)
-    torch.cuda.synchronize()
-    log(f"[settle] {SETTLE_STEPS} control steps; contacts active per env "
-        f"{float(sim.data.con_sel_active.sum(1).double().mean()):.1f}")
-
-    # 4. each kernel against its plain version
-    rows = check_kernels(sim)
-
-    # 5. the main path, counted and timed
-    gen = torch.Generator(device=sim.device).manual_seed(SEED)
-
-    def random_ctrl():
-        return ctrl0 + 0.3 * torch.randn(ctrl0.shape, generator=gen,
-                                         device=sim.device)
-
-    control_step(sim, random_ctrl())  # warm
-    torch.cuda.synchronize()
-    wrappers = {
-        "kin_com": sk.kin_com, "crb_packed": sk.crb_packed,
-        "vel_smooth": sk.vel_smooth,
-        "newton_assemble_solve": sv.newton_assemble_solve,
-    }
-    for w in wrappers.values():
-        w.launches = 0
-    ctrls = [random_ctrl() for _ in range(CONTROL_STEPS)]
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for c in ctrls:
-        control_step(sim, c)
-    end.record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    dev_ms = start.elapsed_time(end)
-    launches = {n: w.launches for n, w in wrappers.items()}
-    substeps = CONTROL_STEPS * DECIMATION
-    expected = {"kin_com": substeps + CONTROL_STEPS, "crb_packed": substeps,
-                "vel_smooth": substeps, "newton_assemble_solve": substeps}
-    log(f"[main] launches {launches}, expected {expected}")
-    if launches != expected:
-        raise AssertionError(f"kernel launches {launches} != {expected}")
-    for r in rows:
-        r["launches"] = launches[r["name"]]
-
-    # 6. the output is right
-    d = sim.data
-    if not bool(torch.isfinite(d.qpos).all()):
-        raise AssertionError("non-finite qpos after the main path")
-    resets = int(d.ncheck_reset.sum())
-    overflow = int(d.ncon_overflow.sum())
-    log(f"[main] diverged-state resets {resets}, contact-slot overflow {overflow}")
-    if resets:
-        raise AssertionError(f"{resets} diverged-state resets")
-    env_steps = NUM_ENVS * CONTROL_STEPS / (dev_ms / 1e3)
-    log(f"[main] {CONTROL_STEPS} control steps x {DECIMATION} substeps + refresh "
-        f"at {NUM_ENVS} envs: {dev_ms:.1f} ms (CUDA events), {wall * 1e3:.1f} ms "
-        f"(host clock); {dev_ms / CONTROL_STEPS:.2f} ms per control step, "
-        f"{dev_ms / substeps:.3f} ms per substep incl. refresh share")
-    log(f"[main] physics env-steps/s at {NUM_ENVS} envs: {env_steps:.1f}")
-
-    parts = breakdown(sim, 4)
-    sub = sum(v for k, v in parts.items() if k != "refresh")
-    log("[breakdown] ms per substep: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in parts.items() if k != "refresh")
-        + f" (sum {sub:.3f}); refresh {parts['refresh']:.3f} ms per control step")
-    prof = device_profile(sim, random_ctrl())
-    if prof["kernels"]:
-        log(f"[profile] one control step: {prof['kernels']} CUDA kernels, "
-            f"device busy {prof['busy_ms']:.2f} ms of a {prof['span_ms']:.2f} ms "
-            f"span, idle share {prof['idle_share']:.3f} (under the profiler)")
-    else:
-        log("[profile] torch.profiler recorded no CUDA kernels: idle share "
-            "not measured")
-
-    end_to_end_check(SEED)
+    per_path, launches, summary = {}, {}, {}
+    for path in PATHS:
+        per_path[path], launches[path], summary[path] = run_path(path)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    log(json.dumps({"kernels": rows}))
-    log(json.dumps({
-        "physics_env_steps_per_s": env_steps, "ms_per_substep": sub,
-        "breakdown_ms_per_substep": parts, "profile": prof, "num_envs": NUM_ENVS,
-        "seconds": time.perf_counter() - t_start,
-    }))
+    log(json.dumps({"kernels": kernel_rows(per_path, launches)}))
+    log(json.dumps({"paths": summary, "num_envs": NUM_ENVS,
+                    "control_steps": CONTROL_STEPS,
+                    "seconds": time.perf_counter() - t_start}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

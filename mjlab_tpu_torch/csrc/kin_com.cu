@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel kin_com (mjlab_tpu/phys/smooth_pallas.py:237,
 // pallas_call at :294), which traced the model's constants into
-// straight-line code over (8, 128) env tiles.
+// straight-line code over (8, 128) env tiles. A mocap body takes its frame
+// from the per-env mocap inputs (nmocap, 3, E) and (nmocap, 4, E), as the
+// TPU kernel's mocap planes (smooth_pallas.py:237-260).
 //
 // What bounds it on an H100: memory. Per env it reads nq floats and writes
 // the frames of the collision geoms, subtree coms, cdof, cinert (A, c),
@@ -22,6 +24,8 @@
 #include "smooth_common.cuh"
 
 __global__ void kin_com_kernel(SmoothTables t, const float* __restrict__ q,
+                               const float* __restrict__ mocap_pos,
+                               const float* __restrict__ mocap_quat,
                                float* gxpos, float* gxmat, float* subcom,
                                float* cdof, float* cinA, float* cinc,
                                float* xipos, float* xpos, float* xquat,
@@ -79,6 +83,12 @@ __global__ void kin_com_kernel(SmoothTables t, const float* __restrict__ q,
         st3(xaxis, j, E, e, qrot(tab3(t.jnt_axis, j), quat));
       }
       quat = qnormalize(quat);
+    }
+    const int mid = t.body_mocapid[b];
+    if (mid >= 0) {
+      pos = ld3(mocap_pos, mid, E, e);
+      quat = qnormalize({mocap_quat[(4 * mid) * E + e], mocap_quat[(4 * mid + 1) * E + e],
+                         mocap_quat[(4 * mid + 2) * E + e], mocap_quat[(4 * mid + 3) * E + e]});
     }
     st3(xpos, b, E, e, pos);
     xquat[(4 * b) * E + e] = quat.w;
@@ -188,6 +198,7 @@ __global__ void kin_com_kernel(SmoothTables t, const float* __restrict__ q,
 }
 
 extern "C" int kin_com_launch(const SmoothTables* t, const float* q,
+                              const float* mocap_pos, const float* mocap_quat,
                               float* gxpos, float* gxmat, float* subcom,
                               float* cdof, float* cinA, float* cinc,
                               float* xipos, float* xpos, float* xquat,
@@ -196,7 +207,7 @@ extern "C" int kin_com_launch(const SmoothTables* t, const float* q,
   const int threads = 32;
   int blocks = (E + threads - 1) / threads;
   kin_com_kernel<<<blocks, threads, 0, stream>>>(
-      *t, q, gxpos, gxmat, subcom, cdof, cinA, cinc, xipos, xpos, xquat,
+      *t, q, mocap_pos, mocap_quat, gxpos, gxmat, subcom, cdof, cinA, cinc, xipos, xpos, xquat,
       xanchor, xaxis, E);
   return static_cast<int>(cudaGetLastError());
 }

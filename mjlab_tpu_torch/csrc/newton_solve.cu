@@ -3,7 +3,9 @@
 //
 // Replaces the TPU kernel newton_assemble_solve with cone=0
 // (mjlab_tpu/phys/solver_pallas2.py:623, kernel _make_kernel at :46,
-// pallas_call at :674).
+// pallas_call at :674). The parts that do not depend on the cone (the
+// Cholesky, the line search, the friction and limit rows) are in
+// newton_common.cuh, shared with the elliptic kernel.
 //
 // What bounds it on an H100: operations, and the latency between them.
 // Each Newton iteration builds the Hessian M + J^T diag(D) J (nv^2/2 *
@@ -38,15 +40,9 @@
 // row, D and aref are 0) and, in the Hessian, rows with D * q = 0. The
 // limit rows go through the lim_dofs table, which covers the contiguous
 // and the scattered layouts alike (solver_pallas2.py:167-207).
-#include <cuda_runtime.h>
-
-#define FULL 0xffffffffu
-#define IN(p, r) (p)[(size_t)(r) * E + e]
+#include "newton_common.cuh"
 
 namespace {
-
-constexpr float kEps = 1e-12f;
-constexpr float kRidge = 1e-6f;
 
 struct SolveArgs {
   const float *Mc, *qfs, *ws, *qvel, *Mh, *Dnc, *arefnc, *flnc, *side;
@@ -64,79 +60,11 @@ __host__ __device__ inline int smem_floats(int nv, int RK, int nlim) {
   return RK * nv + 2 * nv * nv + 4 * RK + 2 * RK + 22 * nv + 6 * nlim;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-// the env's shared-memory layout
-struct Env {
-  int lane, nv, RK, nlim;
-  float *J, *M, *L, *Dd, *arefd, *jar_d, *v_d;
-  int *live, *act;
-  float *scale, *grad, *dx, *t1, *t2, *xm, *x, *jar_fr, *diagv, *work, *xt,
-      *asm_, *qv, *cdof, *D_fr, *aref_fr, *fl_fr;
-  float *D_lim, *aref_lim, *side, *jar_lim, *v_lim;
-  int* lim;
-  int nlive, nact;
+// the env's shared-memory layout: the common part and the active rows
+struct Env : EnvBase {
+  int* act;
+  int nact;
 };
-
-// out = M v, M column-major (j*nv + i); lanes over i, sequential over j
-__device__ void mat_vec(const Env& s, const float* M, const float* v, float* out) {
-  for (int i = s.lane; i < s.nv; i += 32) {
-    float acc = M[i] * v[0];
-    for (int j = 1; j < s.nv; ++j) acc = acc + M[j * s.nv + i] * v[j];
-    out[i] = acc;
-  }
-  __syncwarp();
-}
-
-// Jacobi-equilibrated Cholesky with a ridge; A may alias Lo (lower
-// triangle, column-major, written in place). scale gets 1/sqrt(diag).
-__device__ void chol_factor(const Env& s, const float* A, float* Lo, float* scale) {
-  const int nv = s.nv;
-  for (int j = s.lane; j < nv; j += 32) scale[j] = rsqrtf(fmaxf(A[j * nv + j], kEps));
-  __syncwarp();
-  for (int j = 0; j < nv; ++j) {
-    const float sj = scale[j];
-    float djj = A[j * nv + j] * (sj * sj) + kRidge;
-    for (int k = 0; k < j; ++k) djj = djj - Lo[k * nv + j] * Lo[k * nv + j];
-    const float d = sqrtf(fmaxf(djj, kRidge));
-    for (int i = j + 1 + s.lane; i < nv; i += 32) {
-      float v = A[j * nv + i] * (scale[i] * sj);
-      for (int k = 0; k < j; ++k) v = v - Lo[k * nv + i] * Lo[k * nv + j];
-      Lo[j * nv + i] = v / d;
-    }
-    __syncwarp();
-    if (s.lane == 0) Lo[j * nv + j] = djj / d;
-    __syncwarp();
-  }
-}
-
-// x = A^-1 g from chol_factor's (Lo, scale); work holds nv floats
-__device__ void chol_solve(const Env& s, const float* Lo, const float* scale,
-                           const float* g, float* x, float* work) {
-  const int nv = s.nv;
-  for (int i = s.lane; i < nv; i += 32) work[i] = g[i] * scale[i];
-  __syncwarp();
-  for (int j = 0; j < nv; ++j) {
-    const float yj = work[j] / Lo[j * nv + j];
-    __syncwarp();
-    for (int i = j + 1 + s.lane; i < nv; i += 32) work[i] = work[i] - Lo[j * nv + i] * yj;
-    if (s.lane == 0) work[j] = yj;
-    __syncwarp();
-  }
-  for (int k = nv - 1; k >= 0; --k) {
-    float acc = 0.f;
-    for (int i = k + 1; i < nv; ++i) acc = acc + Lo[k * nv + i] * x[i];
-    const float xk = (work[k] - acc) / Lo[k * nv + k];
-    __syncwarp();
-    if (s.lane == 0) x[k] = xk;
-    __syncwarp();
-  }
-  for (int i = s.lane; i < nv; i += 32) x[i] = x[i] * scale[i];
-  __syncwarp();
-}
 
 // row residuals at a point y: friction, limits, live contact rows
 __device__ void jar_into(const Env& s, const float* y, float* jf, float* jl, float* jd) {
@@ -144,10 +72,7 @@ __device__ void jar_into(const Env& s, const float* y, float* jf, float* jl, flo
   for (int l = s.lane; l < s.nlim; l += 32) jl[l] = s.side[l] * y[s.lim[l]] - s.aref_lim[l];
   for (int n = s.lane; n < s.nlive; n += 32) {
     const int row = s.live[n];
-    const float* Jr = s.J + row * s.nv;
-    float acc = 0.f;
-    for (int i = 0; i < s.nv; ++i) acc = acc + Jr[i] * y[i];
-    jd[row] = acc - s.arefd[row];
+    jd[row] = row_dot(s, row, y) - s.arefd[row];
   }
   __syncwarp();
 }
@@ -155,17 +80,7 @@ __device__ void jar_into(const Env& s, const float* y, float* jf, float* jl, flo
 // cost of the rows at jar + t * v (v == nullptr: at jar)
 __device__ float cost_rows(const Env& s, float t, const float* vf, const float* vl,
                            const float* vd) {
-  float c = 0.f;
-  for (int i = s.lane; i < s.nv; i += 32) {
-    const float j = s.jar_fr[i] + (vf ? t * vf[i] : 0.f);
-    const float D = s.D_fr[i], fl = s.fl_fr[i];
-    c = c + (fabsf(D * j) <= fl ? 0.5f * D * j * j
-                                : fl * fabsf(j) - 0.5f * fl * fl / fmaxf(D, kEps));
-  }
-  for (int l = s.lane; l < s.nlim; l += 32) {
-    const float j = s.jar_lim[l] + (vl ? t * vl[l] : 0.f);
-    if (j < 0.f) c = c + 0.5f * s.D_lim[l] * j * j;
-  }
+  float c = fr_lim_cost(s, t, vf, vl);
   for (int n = s.lane; n < s.nlive; n += 32) {
     const int row = s.live[n];
     const float j = s.jar_d[row] + (vd ? t * vd[row] : 0.f);
@@ -174,22 +89,9 @@ __device__ float cost_rows(const Env& s, float t, const float* vf, const float* 
   return warp_sum(c);
 }
 
-// 0.5 (y - a_smooth)' M (y - a_smooth), y = base + t * dir
-__device__ float smooth_cost(const Env& s, const float* base, float t, const float* dir) {
-  for (int i = s.lane; i < s.nv; i += 32)
-    s.xm[i] = (base[i] + (dir ? t * dir[i] : 0.f)) - s.asm_[i];
-  __syncwarp();
-  mat_vec(s, s.M, s.xm, s.t2);
-  float acc = 0.f;
-  for (int i = s.lane; i < s.nv; i += 32) acc = acc + s.xm[i] * s.t2[i];
-  return 0.5f * warp_sum(acc);
-}
-
 // out = f_fr + J^T f_d + limit scatter, forces at the current jar
 __device__ void jt_forces(const Env& s, float* out) {
   for (int i = s.lane; i < s.nv; i += 32) {
-    const float fq = -s.D_fr[i] * s.jar_fr[i];
-    const float fl = s.fl_fr[i];
     float acc = 0.f;
     for (int n = 0; n < s.nlive; ++n) {
       const int row = s.live[n];
@@ -197,31 +99,10 @@ __device__ void jt_forces(const Env& s, float* out) {
       const float fd = j < 0.f ? -s.Dd[row] * j : 0.f;
       acc = acc + s.J[row * s.nv + i] * fd;
     }
-    out[i] = fminf(fmaxf(fq, -fl), fl) + acc;
+    out[i] = fr_force(s, i) + acc;
   }
   __syncwarp();
-  for (int l = s.lane; l < s.nlim; l += 32) {  // distinct dofs: no race
-    const float j = s.jar_lim[l];
-    const float f = j < 0.f ? -s.D_lim[l] * j : 0.f;
-    out[s.lim[l]] = out[s.lim[l]] + s.side[l] * f;
-  }
-  __syncwarp();
-}
-
-// ordered list of the rows r < n with pred(r), by warp ballots
-template <class Pred>
-__device__ int compact(const Env& s, int n, const int* src, int* dst, Pred pred) {
-  int count = 0;
-  for (int base = 0; base < n; base += 32) {
-    const int idx = base + s.lane;
-    const int row = idx < n ? (src ? src[idx] : idx) : 0;
-    const bool take = idx < n && pred(row);
-    const unsigned mask = __ballot_sync(FULL, take);
-    if (take) dst[count + __popc(mask & ((1u << s.lane) - 1u))] = row;
-    count += __popc(mask);
-  }
-  __syncwarp();
-  return count;
+  lim_scatter(s, out);
 }
 
 __global__ void newton_solve_kernel(SolveArgs a) {
@@ -234,7 +115,6 @@ __global__ void newton_solve_kernel(SolveArgs a) {
   Env s;
   s.lane = threadIdx.x;
   s.nv = nv;
-  s.RK = RK;
   s.nlim = nlim;
   float* p = sm;
   auto take = [&](int n) { float* q = p; p += n; return q; };
@@ -258,20 +138,7 @@ __global__ void newton_solve_kernel(SolveArgs a) {
   const int lane = s.lane;
 
   // ---------- the env's inputs into shared memory ----------
-  for (int r = lane; r < nv * nv; r += 32) s.M[r] = IN(a.Mc, r);
-  for (int r = lane; r < 6 * nv; r += 32) s.cdof[r] = IN(a.cdof, r);
-  for (int i = lane; i < nv; i += 32) {
-    s.qv[i] = IN(a.qvel, i);
-    s.D_fr[i] = IN(a.Dnc, i);
-    s.aref_fr[i] = IN(a.arefnc, i);
-    s.fl_fr[i] = IN(a.flnc, i);
-  }
-  for (int l = lane; l < nlim; l += 32) {
-    s.D_lim[l] = IN(a.Dnc, nv + l);
-    s.aref_lim[l] = IN(a.arefnc, nv + l);
-    s.side[l] = IN(a.side, l);
-    s.lim[l] = a.lim[l];
-  }
+  load_common(s, a.Mc, a.cdof, a.qvel, a.Dnc, a.arefnc, a.flnc, a.side, a.lim, 0, E, e);
   __syncwarp();
 
   // ---------- phase A: dense contact rows (r-major), D and aref ----------
@@ -315,10 +182,7 @@ __global__ void newton_solve_kernel(SolveArgs a) {
   __syncwarp();
 
   // ---------- unconstrained acceleration: M a_smooth = qfrc_smooth ----------
-  for (int i = lane; i < nv; i += 32) s.t1[i] = IN(a.qfs, i);
-  __syncwarp();
-  chol_factor(s, s.M, s.L, s.scale);
-  chol_solve(s, s.L, s.scale, s.t1, s.asm_, s.work);
+  smooth_acceleration(s, a.qfs, E, e);
 
   // ---------- initial point: the cheaper of warmstart and a_smooth ----------
   for (int i = lane; i < nv; i += 32) s.xt[i] = IN(a.ws, i);
@@ -351,14 +215,7 @@ __global__ void newton_solve_kernel(SolveArgs a) {
     const float gnorm2 = warp_sum(gp);
 
     // Hessian H = M + diag(friction, limits) + J^T diag(D q) J (lower)
-    for (int i = lane; i < nv; i += 32) {
-      const float fq = -s.D_fr[i] * s.jar_fr[i];
-      const bool q = fabsf(fq) <= s.fl_fr[i] && s.D_fr[i] > 0.f;
-      s.diagv[i] = q ? s.D_fr[i] : 0.f;
-    }
-    __syncwarp();
-    for (int l = lane; l < nlim; l += 32)
-      if (s.jar_lim[l] < 0.f && s.D_lim[l] > 0.f) s.diagv[s.lim[l]] = s.diagv[s.lim[l]] + s.D_lim[l];
+    fr_lim_diag(s);
     s.nact = compact(s, s.nlive, s.live, s.act,
                      [&](int row) { return s.jar_d[row] < 0.f && s.Dd[row] > 0.f; });
     for (int j = 0; j < nv; ++j)
@@ -372,49 +229,19 @@ __global__ void newton_solve_kernel(SolveArgs a) {
         s.L[j * nv + i] = h + acc;
       }
     __syncwarp();
-    chol_factor(s, s.L, s.L, s.scale);
-    chol_solve(s, s.L, s.scale, s.grad, s.dx, s.work);
-    for (int i = lane; i < nv; i += 32) s.dx[i] = -s.dx[i];
-    __syncwarp();
+    newton_direction(s);
 
     // search direction in row space
     for (int l = lane; l < nlim; l += 32) s.v_lim[l] = s.side[l] * s.dx[s.lim[l]];
-    for (int n = lane; n < s.nlive; n += 32) {
-      const int row = s.live[n];
-      const float* Jr = s.J + row * nv;
-      float acc = 0.f;
-      for (int i = 0; i < nv; ++i) acc = acc + Jr[i] * s.dx[i];
-      s.v_d[row] = acc;
-    }
+    for (int n = lane; n < s.nlive; n += 32) s.v_d[s.live[n]] = row_dot(s, s.live[n], s.dx);
     __syncwarp();
-    mat_vec(s, s.M, s.dx, s.t2);
-    float q1p = 0.f, q2p = 0.f;
-    for (int i = lane; i < nv; i += 32) {
-      q1p = q1p + s.dx[i] * s.t1[i];
-      q2p = q2p + s.dx[i] * s.t2[i];
-    }
-    const float q1 = warp_sum(q1p), q2 = warp_sum(q2p);
+    float q1, q2;
+    smooth_quadratic(s, q1, q2);
 
     // slope (and curvature) of the cost along dx at step al
     auto dphi = [&](float al, bool need_h, float* d2out) {
       float sl = 0.f, hl = 0.f;
-      for (int i = lane; i < nv; i += 32) {
-        const float v = s.dx[i];
-        const float j = s.jar_fr[i] + al * v;
-        const float D = s.D_fr[i], fl = s.fl_fr[i];
-        const float fq = -D * j;
-        sl = sl + v * fminf(fmaxf(fq, -fl), fl);
-        if (need_h && fabsf(fq) <= fl && D > 0.f) hl = hl + D * v * v;
-      }
-      for (int l = lane; l < nlim; l += 32) {
-        const float v = s.v_lim[l];
-        const float j = s.jar_lim[l] + al * v;
-        if (j < 0.f) {
-          const float D = s.D_lim[l];
-          sl = sl + v * (-D * j);
-          if (need_h && D > 0.f) hl = hl + D * v * v;
-        }
-      }
+      fr_lim_slope(s, al, need_h, sl, hl);
       for (int n = lane; n < s.nlive; n += 32) {
         const int row = s.live[n];
         const float v = s.v_d[row];
@@ -429,38 +256,14 @@ __global__ void newton_solve_kernel(SolveArgs a) {
       if (need_h) *d2out = q2 + warp_sum(hl);
       return q1 + al * q2 - ssum;
     };
-
-    // line search: 12 doubling probes, then safeguarded Newton/bisection
-    float hi = 1.f;
-    for (int pr = 0; pr < 12; ++pr) {
-      const float g = dphi(hi, false, nullptr);
-      if (g < 0.f) hi = hi * 2.f;
-    }
-    float lo = 0.f;
-    float al = fminf(hi, 1.f);
-    for (int pr = 0; pr < a.ls_iterations; ++pr) {
-      float h;
-      const float g = dphi(al, true, &h);
-      if (g < 0.f) lo = al; else hi = al;
-      const float an = al - g / fmaxf(h, kEps);
-      al = (an > lo && an < hi) ? an : 0.5f * (lo + hi);
-    }
-    const float step = fmaxf(al, 0.f);
+    const float step = line_search(dphi, a.ls_iterations);
 
     // accept when the cost drops (ok), else stop
     const float cost_new =
         smooth_cost(s, s.x, step, s.dx) + cost_rows(s, step, s.dx, s.v_lim, s.v_d);
     const bool ok = isfinite(cost_new) && cost_new < cost_x;
     if (ok) {
-      for (int i = lane; i < nv; i += 32) {
-        s.x[i] = s.x[i] + step * s.dx[i];
-        s.jar_fr[i] = s.jar_fr[i] + step * s.dx[i];
-      }
-      for (int l = lane; l < nlim; l += 32) s.jar_lim[l] = s.jar_lim[l] + step * s.v_lim[l];
-      for (int n = lane; n < s.nlive; n += 32) {
-        const int row = s.live[n];
-        s.jar_d[row] = s.jar_d[row] + step * s.v_d[row];
-      }
+      advance(s, step);
       __syncwarp();
       cost_x = cost_new;
     }
@@ -469,17 +272,7 @@ __global__ void newton_solve_kernel(SolveArgs a) {
   if (lane == 0) IN(a.iters, 0) = it;
 
   // ---------- outputs ----------
-  for (int i = lane; i < nv; i += 32) {
-    const float fq = -s.D_fr[i] * s.jar_fr[i];
-    const float fl = s.fl_fr[i];
-    IN(a.fnc, i) = fminf(fmaxf(fq, -fl), fl);
-    IN(a.x, i) = s.x[i];
-    IN(a.asm_, i) = s.asm_[i];
-  }
-  for (int l = lane; l < nlim; l += 32) {
-    const float j = s.jar_lim[l];
-    IN(a.fnc, nv + l) = j < 0.f ? -s.D_lim[l] * j : 0.f;
-  }
+  store_common(s, a.x, a.asm_, a.fnc, 0, E, e);
   for (int row = lane; row < RK; row += 32) IN(a.fcon, row) = 0.f;
   __syncwarp();
   for (int n = lane; n < s.nlive; n += 32) {
@@ -489,16 +282,7 @@ __global__ void newton_solve_kernel(SolveArgs a) {
   }
   jt_forces(s, s.work);
   for (int i = lane; i < nv; i += 32) IN(a.qfrc, i) = s.work[i];
-  if (a.do_int) {
-    mat_vec(s, s.M, s.x, s.xt);
-    for (int r = lane; r < nv * nv; r += 32) s.L[r] = IN(a.Mh, r);
-    __syncwarp();
-    chol_factor(s, s.L, s.L, s.scale);
-    chol_solve(s, s.L, s.scale, s.xt, s.t1, s.work);
-    for (int i = lane; i < nv; i += 32) IN(a.qint, i) = s.t1[i];
-  } else {
-    for (int i = lane; i < nv; i += 32) IN(a.qint, i) = s.x[i];
-  }
+  store_qacc_int(s, a.Mh, a.qint, a.do_int, E, e);
 }
 
 }  // namespace

@@ -41,6 +41,7 @@ struct SmoothTables {
   const int* act_biastype;
   const int* act_ctrllimited;
   const int* act_forcelimited;
+  const int* body_mocapid;  // (nbody,) mocap id, -1 for other bodies
   // float tables
   const float* qpos0;
   const float* body_pos;      // (nbody, 3)

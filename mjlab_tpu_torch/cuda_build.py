@@ -19,7 +19,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("kin_com", "crb_packed", "vel_smooth", "newton_solve")
+SOURCES = (
+    "kin_com", "crb_packed", "vel_smooth", "newton_solve", "newton_solve_elliptic",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

@@ -16,7 +16,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from mjlab_tpu_torch.phys.model import Model
+from mjlab_tpu_torch.phys.model import Model, device_array
 
 
 @dataclass
@@ -113,8 +113,18 @@ def tensor_fields() -> tuple[str, ...]:
     return tuple(f.name for f in dataclasses.fields(Data))
 
 
+def mocap_bodies(m: Model) -> torch.Tensor:
+    """Body id of each mocap body, in mocap id order (on the model's
+    device)."""
+    return device_array(
+        m, "mocap_bodies",
+        lambda: np.argsort(m.body_mocapid)[m.nbody - m.nmocap:], torch.long,
+    )
+
+
 def _fresh(m: Model) -> dict[str, torch.Tensor]:
-    """Per-world fresh values (qpos0, identity frames, far contacts)."""
+    """Per-world fresh values (qpos0, identity frames, far contacts, mocap
+    frames at their bodies' model frames as mj_resetData sets them)."""
     dt, dev = m.dtype, m.device
     ncon = m.pairs.ncon
 
@@ -125,6 +135,7 @@ def _fresh(m: Model) -> dict[str, torch.Tensor]:
         return torch.tensor(vals, dtype=dt, device=dev).repeat(n, 1)
 
     eye = torch.eye(3, dtype=dt, device=dev)
+    mocap_body = mocap_bodies(m)
     packed = torch.tensor(
         [1e10, 0.0, 0.0, 0.0, 0.0, 1.0, 1.0, 0.005, 1e-4, 1e-4, 0.02, 1.0,
          0.9, 0.95, 0.001, 0.5, 2.0] + np.eye(3).reshape(9).tolist(),
@@ -140,8 +151,8 @@ def _fresh(m: Model) -> dict[str, torch.Tensor]:
         act_dot=z(m.na),
         qfrc_applied=z(m.nv),
         xfrc_applied=z(m.nbody, 6),
-        mocap_pos=z(m.nmocap, 3),
-        mocap_quat=tile([1.0, 0, 0, 0], m.nmocap),
+        mocap_pos=m.body_pos[mocap_body].clone(),
+        mocap_quat=m.body_quat[mocap_body].clone(),
         qacc_warmstart=z(m.nv),
         xpos=z(m.nbody, 3),
         xquat=tile([1.0, 0, 0, 0], m.nbody),

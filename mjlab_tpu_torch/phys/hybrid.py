@@ -3,7 +3,7 @@
 PyTorch counterpart of mjlab_tpu/phys/hybrid.py's kernel path
 (``_step_envlast``, ``refresh_envlast``). One step:
 
-    kin_com (kernel)            qpos -> geom frames, com, cdof, cinert
+    kin_com (kernel)            qpos, mocap -> geom frames, com, cdof, cinert
     collision_lm, constraint    narrowphase + top-K + row data (eager torch)
     vel_smooth (kernel)         qfrc_smooth, actuator force, Mh diagonal
     crb_packed (kernel)         mass matrix pairs -> dense (nv*nv, E)
@@ -28,7 +28,7 @@ from mjlab_tpu_torch.phys.lm.base import Params
 from mjlab_tpu_torch.phys.lm.collision import collision_lm, slot_params
 from mjlab_tpu_torch.phys.lm.constraint import make_constraint_lm
 from mjlab_tpu_torch.phys.model import (
-    JNT_BALL, JNT_FREE, Model, cached, device_array,
+    CONE_PYRAMIDAL, JNT_BALL, JNT_FREE, Model, cached, device_array,
 )
 from mjlab_tpu_torch.phys.smooth_kernels import (
     collision_geoms, crb_packed, implicit_flags, integrate_envlast, kin_com,
@@ -61,13 +61,26 @@ def contact_stack(m: Model, P: Params, qT, vT, gxpos, gxmat, subcom):
     return make_constraint_lm(m, P, k, q, qvel, qT.dtype)
 
 
+def mocap_planes(m: Model, d: Data):
+    """The env-last mocap frames (nmocap, 3, E), (nmocap, 4, E) kin_com
+    takes, or (None, None) for a model without mocap bodies."""
+    if not m.nmocap:
+        return None, None
+    return (d.mocap_pos.permute(1, 2, 0).contiguous(),
+            d.mocap_quat.permute(1, 2, 0).contiguous())
+
+
 def solve_args(m: Model, k: dict, qM_cm, qfsT, wsT, vT, cdofT, Mh_cm):
     """(args, kwargs) of newton_assemble_solve from the kernel-mode
     constraint tensors: every input contiguous, env-last, in the kernel's
-    layouts (component- and dof-major, contact rows r-major)."""
+    layouts (component- and dof-major, contact rows r-major). The
+    elliptic cone passes the friction-row D values where the pyramidal
+    one passes the friction coefficients, and the whitened cone
+    coefficient."""
     E = vT.shape[-1]
-    nv, K, R = m.nv, m.ncon_max, m.rows_per_con
-    NC = nv + m.nlimit
+    nv, K, R, neq = m.nv, m.ncon_max, m.rows_per_con, m.neq_jnt
+    NC = neq + nv + m.nlimit
+    cone = int(m.opt.cone)
 
     def cm(x):  # (K, w, E) -> component-major (w*K, E)
         return x.permute(1, 0, 2).reshape(-1, E).contiguous()
@@ -78,16 +91,19 @@ def solve_args(m: Model, k: dict, qM_cm, qfsT, wsT, vT, cdofT, Mh_cm):
     args = (
         c(qM_cm), c(qfsT), c(wsT), c(vT), c(Mh_cm) if do_int else dummy,
         c(k["efc_D"][:NC]), c(k["efc_aref"][:NC]), c(k["efc_fl"][:NC]),
-        c(k["efc_lim_side"]), dummy,
+        c(k["efc_lim_side"]),
+        c(k["efc_Jeq"].reshape(neq * nv, E)) if neq else dummy,
         c(cdofT), cm(k["con_pos_k"]), c(k["con_O1"].reshape(3 * K, E)),
         c(k["con_O2"].reshape(3 * K, E)), cm(k["con_frame_k"]),
-        cm(k["con_mu_dirs"]), dummy,
+        cm(k["con_Dfri"]) if cone else cm(k["con_mu_dirs"]),
+        c(k["con_mut"]) if cone else dummy,
         c(k["con_Dc"]), c(k["con_bb"]), c(k["con_kimp"]),
         c(k["con_on"].to(vT.dtype)),
         c(k["con_W1"].reshape(nv * K, E)), c(k["con_W2"].reshape(nv * K, E)),
     )
     kw = dict(
-        nv=nv, K=K, R=R, ndirs=R // 2, neq=0, nlim=m.nlimit,
+        nv=nv, K=K, R=R, ndirs=R - 1 if cone else R // 2, neq=neq,
+        nlim=m.nlimit, cone=cone,
         lim_dofs=tuple(int(a) for a in m.jnt_dofadr[m.limit_jntid]),
         iterations=m.opt.iterations,
         ls_iterations=max(m.opt.ls_iterations, 8),
@@ -149,8 +165,10 @@ def _writeback_lean(m: Model, d: Data, k: dict, P: Params) -> Data:
 
 
 def decode_contact_forces(m: Model, d: Data, efc_force: torch.Tensor):
-    """World contact force and torque per compacted slot (mj_contactForce,
-    pyramidal cone): (E, K, 3) each, zero on inactive slots."""
+    """World contact force and torque per compacted slot (mj_contactForce):
+    (E, K, 3) each, zero on inactive slots. Elliptic rows are the
+    contact-frame components [fn, t1, t2, torsion, roll1, roll2][:R];
+    pyramidal rows are edge forces."""
     K, R = m.ncon_max, m.rows_per_con
     E = efc_force.shape[0]
     base = m.neq_jnt + m.nv + m.nlimit + m.nlimit_ten
@@ -160,6 +178,19 @@ def decode_contact_forces(m: Model, d: Data, efc_force: torch.Tensor):
     frame = cpk[..., 17:26].reshape(E, K, 3, 3)
     dim_k = cpk[..., 26]
     active = d.con_sel_active[..., None]
+
+    if int(m.opt.cone) != CONE_PYRAMIDAL:
+        def world(first):
+            fc = torch.stack([
+                rows[..., i] if i < R else torch.zeros_like(dim_k)
+                for i in range(first, first + 3)
+            ], dim=-1)
+            return torch.where(
+                active, torch.einsum("ekf,ekfx->ekx", fc, frame), 0.0
+            )
+
+        force = world(0)
+        return force, world(3) if R > 3 else torch.zeros_like(force)
 
     def comp(i, dim_req):
         # friction component i (1-based) <- rows 2(i-1), 2(i-1)+1
@@ -197,7 +228,9 @@ def forward_solve(m: Model, d: Data, iters: torch.Tensor | None = None,
     vT = d.qvel.T.contiguous()
     ctrlT = d.ctrl.T.contiguous()
 
-    gxpos, gxmat, subcom, cdof, cinA, cinc, xipos, _, _ = kin_com(m, qT)
+    gxpos, gxmat, subcom, cdof, cinA, cinc, xipos, _, _ = kin_com(
+        m, qT, *mocap_planes(m, d)
+    )
     mark("kin_com")
     k = contact_stack(m, P, qT, vT, gxpos, gxmat, subcom)
     mark("contact")
@@ -340,7 +373,9 @@ def refresh_envlast(m: Model, d: Data) -> Data:
     dt, dev = d.qpos.dtype, d.qpos.device
     qT = d.qpos.T.contiguous()
     vT = d.qvel.T
-    _, _, subcom, cdof, cinA, cinc, xipos, xpos, xquat = kin_com(m, qT)
+    _, _, subcom, cdof, cinA, cinc, xipos, xpos, xquat = kin_com(
+        m, qT, *mocap_planes(m, d)
+    )
 
     xmat = _quat_mat_planes(xquat)
     local = cached(m, "refresh_frames", lambda: {

@@ -1,8 +1,13 @@
 """Env-last narrowphase: contact distance, position and frame per slot.
 
 PyTorch counterpart of mjlab_tpu/phys/lm/collision.py for the pair
-families the G1 velocity task uses: plane-sphere, plane-capsule,
-sphere-sphere, sphere-capsule and capsule-capsule. Pair groups run as
+families the G1 velocity and YAM lift-cube tasks use: plane-sphere,
+plane-capsule, plane-box, sphere-sphere, sphere-capsule, sphere-box,
+capsule-capsule, capsule-box and box-box (the heightfield families are
+not carried yet). Same formulas and the same selection order as the JAX
+package: a box's corners are taken deepest first, lower corner index
+first on ties, and box-box picks its separating axis as argmax does
+(first axis on ties). Pair groups run as
 (P, E) tensors, pairs on the first axis and envs on the last. Per-slot
 contact parameters (friction, solref, solimp, margin - gap) are mixed on
 the host in numpy: no geom parameter is per-env in this package.
@@ -15,14 +20,17 @@ import torch
 
 from mjlab_tpu_torch.phys.lm.base import Params
 from mjlab_tpu_torch.phys.model import (
-    GEOM_CAPSULE, GEOM_PLANE, GEOM_SPHERE, Model, cached, host_array,
+    GEOM_BOX, GEOM_CAPSULE, GEOM_PLANE, GEOM_SPHERE, Model, cached,
+    host_array,
 )
 
 # (type1, type2) narrowphase families carried by collision_lm
 PAIR_FAMILIES = frozenset({
     (GEOM_PLANE, GEOM_SPHERE), (GEOM_PLANE, GEOM_CAPSULE),
-    (GEOM_SPHERE, GEOM_SPHERE), (GEOM_SPHERE, GEOM_CAPSULE),
-    (GEOM_CAPSULE, GEOM_CAPSULE),
+    (GEOM_PLANE, GEOM_BOX), (GEOM_SPHERE, GEOM_SPHERE),
+    (GEOM_SPHERE, GEOM_CAPSULE), (GEOM_SPHERE, GEOM_BOX),
+    (GEOM_CAPSULE, GEOM_CAPSULE), (GEOM_CAPSULE, GEOM_BOX),
+    (GEOM_BOX, GEOM_BOX),
 })
 
 
@@ -104,12 +112,13 @@ def slot_params(m: Model, P: Params, dtype):
 
 # 3-vectors are (P, 3, E) tensors (pairs, component, envs) and frames
 # (P, 9, E) row-major. Dot products sum in the JAX package's order, so
-# distances (and with them the top-K contact order) round as there.
+# distances (and with them the top-K contact order) round as there; _dot
+# also takes extra leading axes, (..., P, 3, E).
 
 
 def _dot(a, b):
-    p = a * b
-    return p[:, 0] + p[:, 1] + p[:, 2]
+    p0, p1, p2 = (a * b).unbind(-2)
+    return p0 + p1 + p2
 
 
 def _cross(a, b):
@@ -150,6 +159,131 @@ def _closest_on_segment(p, a, b):
 def _col(mat9, i):
     """Column i of row-major (P, 9, E) frames, as (P, 3, E)."""
     return mat9[:, i::3]
+
+
+# The box families carry extra leading axes (corners, search points): their
+# 3-vectors are (..., P, 3, E), the component on axis -2, and every sum
+# keeps the JAX package's order of terms.
+
+
+def _rot(R, v):
+    """R v for row-major (P, 9, E) frames and (..., P, 3, E|1) vectors."""
+    Rm = R.reshape(R.shape[0], 3, 3, -1)
+    return (Rm[:, :, 0] * v[..., 0:1, :] + Rm[:, :, 1] * v[..., 1:2, :]
+            + Rm[:, :, 2] * v[..., 2:3, :])
+
+
+def _rot_t(R, v):
+    """R^T v (world to the frame's local coordinates)."""
+    Rm = R.reshape(R.shape[0], 3, 3, -1)
+    return (Rm[:, 0] * v[..., 0:1, :] + Rm[:, 1] * v[..., 1:2, :]
+            + Rm[:, 2] * v[..., 2:3, :])
+
+
+_CORNER_SIGNS = tuple(
+    (sx, sy, sz) for sx in (-1.0, 1.0) for sy in (-1.0, 1.0) for sz in (-1.0, 1.0)
+)
+
+
+def _corners(xp, xm, size):
+    """The 8 corners (8, P, 3, E) of boxes at xp (P, 3, E), frames xm
+    (P, 9, E), half-sizes size (P, 3), in the order of _CORNER_SIGNS."""
+    signs = torch.tensor(_CORNER_SIGNS, dtype=size.dtype, device=size.device)
+    local = (signs[:, None] * size[None])[..., None]  # (8, P, 3, 1)
+    return xp + _rot(xm, local)
+
+
+def _deepest4(D8, C8):
+    """The 4 lowest of the distances D8 (8, P, E), lower corner first on
+    ties (jax.lax.top_k of the negated distances), with their points from
+    C8 (8, P, 3, E): (d4 (P, 4, E), p4 (P, 4, 3, E))."""
+    d8, idx = torch.sort(D8.permute(1, 0, 2), dim=1, stable=True)
+    i4 = idx[:, :4, None, :].expand(-1, -1, 3, -1)
+    return d8[:, :4], torch.gather(C8.permute(1, 0, 2, 3), 1, i4)
+
+
+def _point_box_sd(p, size):
+    """Signed distance of local points p (..., P, 3, E) to boxes of
+    half-sizes size (P, 3), and its parts (the clamped point, the face
+    distances and the nearest-face flags) for _point_box_dist."""
+    s = size[:, :, None]
+    q = torch.clamp(p, min=-s, max=s)
+    delta = p - q
+    d_out = torch.sqrt(torch.clamp(_dot(delta, delta), min=0.0))
+    f0, f1, f2 = (s - torch.abs(p)).unbind(-2)
+    k0 = (f0 <= f1) & (f0 <= f2)
+    k1 = (~k0) & (f1 <= f2)
+    k2 = ~(k0 | k1)
+    d_in = -(torch.where(k0, f0, 0.0) + torch.where(k1, f1, 0.0)
+             + torch.where(k2, f2, 0.0))
+    outside = d_out > 1e-12
+    return torch.where(outside, d_out, d_in), (q, delta, d_out, outside,
+                                               (k0, k1, k2), d_in)
+
+
+def _point_box_dist(p, size):
+    """Signed distance of local points p (P, 3, E) to boxes of half-sizes
+    size (P, 3): (dist (P, E), outward normal, surface point), local."""
+    dist, (q, delta, d_out, outside, ks, d_in) = _point_box_sd(p, size)
+    n_out = delta / torch.clamp(d_out, min=1e-12)[:, None]
+    sgn = torch.where(p >= 0, 1.0, -1.0)
+    n_in = torch.stack(
+        [torch.where(k, sgn[:, i], 0.0) for i, k in enumerate(ks)], dim=1
+    )
+    n = torch.where(outside[:, None], n_out, n_in)
+    surf = torch.where(outside[:, None], q, p - _times(n_in, d_in))
+    return dist, n, surf
+
+
+def _point_box_contact(p_world, r, xp2, xm2, s2):
+    """Contact of spheres of radius r (P, 1) at p_world (P, 3, E) with
+    boxes: (dist, pos, frame), the normal pointing from the sphere into
+    the box (geom1 to geom2)."""
+    sd, n_l, surf_l = _point_box_dist(_rot_t(xm2, p_world - xp2), s2)
+    dist = sd - r
+    n = -_rot(xm2, n_l)
+    surf_w = xp2 + _rot(xm2, surf_l)
+    return dist, surf_w - _times(n, 0.5 * dist), _make_frame(n)
+
+
+def _box_box(xp1, xm1, s1, xp2, xm2, s2):
+    """Face-SAT box-box (mirrors phys.collision._box_box): 4 deepest
+    corners of the incident box against the reference face; (d4 (P, 4,
+    E), p4 (P, 4, 3, E), frame (P, 9, E))."""
+    delta = xp2 - xp1
+    # the 6 candidate axes: box 1's frame columns, then box 2's
+    axes = torch.cat([xm1.reshape(-1, 3, 3, xm1.shape[-1]),
+                      xm2.reshape(-1, 3, 3, xm2.shape[-1])], dim=2)
+    axes = axes.permute(2, 0, 1, 3)  # (6, P, 3, E)
+
+    def radius(xm, s):  # sum_i |axis . u_i| s_i for every axis
+        out = None
+        for i in range(3):
+            t = torch.abs(_dot(axes, _col(xm, i))) * s[:, i:i + 1]
+            out = t if out is None else out + t
+        return out  # (6, P, E)
+
+    r1s, r2s = radius(xm1, s1), radius(xm2, s2)
+    cds = _dot(axes, delta)
+    sep = torch.abs(cds) - (r1s + r2s)
+    kbest = torch.argmax(sep, dim=0)  # first maximum on ties
+
+    def select(vals):  # vals (6, P, ...) at kbest
+        idx = kbest.reshape((1,) + kbest.shape[:1] + (1,) * (vals.dim() - 3)
+                            + kbest.shape[1:])
+        return torch.gather(vals, 0, idx.expand((1,) + vals.shape[1:]))[0]
+
+    n = _times(select(axes), torch.sign(select(cds)))
+    ref1 = kbest < 3
+    ref_pos = torch.where(ref1[:, None], xp1, xp2)
+    r_ref = torch.where(ref1, select(r1s), select(r2s))
+    n_out = torch.where(ref1[:, None], n, -n)
+    plane_p = ref_pos + _times(n_out, r_ref)
+    corners = torch.where(
+        ref1[:, None], _corners(xp2, xm2, s2), _corners(xp1, xm1, s1)
+    )
+    d4, p4 = _deepest4(_dot(corners - plane_p, n_out), corners)
+    return d4, p4 - n_out[:, None] * 0.5 * d4[:, :, None], _make_frame(n)
 
 
 def _groups(m: Model, dtype):
@@ -240,6 +374,53 @@ def collision_lm(m: Model, P: Params, gx: torch.Tensor, gm: torch.Tensor,
             dist_b.append(dist)
             pos_b.append(pos)
             frame_b.append(_make_frame(n))
+        elif key == (GEOM_PLANE, GEOM_BOX):
+            n = _col(xm1, 2)
+            corners = _corners(xp2, xm2, s2)
+            d4, p4 = _deepest4(_dot(n, corners - xp1), corners)
+            dist_b.append(d4.reshape(-1, E))
+            pos_b.append((p4 - n[:, None] * 0.5 * d4[:, :, None]).reshape(-1, 3, E))
+            frame_b.append(
+                _make_frame(n)[:, None].expand(-1, 4, -1, -1).reshape(-1, 9, E)
+            )
+        elif key == (GEOM_SPHERE, GEOM_BOX):
+            dist, pos, frame = _point_box_contact(xp1, r1, xp2, xm2, s2)
+            dist_b.append(dist)
+            pos_b.append(pos)
+            frame_b.append(frame)
+        elif key == (GEOM_CAPSULE, GEOM_BOX):
+            # the deepest point of the segment by ternary search (both
+            # probes of a step in one batch), and the end farther from it
+            ax = _times(_col(xm1, 2), s1[:, 1:2])
+            a, b = xp1 - ax, xp1 + ax
+            ab = b - a
+
+            def seg_point(t):  # t (..., P, E) -> (..., P, 3, E)
+                return a + ab * t[..., None, :]
+
+            lo = torch.zeros_like(a[:, 0])
+            hi = torch.ones_like(lo)
+            for _ in range(20):
+                third = (hi - lo) / 3.0
+                m12 = torch.stack([lo + third, hi - third])
+                sd, _ = _point_box_sd(_rot_t(xm2, seg_point(m12) - xp2), s2)
+                take = sd[0] > sd[1]
+                lo = torch.where(take, m12[0], lo)
+                hi = torch.where(take, hi, m12[1])
+            t_star = 0.5 * (lo + hi)
+            t_end = torch.where(t_star > 0.5, 0.0, 1.0).to(t_star.dtype)
+            ds, ps, fs = zip(*[
+                _point_box_contact(seg_point(t), r1, xp2, xm2, s2)
+                for t in (t_star, t_end)
+            ])
+            dist_b.append(torch.stack(ds, 1).reshape(-1, E))
+            pos_b.append(torch.stack(ps, 1).reshape(-1, 3, E))
+            frame_b.append(torch.stack(fs, 1).reshape(-1, 9, E))
+        elif key == (GEOM_BOX, GEOM_BOX):
+            d4, p4, frame = _box_box(xp1, xm1, s1, xp2, xm2, s2)
+            dist_b.append(d4.reshape(-1, E))
+            pos_b.append(p4.reshape(-1, 3, E))
+            frame_b.append(frame[:, None].expand(-1, 4, -1, -1).reshape(-1, 9, E))
         else:  # (GEOM_CAPSULE, GEOM_CAPSULE): closest points of two segments
             ax1 = _times(_col(xm1, 2), s1[:, 1:2])
             ax2 = _times(_col(xm2, 2), s2[:, 1:2])

@@ -1,10 +1,12 @@
 """Env-last constraint rows for the fused assemble + solve kernel.
 
 PyTorch counterpart of mjlab_tpu/phys/lm/constraint.py in its kernel mode
-(``make_constraint_lm(..., assemble_j=False)``), pyramidal cone. Row layout
-[dof friction][joint limits][contacts]; the dense contact Jacobian is not
-built here: the solver kernel rebuilds it from the compact per-slot
-tensors (positions, frames, ancestor dof masks, friction directions).
+(``make_constraint_lm(..., assemble_j=False)``), both friction cones. Row
+layout [joint equality][dof friction][joint limits][contacts]; the dense
+contact Jacobian is not built here: the solver kernel rebuilds it from the
+compact per-slot tensors (positions, frames, ancestor dof masks, and the
+friction coefficients (pyramidal) or friction-row D values and the
+whitened cone coefficient (elliptic)).
 
 Top-K compaction keeps, per env, the K slots with the lowest score
 (dist - includemargin), lower slot index first on ties: the first K of a
@@ -22,6 +24,10 @@ from mjlab_tpu_torch.phys.lm.stages import ancestor_dof_mask
 from mjlab_tpu_torch.phys.model import (
     CONE_PYRAMIDAL, JNT_HINGE, JNT_SLIDE, Model, cached, device_array,
 )
+
+# contact dimension each friction direction needs: t1, t2 (3), torsion
+# (4), roll1, roll2 (6)
+_DIR_NEED = (3, 3, 4, 6, 6)
 
 _MINVAL = 1e-10
 
@@ -86,23 +92,59 @@ def make_constraint_lm(m: Model, P: Params, k: dict, q, qvel, dtype) -> dict:
     con_dist/con_pos/con_frame (collision_lm) and subtree_com (nbody, 3, E).
 
     Adds efc_D/efc_aref/efc_fl (nefc, E) with the contact slices zero (the
-    kernel owns them), efc_lim_side (nlimit, E), efc_pos/efc_margin/
-    efc_active, and the per-slot kernel inputs con_mu_dirs (K, ndirs, E),
+    kernel owns them), efc_Jeq (neq, nv, E), efc_lim_side (nlimit, E),
+    efc_pos/efc_margin/efc_active, and the per-slot kernel inputs
     con_Dc/con_bb/con_kimp (K, E), con_W1/con_W2 (nv, K, E), con_O1/con_O2
-    (3, K, E), con_on (R*K, E) r-major, plus the compacted slot record
-    (con_sel, con_sel_active, con_dist_k, con_pos_k, con_frame_k,
-    con_mu_k, con_dim_k, con_solref_k, con_solimp_k, con_margin_k)."""
-    if int(m.opt.cone) != CONE_PYRAMIDAL:
-        raise NotImplementedError("the elliptic cone is not ported yet")
-    if m.neq_jnt:
-        raise NotImplementedError("equality constraints are not ported yet")
+    (3, K, E), con_on (R*K, E) r-major, with con_mu_dirs (K, R/2, E)
+    (pyramidal) or con_Dfri (K, R-1, E) and con_mut (K, E) (elliptic),
+    plus the compacted slot record (con_sel, con_sel_active, con_dist_k,
+    con_pos_k, con_frame_k, con_mu_k, con_dim_k, con_solref_k,
+    con_solimp_k, con_margin_k)."""
     nv = m.nv
+    neq = m.neq_jnt
     nlimit = m.nlimit
     E = P.E
     dev = m.device
 
     D_b, aref_b, fl_b = [], [], []
     pos_b, margin_b, act_b = [], [], []
+
+    # ---- joint equality rows: q1 = poly(q2) ----
+    Jeq = torch.zeros((neq, nv, E), dtype=dtype, device=dev)
+    if neq:
+        rows_D, rows_aref, rows_pos = [], [], []
+        for e in range(neq):
+            q1adr = int(m.eq_j1_qadr[e])
+            q2adr = int(m.eq_j2_qadr[e])
+            d1 = int(m.eq_j1_dofadr[e])
+            pc = [P.plane("eq_polycoef", e, i) for i in range(5)]
+            q1v = q[q1adr] - P.plane("eq_q0_1", e)
+            Jeq[e, d1] = 1.0
+            if q2adr >= 0:
+                d2 = int(m.eq_j2_dofadr[e])
+                q2v = q[q2adr] - P.plane("eq_q0_2", e)
+                poly = pc[0] + q2v * (pc[1] + q2v * (pc[2] + q2v * (pc[3] + q2v * pc[4])))
+                dpoly = pc[1] + q2v * (2 * pc[2] + q2v * (3 * pc[3] + 4 * pc[4] * q2v))
+                pos_eq = q1v - poly
+                vel = qvel[d1] - dpoly * qvel[d2]
+                iw = P.plane("dof_invweight0", d1) + P.plane("dof_invweight0", d2)
+                Jeq[e, d2] = Jeq[e, d2] - dpoly
+            else:
+                pos_eq = q1v - pc[0]
+                vel = qvel[d1]
+                iw = P.plane("dof_invweight0", d1)
+            imp, kk, bb, De = _efc_kbid(
+                P("eq_solref")[e], P("eq_solimp")[e], pos_eq, iw
+            )
+            rows_D.append(torch.broadcast_to(De, (E,)))
+            rows_aref.append(-bb * vel - kk * imp * pos_eq)
+            rows_pos.append(pos_eq)
+        D_b.append(torch.stack(rows_D))
+        aref_b.append(torch.stack(rows_aref))
+        fl_b.append(torch.zeros((neq, E), dtype=dtype, device=dev))
+        pos_b.append(torch.stack(rows_pos))
+        margin_b.append(torch.zeros((neq, E), dtype=dtype, device=dev))
+        act_b.append(torch.ones((neq, E), dtype=torch.bool, device=dev))
 
     # ---- dof friction rows (their D and b are constants of the model) ----
     def friction_rows():
@@ -207,11 +249,11 @@ def make_constraint_lm(m: Model, P: Params, k: dict, q, qvel, dtype) -> dict:
         iw_body = P("body_invweight0")[:, 0, 0]  # (nbody,)
         invweight_t = iw_body[b1] + iw_body[b2]  # (K, E)
 
-        ndirs = R // 2
+        elliptic = int(m.opt.cone) != CONE_PYRAMIDAL
+        ndirs = R - 1 if elliptic else R // 2
         frictionless = dim_k == 1
         dir_need = device_array(
-            m, ("dir_need", ndirs), lambda: np.array([3, 3, 4, 6, 6])[:ndirs],
-            dtype,
+            m, ("dir_need", ndirs), lambda: np.array(_DIR_NEED)[:ndirs], dtype,
         )
         mu_dirs = torch.where(
             (dim_k[:, None] >= dir_need[None, :, None])
@@ -221,28 +263,51 @@ def make_constraint_lm(m: Model, P: Params, k: dict, q, qvel, dtype) -> dict:
         )  # (K, ndirs, E)
 
         pos_c = dist_k - margin_k
-        row_count = torch.where(
-            frictionless, 4.0, 2.0 * (torch.clamp(dim_k, min=3.0) - 1.0)
-        )
-        row_on = (
-            torch.arange(R, dtype=dtype, device=dev)[None, :, None]
-            < row_count[:, None, :]
-        )  # (K, R, E)
-        mu1 = mu_dirs[:, 0]
-        diag_pyr = (
-            2.0 * mu1 * mu1 * (1.0 + mu1 * mu1) * invweight_t
-            / cached(m, "impratio", lambda: float(m.opt.impratio))
-        )
-        diag_approx = torch.where(frictionless, invweight_t * 4.0, diag_pyr)
-        imp, kk, bb, Dc = _efc_kbid(solref_k, solimp_k, pos_c, diag_approx)
-        pos_rows = torch.broadcast_to(dist_k[:, None], (K, R, E))
-        margin_rows = torch.broadcast_to(margin_k[:, None], (K, R, E))
+        if elliptic:
+            # rows [normal, t1, t2, torsion, roll1, roll2][:R]: the normal
+            # row's D from the slot's impedance, friction row i's D
+            # D_n * impratio * (mu_i / mu_0)^2, the whitened cone
+            # coefficient mu_0 / sqrt(impratio)
+            row_on = (
+                torch.arange(R, dtype=dtype, device=dev)[None, :, None]
+                < torch.clamp(dim_k, max=float(R))[:, None, :]
+            )
+            imp, kk, bb, Dn = _efc_kbid(solref_k, solimp_k, pos_c, invweight_t)
+            impratio = m.opt.impratio.to(dtype)
+            mu0 = torch.clamp(mu_dirs[:, 0], min=1e-10)
+            ratio2 = torch.square(mu_dirs / mu0[:, None])  # (K, ndirs, E)
+            zR1 = torch.zeros((K, R - 1, E), dtype=dtype, device=dev)
+            pos_rows = torch.cat([dist_k[:, None], zR1], dim=1)
+            margin_rows = torch.cat([margin_k[:, None], zR1], dim=1)
+            Dck = torch.where(sel_active, Dn, 0.0)
+            mut = mu_k[:, 0] / torch.sqrt(torch.clamp(impratio, min=1e-12))
+            out.update(
+                con_Dfri=Dck[:, None] * impratio * ratio2,
+                con_mut=torch.where(sel_active, mut, 0.0),
+                con_Dc=Dck,
+            )
+        else:
+            row_count = torch.where(
+                frictionless, 4.0, 2.0 * (torch.clamp(dim_k, min=3.0) - 1.0)
+            )
+            row_on = (
+                torch.arange(R, dtype=dtype, device=dev)[None, :, None]
+                < row_count[:, None, :]
+            )  # (K, R, E)
+            mu1 = mu_dirs[:, 0]
+            diag_pyr = (
+                2.0 * mu1 * mu1 * (1.0 + mu1 * mu1) * invweight_t
+                / cached(m, "impratio", lambda: float(m.opt.impratio))
+            )
+            diag_approx = torch.where(frictionless, invweight_t * 4.0, diag_pyr)
+            imp, kk, bb, Dc = _efc_kbid(solref_k, solimp_k, pos_c, diag_approx)
+            pos_rows = torch.broadcast_to(dist_k[:, None], (K, R, E))
+            margin_rows = torch.broadcast_to(margin_k[:, None], (K, R, E))
+            out.update(con_mu_dirs=mu_dirs, con_Dc=torch.where(sel_active, Dc, 0.0))
 
         on_rm = (sel_active[None] & row_on.permute(1, 0, 2)).reshape(R * K, E)
         on = (sel_active[:, None] & row_on).reshape(KR, E)
         out.update(
-            con_mu_dirs=mu_dirs,
-            con_Dc=torch.where(sel_active, Dc, 0.0),
             con_bb=bb, con_kimp=kk * imp * pos_c,
             con_W1=W1, con_W2=W2, con_O1=O1, con_O2=O2, con_on=on_rm,
             con_sel=sel, con_sel_active=sel_active,
@@ -269,7 +334,7 @@ def make_constraint_lm(m: Model, P: Params, k: dict, q, qvel, dtype) -> dict:
 
     k.update(
         efc_D=torch.cat(D_b, dim=0), efc_aref=torch.cat(aref_b, dim=0),
-        efc_fl=torch.cat(fl_b, dim=0), efc_lim_side=lim_side,
+        efc_fl=torch.cat(fl_b, dim=0), efc_Jeq=Jeq, efc_lim_side=lim_side,
         efc_pos=torch.cat(pos_b, dim=0), efc_margin=torch.cat(margin_b, dim=0),
         efc_active=torch.cat(act_b, dim=0), **out,
     )

@@ -59,10 +59,12 @@ def _p4(P: Params, name: str, i: int):
     return tuple(P.plane(name, i, k) for k in range(4))
 
 
-def kinematics_lm(m: Model, P: Params, q, geoms=None, sites=None):
-    """q: tuple of nq (E,) planes. geoms/sites: static id subsets to compute
-    frames for (None = all); unselected entries stay None. Mocap bodies
-    are not carried by this package yet."""
+def kinematics_lm(m: Model, P: Params, q, mocap_pos=(), mocap_quat=(),
+                  geoms=None, sites=None):
+    """q: tuple of nq (E,) planes; mocap_pos/mocap_quat: per mocap body a
+    3-/4-tuple of planes, the frame that replaces the body's own.
+    geoms/sites: static id subsets to compute frames for (None = all);
+    unselected entries stay None."""
     geoms = range(m.ngeom) if geoms is None else geoms
     sites = range(m.nsite) if sites is None else sites
     zero = torch.zeros_like(q[0])
@@ -119,8 +121,10 @@ def kinematics_lm(m: Model, P: Params, q, geoms=None, sites=None):
                 xanchor[j] = anchor
                 xaxis[j] = quat_rot(_p3(P, "jnt_axis", j), quat)
             quat = quat_normalize(quat)
-        if int(m.body_mocapid[b]) >= 0:
-            raise NotImplementedError("mocap bodies are not ported yet")
+        mid = int(m.body_mocapid[b])
+        if mid >= 0:
+            pos = tuple(mocap_pos[mid])
+            quat = quat_normalize(tuple(mocap_quat[mid]))
         xpos.append(pos)
         xquat.append(quat)
 

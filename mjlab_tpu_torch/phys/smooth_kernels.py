@@ -80,7 +80,7 @@ _INT_TABLES = (
     "body_dofadr", "body_dofnum", "jnt_type", "jnt_qposadr", "jnt_dofadr",
     "jnt_bodyid", "cg_geom", "geom_bodyid", "dof_body", "pair_i", "pair_j",
     "anc_mask", "act_jnt", "act_gaintype", "act_biastype",
-    "act_ctrllimited", "act_forcelimited",
+    "act_ctrllimited", "act_forcelimited", "body_mocapid",
 )
 _FLOAT_TABLES = (
     "qpos0", "body_pos", "body_quat", "jnt_pos", "jnt_axis", "body_ipos",
@@ -130,6 +130,7 @@ class DeviceTables:
             act_biastype=m.actuator_biastype,
             act_ctrllimited=m.actuator_ctrllimited,
             act_forcelimited=m.actuator_forcelimited,
+            body_mocapid=m.body_mocapid,
         )
         floats = dict(
             qpos0=hn("qpos0"), body_pos=hn("body_pos"),
@@ -209,13 +210,29 @@ def _empty(shape, like):
 # ---------------------------------------------------------------------------
 
 
-def kin_com_plain(m: Model, qT: torch.Tensor):
+def _mocap_planes(m: Model, qT, mcT, mcqT):
+    """The mocap inputs of kin_com, checked: (nmocap, 3, E), (nmocap, 4, E)."""
+    E = qT.shape[-1]
+    if m.nmocap and (mcT is None or mcqT is None):
+        raise ValueError(f"the model has {m.nmocap} mocap bodies: pass their frames")
+    if not m.nmocap:
+        return qT.new_zeros(0, 3, E), qT.new_zeros(0, 4, E)
+    return mcT, mcqT
+
+
+def kin_com_plain(m: Model, qT: torch.Tensor, mcT=None, mcqT=None):
     """Plain PyTorch kin_com (phys/lm/stages.py), same outputs."""
     E = qT.shape[-1]
     P = Params(m, E)
     cg = collision_geoms(m)
     q = tuple(qT[i] for i in range(m.nq))
-    k = stages.kinematics_lm(m, P, q, geoms=cg, sites=())
+    mcT, mcqT = _mocap_planes(m, qT, mcT, mcqT)
+    k = stages.kinematics_lm(
+        m, P, q,
+        [tuple(mcT[i, c] for c in range(3)) for i in range(m.nmocap)],
+        [tuple(mcqT[i, c] for c in range(4)) for i in range(m.nmocap)],
+        geoms=cg, sites=(),
+    )
     k = stages.com_pos_lm(m, P, k)
     nb, nv = m.nbody, m.nv
     if cg:
@@ -237,15 +254,20 @@ def kin_com_plain(m: Model, qT: torch.Tensor):
             per_body("xipos"), per_body("xpos"), per_body("xquat"))
 
 
-def kin_com(m: Model, qT: torch.Tensor):
-    """qT (nq, E) -> env-last gxpos (Gc, 3, E), gxmat (Gc, 9, E) for the
-    collision_geoms(m) subset (one zero row when there are none), subcom
-    (nbody, 3, E), cdof (nv, 6, E), cinA (nbody, 6, E) in SYM6 order, cinc
-    (nbody, 3, E), xipos, xpos (nbody, 3, E), xquat (nbody, 4, E)."""
+def kin_com(m: Model, qT: torch.Tensor, mcT=None, mcqT=None):
+    """qT (nq, E) and the mocap frames mcT (nmocap, 3, E), mcqT (nmocap, 4,
+    E) (required when the model has mocap bodies) -> env-last gxpos (Gc,
+    3, E), gxmat (Gc, 9, E) for the collision_geoms(m) subset (one zero row
+    when there are none), subcom (nbody, 3, E), cdof (nv, 6, E), cinA
+    (nbody, 6, E) in SYM6 order, cinc (nbody, 3, E), xipos, xpos (nbody,
+    3, E), xquat (nbody, 4, E)."""
     if qT.device.type == "cpu":
-        return kin_com_plain(m, qT)
+        return kin_com_plain(m, qT, mcT, mcqT)
     E = qT.shape[-1]
     _check_cuda("qT", qT, (m.nq, E))
+    mcT, mcqT = _mocap_planes(m, qT, mcT, mcqT)
+    _check_cuda("mcT", mcT, (m.nmocap, 3, E))
+    _check_cuda("mcqT", mcqT, (m.nmocap, 4, E))
     t = device_tables(m)
     nb, nv = m.nbody, m.nv
     G = max(len(collision_geoms(m)), 1)
@@ -262,10 +284,11 @@ def kin_com(m: Model, qT: torch.Tensor):
     xanchor = _empty((m.njnt, 3, E), qT)
     xaxis = _empty((m.njnt, 3, E), qT)
     launch = cuda_build.launcher(
-        "kin_com", "kin_com_launch", (_TABLES,) + (_P,) * 12 + (_I, _P)
+        "kin_com", "kin_com_launch", (_TABLES,) + (_P,) * 14 + (_I, _P)
     )
     rc = launch(
-        ctypes.byref(t.struct), cuda_build.ptr(qT),
+        ctypes.byref(t.struct), cuda_build.ptr(qT), cuda_build.ptr(mcT),
+        cuda_build.ptr(mcqT),
         *[cuda_build.ptr(o) for o in outs],
         cuda_build.ptr(xanchor), cuda_build.ptr(xaxis),
         ctypes.c_int(E), cuda_build.stream(),

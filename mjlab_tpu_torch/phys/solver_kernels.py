@@ -1,16 +1,22 @@
 """Fused contact-Jacobian assembly + Newton constraint solve, env-last.
 
 PyTorch counterpart of mjlab_tpu/phys/solver_pallas2.py
-(``newton_assemble_solve``), pyramidal cone. The CUDA kernel
-(csrc/newton_solve.cu, one warp per env) and the plain PyTorch version
-below share inputs, outputs and arithmetic; the wrapper runs the plain
-version for CPU tensors and launches the kernel for CUDA tensors, and
-``newton_assemble_solve.launches`` counts kernel launches.
+(``newton_assemble_solve``), both friction cones, with joint-equality rows.
+The CUDA kernels (csrc/newton_solve.cu for the pyramidal cone,
+csrc/newton_solve_elliptic.cu for the elliptic one; one warp per env) and
+the plain PyTorch version below share inputs, outputs and arithmetic; the wrapper runs the plain version for CPU tensors and launches
+the kernel for CUDA tensors, and ``newton_assemble_solve.launches`` counts
+kernel launches (``launches_by_cone`` per cone).
 
-Row layout: [dof friction (nv), joint limits (nlim), contacts r-major]
-(row r of every slot contiguous). The friction rows are the identity and
-a limit row is one signed entry at a static dof, so only the contact rows
-are dense. Numerics follow the TPU kernel: exact Hessian, Jacobi-
+Row layout: [equality (neq), dof friction (nv), joint limits (nlim),
+contacts r-major] (row r of every slot contiguous). The friction rows are
+the identity and a limit row is one signed entry at a static dof, so only
+the contact and equality rows are dense. Pyramidal contact rows are
+independent one-sided quadratics; an elliptic contact's rows [n, t1, t2,
+torsion, roll1, roll2][:R] share the 3-zone cone cost of lm/solver.py
+(_ell_*), with a dense (R, R) Hessian block per contact; the plain
+elliptic version is held against the JAX package's solve_lm. Numerics
+follow the TPU kernel: exact Hessian, Jacobi-
 equilibrated Cholesky with a 1e-6 ridge, 12 doubling probes then
 safeguarded Newton/bisection line-search steps, early exit on a small
 gradient or a step that does not lower the cost.
@@ -27,6 +33,8 @@ from mjlab_tpu_torch import cuda_build
 
 _EPS = 1e-12
 _RIDGE = 1e-6
+_MAX_ROWS_PER_CONTACT = 6  # kMaxR in csrc/newton_solve_elliptic.cu
+_SMEM_OPTIN = 232448  # shared memory a block may opt in to on an H100
 
 
 def _chol_solve(A: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -60,6 +68,77 @@ def _chol_solve(A: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.stack(xs) * scale
 
 
+def _ell_zone(jc, Dc, mut):
+    """3-zone elliptic cone state of the contact rows jc (R, K, E), r-major
+    [n, t1, t2, torsion, roll1, roll2], row D values Dc (R, K, E) and the
+    whitened cone coefficient mut (K, E) (lm/solver._ell_scaled_lm)."""
+    sD = torch.sqrt(Dc)
+    x = jc * sD
+    xn = x[0]
+    tt = x[1] * x[1]
+    for r in range(2, x.shape[0]):
+        tt = tt + x[r] * x[r]
+    T = torch.sqrt(torch.clamp(tt, min=_EPS * _EPS))
+    w = mut * xn + T
+    mu_pos = mut > 1e-9
+    bottom = torch.where(mu_pos, w <= 0, xn < 0)
+    top = ~bottom & torch.where(mu_pos, xn >= mut * T, xn >= 0)
+    return dict(sD=sD, x=x, xn=xn, tt=tt, T=T, w=w, mut=mut,
+                c1=1.0 + mut * mut, bottom=bottom, mid=~bottom & ~top)
+
+
+def _ell_force(z, jc, Dc):
+    """(R, K, E) contact row forces, -grad of the cone cost."""
+    fn = z["sD"][0] * (z["mut"] * z["w"] / z["c1"] - z["xn"])
+    ft = -z["sD"][1:] * z["x"][1:] * (1.0 - z["w"] / (z["c1"] * z["T"]))
+    f_mid = torch.cat([fn[None], ft], dim=0)
+    return torch.where(z["bottom"], -Dc * jc, torch.where(z["mid"], f_mid, 0.0))
+
+
+def _ell_cost(z):
+    """(E,) cost of the contact rows."""
+    norm2 = z["xn"] * z["xn"] + z["tt"]
+    s_mid = 0.5 * (norm2 - z["w"] * z["w"] / z["c1"])
+    per = torch.where(z["bottom"], 0.5 * norm2, torch.where(z["mid"], s_mid, 0.0))
+    return per.sum(0)
+
+
+def _ell_hess(z, Dc):
+    """(R, R, K, E) per-contact Hessian blocks of the cone cost."""
+    R = Dc.shape[0]
+    that = z["x"][1:] / z["T"]
+    zero = torch.zeros_like(z["xn"])[None]
+    gradw = torch.cat([z["mut"][None], that], dim=0)  # (R, K, E)
+    that_full = torch.cat([zero, that], dim=0)
+    eye = torch.eye(R, dtype=Dc.dtype, device=Dc.device)[:, :, None, None]
+    P_t = eye.clone()
+    P_t[0, 0] = 0.0
+    B_mid = eye - (
+        gradw[:, None] * gradw[None]
+        + (z["w"] / z["T"]) * (P_t - that_full[:, None] * that_full[None])
+    ) / z["c1"]
+    B_mid = z["sD"][:, None] * B_mid * z["sD"][None]
+    return torch.where(z["bottom"], eye * Dc[:, None],
+                       torch.where(z["mid"], B_mid, 0.0))
+
+
+def _ell_curv(z, vc):
+    """(E,) v' (hess of the cone cost) v along the row-space direction
+    vc (R, K, E) (lm/solver._ell_curv_lm)."""
+    vt = vc * z["sD"]
+    vtt2 = vt[1] * vt[1]
+    tv = (z["x"][1] / z["T"]) * vt[1]
+    for r in range(2, vt.shape[0]):
+        vtt2 = vtt2 + vt[r] * vt[r]
+        tv = tv + (z["x"][r] / z["T"]) * vt[r]
+    quad = vt[0] * vt[0] + vtt2
+    gw = z["mut"] * vt[0] + tv
+    mid_term = quad - (gw * gw + (z["w"] / z["T"]) * (vtt2 - tv * tv)) / z["c1"]
+    per = torch.where(z["bottom"], quad,
+                      torch.where(z["mid"], torch.clamp(mid_term, min=0.0), 0.0))
+    return per.sum(0)
+
+
 def newton_assemble_solve_plain(
     Mc, qfrc_smooth, x_ws, qvel, Mh, Dnc, arefnc, flnc, side, Jeq,
     cdof, pos_k, O1, O2, frame_k, mu_dirs, mut, Dc, bb, kimp, on_rm,
@@ -69,10 +148,11 @@ def newton_assemble_solve_plain(
     """Plain PyTorch newton_assemble_solve (same contract)."""
     E = qvel.shape[-1]
     RK = R * K
+    elliptic = cone != 0
     on = on_rm
     M = Mc.reshape(nv, nv, E)  # (column j, row i) == (i, j): symmetric
 
-    # ---------- phase A: dense contact rows, r-major ----------
+    # ---------- phase A: dense rows, contacts r-major then equality ----------
     cd = cdof.reshape(nv, 6, E)
     posk = pos_k.reshape(3, K, E)
     r1 = posk - O1.reshape(3, K, E)
@@ -89,25 +169,48 @@ def newton_assemble_solve_plain(
         j1 = lin + a1 * r1[c2] - a2 * r1[c1]
         jd.append(j2 * w2 - j1 * w1)  # (nv, K, E)
     fr = frame_k.reshape(9, K, E)
-    f3 = [fr[3 * f] * jd[0] + fr[3 * f + 1] * jd[1] + fr[3 * f + 2] * jd[2]
-          for f in range(3)]
-    onr = on.reshape(R, K, E)
-    mu = mu_dirs.reshape(ndirs, K, E)
-    pieces = [None] * R
-    for j in range(ndirs):
-        pieces[2 * j] = onr[2 * j] * (f3[0] + mu[j] * f3[1 + j])
-        pieces[2 * j + 1] = onr[2 * j + 1] * (f3[0] - mu[j] * f3[1 + j])
-    J = torch.stack(pieces, dim=1).reshape(nv, RK, E)
 
-    Dd = (onr * Dc[None]).reshape(RK, E)
-    velc = torch.sum(J * qvel[:, None, :], dim=0)
-    arefd = (onr * (-bb[None] * velc.reshape(R, K, E) - kimp[None])).reshape(RK, E)
+    def rotate(v3, f):  # frame row f of the (nv, K, E) components v3
+        return fr[3 * f] * v3[0] + fr[3 * f + 1] * v3[1] + fr[3 * f + 2] * v3[2]
+
+    f3 = [rotate(jd, f) for f in range(3)]
+    onr = on.reshape(R, K, E)
+    pieces = [None] * R
+    if elliptic:
+        # rows [normal, t1, t2, torsion, roll1, roll2][:R]: the frame's
+        # rows of the point Jacobian, then of the angular Jacobian
+        rows = f3[: 1 + min(ndirs, 2)]
+        if ndirs > 2:
+            ja = [cd[:, c][:, None] * (w2 - w1) for c in range(3)]
+            rows += [rotate(ja, f) for f in range(ndirs - 2)]
+        pieces = [onr[r] * rows[r] for r in range(R)]
+    else:
+        mu = mu_dirs.reshape(ndirs, K, E)
+        for j in range(ndirs):
+            pieces[2 * j] = onr[2 * j] * (f3[0] + mu[j] * f3[1 + j])
+            pieces[2 * j + 1] = onr[2 * j + 1] * (f3[0] - mu[j] * f3[1 + j])
+    Jc = torch.stack(pieces, dim=1).reshape(nv, RK, E)
+    Jq = Jeq[:neq * nv].reshape(neq, nv, E).permute(1, 0, 2)  # (nv, neq, E)
+    J = torch.cat([Jc, Jq], dim=1)  # (nv, ND, E)
+
+    if elliptic:  # friction rows carry their own D (mu_dirs holds them)
+        Dr = torch.cat([Dc[None], mu_dirs.reshape(ndirs, K, E)], dim=0)
+        kimp_r = torch.cat([kimp[None], torch.zeros_like(onr[1:])], dim=0)
+    else:
+        Dr, kimp_r = Dc[None], kimp[None]
+    D_c = (onr * Dr).reshape(RK, E)
+    velc = torch.sum(Jc * qvel[:, None, :], dim=0)
+    arefc = (onr * (-bb[None] * velc.reshape(R, K, E) - kimp_r)).reshape(RK, E)
+    D_eq, aref_eq = Dnc[:neq], arefnc[:neq]
+    Dd = torch.cat([D_c, D_eq], dim=0)
+    arefd = torch.cat([arefc, aref_eq], dim=0)
 
     # ---------- phase B: Newton ----------
-    D_fr, aref_fr, fl_fr = Dnc[:nv], arefnc[:nv], flnc[:nv]
-    D_lim, aref_lim = Dnc[nv:nv + nlim], arefnc[nv:nv + nlim]
+    D_fr, aref_fr, fl_fr = Dnc[neq:neq + nv], arefnc[neq:neq + nv], flnc[neq:neq + nv]
+    D_lim, aref_lim = Dnc[neq + nv:neq + nv + nlim], arefnc[neq + nv:neq + nv + nlim]
     lim_idx = torch.as_tensor(list(lim_dofs), device=qvel.device,
                               dtype=torch.long)
+    Dc3 = D_c.reshape(R, K, E)
 
     def Mv(vec):
         return torch.einsum("ije,je->ie", M, vec)
@@ -121,6 +224,20 @@ def newton_assemble_solve_plain(
     def JT_all(f_fr, f_lim, f_d):
         return f_fr + torch.sum(J * f_d[None], dim=1) + lim_scatter(f_lim)
 
+    def dense_forces(jdd):
+        """Dense-row forces, their quadratic-zone flags (pyramidal; None
+        for elliptic contacts) and the cone state (elliptic)."""
+        jc, je = jdd[:RK], jdd[RK:]
+        f_eq = -D_eq * je
+        q_eq = (D_eq > 0).to(jdd.dtype)
+        if elliptic:
+            z = _ell_zone(jc.reshape(R, K, E), Dc3, mut)
+            f_c = _ell_force(z, jc.reshape(R, K, E), Dc3).reshape(RK, E)
+            return torch.cat([f_c, f_eq]), q_eq, z
+        f_c = torch.where(jc < 0, -D_c * jc, 0.0)
+        q_c = ((jc < 0) & (D_c > 0)).to(jdd.dtype)
+        return torch.cat([f_c, f_eq]), torch.cat([q_c, q_eq]), None
+
     def forces(jf, jl, jdd):
         fq_fr = -D_fr * jf
         f_fr = torch.clamp(fq_fr, -fl_fr, fl_fr)
@@ -128,18 +245,21 @@ def newton_assemble_solve_plain(
         fq_l = -D_lim * jl
         f_lim = torch.where(jl < 0, fq_l, 0.0)
         q_lim = ((jl < 0) & (D_lim > 0)).to(jf.dtype)
-        fq_d = -Dd * jdd
-        f_d = torch.where(jdd < 0, fq_d, 0.0)
-        q_d = ((jdd < 0) & (Dd > 0)).to(jf.dtype)
-        return f_fr, f_lim, f_d, q_fr, q_lim, q_d
+        f_d, q_d, z = dense_forces(jdd)
+        return f_fr, f_lim, f_d, q_fr, q_lim, q_d, z
 
     def cost_rows(jf, jl, jdd):
         qc_fr = 0.5 * D_fr * jf * jf
         lin = fl_fr * torch.abs(jf) - 0.5 * fl_fr * fl_fr / torch.clamp(D_fr, min=_EPS)
         c_fr = torch.where(torch.abs(D_fr * jf) <= fl_fr, qc_fr, lin)
         c_lim = torch.where(jl < 0, 0.5 * D_lim * jl * jl, 0.0)
-        c_d = torch.where(jdd < 0, 0.5 * Dd * jdd * jdd, 0.0)
-        return c_fr.sum(0) + c_lim.sum(0) + c_d.sum(0)
+        jc, je = jdd[:RK], jdd[RK:]
+        if elliptic:
+            c_c = _ell_cost(_ell_zone(jc.reshape(R, K, E), Dc3, mut))
+        else:
+            c_c = torch.where(jc < 0, 0.5 * D_c * jc * jc, 0.0).sum(0)
+        c_eq = (0.5 * D_eq * je * je).sum(0)
+        return c_fr.sum(0) + c_lim.sum(0) + c_c + c_eq
 
     def jar_of(x):
         return (x - aref_fr, lim_mul(x) - aref_lim,
@@ -163,19 +283,26 @@ def newton_assemble_solve_plain(
     done = torch.zeros(E, dtype=torch.bool, device=qvel.device)
     n_iter = torch.zeros(E, dtype=torch.int32, device=qvel.device)
     tol2 = (tolerance * nv) ** 2
-    rows = torch.arange(nv, device=qvel.device)
+    rows_nv = torch.arange(nv, device=qvel.device)
 
     it = 0
     while it < iterations and not bool(done.all()):
         n_iter += (~done).to(torch.int32)
-        f_fr, f_lim, f_d, q_fr, q_lim, q_d = forces(jar_fr, jar_lim, jar_d)
+        f_fr, f_lim, f_d, q_fr, q_lim, q_d, z = forces(jar_fr, jar_lim, jar_d)
         grad = Mv(x - a_smooth) - JT_all(f_fr, f_lim, f_d)
         diagv = D_fr * q_fr + torch.zeros_like(qvel).index_add(
             0, lim_idx, D_lim * q_lim
         )
-        Dq_d = Dd * q_d
-        H = M + torch.einsum("ire,jre->ije", J, J * Dq_d[None])
-        H[rows, rows] += diagv
+        if elliptic:
+            # H = M + J_c' B J_c (per-contact cone blocks) + J_eq' D J_eq
+            Jc4 = Jc.reshape(nv, R, K, E)
+            BJ = torch.einsum("rske,jske->jrke", _ell_hess(z, Dc3), Jc4)
+            H = M + torch.einsum("irke,jrke->ije", Jc4, BJ)
+            if neq:
+                H = H + torch.einsum("ine,jne->ije", Jq, Jq * (D_eq * q_d)[None])
+        else:
+            H = M + torch.einsum("ire,jre->ije", J, J * (Dd * q_d)[None])
+        H[rows_nv, rows_nv] += diagv
         dx = -_chol_solve(H, grad)
 
         v_fr = dx
@@ -185,7 +312,7 @@ def newton_assemble_solve_plain(
         q2 = torch.sum(dx * Mv(dx), dim=0)
 
         def dphi(a, need_h=True):
-            ff, fll, fd, qf, ql, qd = forces(
+            ff, fll, fd, qf, ql, qd, za = forces(
                 jar_fr + a * v_fr, jar_lim + a * v_lim, jar_d + a * v_d
             )
             d1 = q1 + a * q2 - (
@@ -196,7 +323,13 @@ def newton_assemble_solve_plain(
             d2 = q2 + (
                 (D_fr * qf * v_fr * v_fr).sum(0)
                 + (D_lim * ql * v_lim * v_lim).sum(0)
-            ) + (Dd * qd * v_d * v_d).sum(0)
+            )
+            if elliptic:
+                ve = v_d[RK:]
+                d2 = d2 + _ell_curv(za, v_d[:RK].reshape(R, K, E)) + (
+                    D_eq * qd * ve * ve).sum(0)
+            else:
+                d2 = d2 + (Dd * qd * v_d * v_d).sum(0)
             return d1, d2
 
         hi = torch.ones_like(q1)
@@ -230,19 +363,28 @@ def newton_assemble_solve_plain(
         done = done | (gnorm2 < tol2) | ~ok
         it += 1
 
-    f_fr, f_lim, f_d, _, _, _ = forces(jar_fr, jar_lim, jar_d)
-    fnc = torch.cat([f_fr, f_lim], dim=0)
+    f_fr, f_lim, f_d, _, _, _, _ = forces(jar_fr, jar_lim, jar_d)
+    fnc = torch.cat([f_d[RK:], f_fr, f_lim], dim=0)
     qfrc = JT_all(f_fr, f_lim, f_d)
     qint = _chol_solve(Mh.reshape(nv, nv, E), Mv(x)) if do_int else x
     if iters is not None:
         iters.copy_(n_iter)
-    return x, fnc, f_d, qfrc, a_smooth, qint
+    return x, fnc, f_d[:RK], qfrc, a_smooth, qint
 
 
 @functools.cache
 def _lim_table(lim_dofs: tuple, device: str) -> torch.Tensor:
     """The limit rows' dof addresses on the device, copied once."""
     return torch.as_tensor(lim_dofs, dtype=torch.int32, device=device)
+
+
+def elliptic_smem_bytes(nv, K, R, neq, nlim) -> int:
+    """Shared memory one env (one block) of the elliptic kernel takes."""
+    f = cuda_build.launcher(
+        "newton_solve_elliptic", "newton_solve_elliptic_smem_bytes",
+        (ctypes.c_int,) * 5,
+    )
+    return int(f(nv, K, R, neq, nlim))
 
 
 def newton_assemble_solve(
@@ -255,20 +397,25 @@ def newton_assemble_solve(
 
     Mc (nv*nv, E) column-major mass; qfrc_smooth/x_ws/qvel (nv, E); Mh
     (nv*nv, E) integrator system matrix (ignored when do_int is false);
-    Dnc/arefnc/flnc (nv+nlim, E) non-contact rows; side (nlim, E); Jeq the
-    (neq*nv, E) equality rows (neq must be 0); cdof (nv*6, E); pos_k/O1/O2
-    (3*K, E) component-major; frame_k (9*K, E) rows [n, t1, t2]; mu_dirs
-    (ndirs*K, E); mut unused (elliptic only); Dc/bb/kimp (K, E); on_rm
-    (R*K, E) r-major row activity; W1/W2 (nv*K, E) dof-major. ``iters``,
-    if given, is an (E,) int32 tensor that receives each env's Newton
+    Dnc/arefnc/flnc (neq+nv+nlim, E) non-contact rows [equality, dof
+    friction, limits]; side (nlim, E); Jeq (neq*nv, E) the equality rows
+    (ignored when neq is 0); cdof (nv*6, E); pos_k/O1/O2 (3*K, E)
+    component-major; frame_k (9*K, E) rows [n, t1, t2]; mu_dirs (ndirs*K,
+    E) the pyramidal friction coefficients (cone 0, ndirs = R/2) or the
+    elliptic friction rows' D values (cone 1, ndirs = R-1); mut (K, E) the
+    whitened cone coefficient (cone 1 only); Dc/bb/kimp (K, E); on_rm (R*K,
+    E) r-major row activity; W1/W2 (nv*K, E) dof-major. ``iters``, if
+    given, is an (E,) int32 tensor that receives each env's Newton
     iteration count.
 
-    Returns (x (nv, E), f_noncon (nv+nlim, E), f_con r-major (R*K, E),
-    qfrc_constraint (nv, E), a_smooth (nv, E), qacc_int (nv, E))."""
-    if cone != 0:
-        raise NotImplementedError("the elliptic cone kernel is not ported yet")
-    if neq:
-        raise NotImplementedError("equality rows are not ported yet")
+    On the card, cone 0 launches csrc/newton_solve.cu and cone 1
+    csrc/newton_solve_elliptic.cu; equality rows under the pyramidal cone
+    run in the plain version only.
+
+    Returns (x (nv, E), f_noncon (neq+nv+nlim, E), f_con r-major (R*K, E),
+    qfrc_constraint (nv, E), a_smooth (nv, E), qacc_int (nv, E)).
+    ``newton_assemble_solve.launches`` counts kernel launches, and
+    ``launches_by_cone[cone]`` those of each cone's kernel."""
     kw = dict(nv=nv, K=K, R=R, ndirs=ndirs, neq=neq, nlim=nlim,
               lim_dofs=lim_dofs, iterations=iterations,
               ls_iterations=ls_iterations, tolerance=tolerance,
@@ -276,12 +423,21 @@ def newton_assemble_solve(
     args = (Mc, qfrc_smooth, x_ws, qvel, Mh, Dnc, arefnc, flnc, side, Jeq,
             cdof, pos_k, O1, O2, frame_k, mu_dirs, mut, Dc, bb, kimp, on_rm,
             W1, W2)
+    elliptic = cone != 0
+    if ndirs != (R - 1 if elliptic else R // 2):
+        raise ValueError(f"ndirs {ndirs} does not match R {R} and cone {cone}")
+    if elliptic and not 3 <= R <= _MAX_ROWS_PER_CONTACT:
+        raise ValueError(f"the elliptic cone takes 3 to 6 rows per contact, got {R}")
     if qvel.device.type == "cpu":
         return newton_assemble_solve_plain(*args, **kw)
+    if neq and not elliptic:
+        raise NotImplementedError(
+            "equality rows under the pyramidal cone are not in the CUDA kernel yet"
+        )
 
     E = qvel.shape[-1]
     RK = R * K
-    NC = nv + nlim
+    NC = neq + nv + nlim
     shapes = dict(
         Mc=(nv * nv, E), qfrc_smooth=(nv, E), x_ws=(nv, E), qvel=(nv, E),
         Dnc=(NC, E), arefnc=(NC, E), flnc=(NC, E), side=(nlim, E),
@@ -291,6 +447,10 @@ def newton_assemble_solve(
     )
     if do_int:
         shapes["Mh"] = (nv * nv, E)
+    if neq:
+        shapes["Jeq"] = (neq * nv, E)
+    if elliptic:
+        shapes["mut"] = (K, E)
     local = dict(zip(
         ("Mc", "qfrc_smooth", "x_ws", "qvel", "Mh", "Dnc", "arefnc", "flnc",
          "side", "Jeq", "cdof", "pos_k", "O1", "O2", "frame_k", "mu_dirs",
@@ -307,6 +467,15 @@ def newton_assemble_solve(
     if nlim == 0:
         raise ValueError("the kernel takes a nonempty limit block")
     dev = qvel.device
+    if elliptic:
+        smem = elliptic_smem_bytes(nv, K, R, neq, nlim)
+        limit = getattr(torch.cuda.get_device_properties(dev),
+                        "shared_memory_per_block_optin", _SMEM_OPTIN)
+        if smem > limit:
+            raise ValueError(
+                f"one env of this model needs {smem} bytes of shared memory, "
+                f"more than a block can have ({limit})"
+            )
     f32 = dict(dtype=torch.float32, device=dev)
     outs = [
         torch.empty((nv, E), **f32), torch.empty((NC, E), **f32),
@@ -317,28 +486,79 @@ def newton_assemble_solve(
         E, dtype=torch.int32, device=dev
     )
     lim = _lim_table(lim_dofs, str(dev))
-    Mh_arg = Mh if do_int else Mc
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    launch = cuda_build.launcher(
-        "newton_solve", "newton_solve_launch",
-        (vp,) * 29 + (ci,) * 6 + (ctypes.c_float, ci, ci, vp),
-    )
     P = cuda_build.ptr
-    rc = launch(
-        P(Mc), P(qfrc_smooth), P(x_ws), P(qvel), P(Mh_arg), P(Dnc),
-        P(arefnc), P(flnc), P(side), P(cdof), P(pos_k), P(O1), P(O2),
-        P(frame_k), P(mu_dirs), P(Dc), P(bb), P(kimp), P(on_rm), P(W1),
-        P(W2), P(lim), *[P(o) for o in outs], P(it_out),
-        ctypes.c_int(nv), ctypes.c_int(K), ctypes.c_int(R),
-        ctypes.c_int(nlim), ctypes.c_int(iterations),
-        ctypes.c_int(ls_iterations), ctypes.c_float(tolerance),
-        ctypes.c_int(int(do_int)), ctypes.c_int(E), cuda_build.stream(),
-    )
-    cuda_build.check(
-        cuda_build.library("newton_solve"), rc, "newton_assemble_solve"
-    )
+    Mh_arg = Mh if do_int else Mc
+    if elliptic:
+        name = "newton_solve_elliptic"
+        launch = cuda_build.launcher(
+            name, "newton_solve_elliptic_launch",
+            (vp,) * 31 + (ci,) * 7 + (ctypes.c_float, ci, ci, vp),
+        )
+        rc = launch(
+            P(Mc), P(qfrc_smooth), P(x_ws), P(qvel), P(Mh_arg), P(Dnc),
+            P(arefnc), P(flnc), P(side), P(Jeq), P(cdof), P(pos_k), P(O1),
+            P(O2), P(frame_k), P(mu_dirs), P(mut), P(Dc), P(bb), P(kimp),
+            P(on_rm), P(W1), P(W2), P(lim), *[P(o) for o in outs], P(it_out),
+            ci(nv), ci(K), ci(R), ci(neq), ci(nlim), ci(iterations),
+            ci(ls_iterations), ctypes.c_float(tolerance), ci(int(do_int)),
+            ci(E), cuda_build.stream(),
+        )
+    else:
+        name = "newton_solve"
+        launch = cuda_build.launcher(
+            name, "newton_solve_launch",
+            (vp,) * 29 + (ci,) * 6 + (ctypes.c_float, ci, ci, vp),
+        )
+        rc = launch(
+            P(Mc), P(qfrc_smooth), P(x_ws), P(qvel), P(Mh_arg), P(Dnc),
+            P(arefnc), P(flnc), P(side), P(cdof), P(pos_k), P(O1), P(O2),
+            P(frame_k), P(mu_dirs), P(Dc), P(bb), P(kimp), P(on_rm), P(W1),
+            P(W2), P(lim), *[P(o) for o in outs], P(it_out),
+            ci(nv), ci(K), ci(R), ci(nlim), ci(iterations),
+            ci(ls_iterations), ctypes.c_float(tolerance), ci(int(do_int)),
+            ci(E), cuda_build.stream(),
+        )
+    cuda_build.check(cuda_build.library(name), rc, "newton_assemble_solve")
     newton_assemble_solve.launches += 1
+    newton_assemble_solve.launches_by_cone[int(elliptic)] += 1
     return tuple(outs)
 
 
 newton_assemble_solve.launches = 0
+newton_assemble_solve.launches_by_cone = [0, 0]
+
+
+# A solve kernel against its plain version at float32, relative to
+# max(1, |plain|max): the solve's measured f32 sensitivity
+# (tests/test_pallas2_solver.py)
+SOLVE_TOL = 2e-3  # qacc, qacc_smooth, qacc_int, qfrc_constraint
+FORCE_TOL = 6e-3  # per-row forces
+
+
+def qfrc_errors(ref, got, iters_ref, iters_got, cone) -> dict:
+    """qfrc_constraint of a solve kernel against its plain version under
+    the iteration-count rule. ``ref`` and ``got`` are the two solves'
+    outputs (newton_assemble_solve's tuple), ``iters_*`` their (E,) Newton
+    iteration counts. Returns {label: (error, tolerance)}.
+
+    At convergence the acceptance test compares two f32 costs that differ
+    by rounding, so an env's Newton iteration count depends on the order
+    of its sums. Where the counts agree, qfrc is held at SOLVE_TOL; where
+    they differ by that one step it is held at FORCE_TOL, qfrc being J^T f.
+    Errors are relative to max(1, |qfrc|max) under the pyramidal cone and
+    to max(1, |qfrc|max, |f|max), the row forces' scale, under the
+    elliptic cone: when fingers pinch an object their row forces cancel on
+    its dofs, so qfrc there is a small difference of large row forces and
+    carries their error (cone=0 gives the errors on qfrc's own scale)."""
+    q = ref[3].double()
+    scale = max(1.0, float(q.abs().max()))
+    if cone:
+        scale = max(scale, float(ref[1].abs().max()), float(ref[2].abs().max()))
+    diff = (q - got[3].to(q.device).double()).abs().amax(0) / scale
+    same = (iters_ref == iters_got.to(iters_ref.device)).to(diff.device)
+    worst = lambda m: float(diff[m].max()) if bool(m.any()) else 0.0  # noqa: E731
+    return {
+        "equal iteration counts": (worst(same), SOLVE_TOL),
+        "iteration counts differ": (worst(~same), FORCE_TOL),
+    }

@@ -2,13 +2,16 @@
 
 PyTorch-package counterpart of the host side of mjlab_tpu/scene/scene.py
 (``Scene.__init__`` and ``compile``), of the spec edits of
-mjlab_tpu/entity/entity.py (``Entity.__init__``) and of the plane branch of
+mjlab_tpu/entity/entity.py (``Entity.__init__``: a fixed base wrapped in a
+mocap body, a free object without a keyframe) and of the plane branch of
 mjlab_tpu/terrains/importer.py. Entities attach under a "{name}/" prefix and
 the terrain under "terrain/". The runtime side (entity state, sensors,
 managers) belongs to a later slice.
 
 ``g1_velocity_flat_model()`` compiles the scene of the
-Mjlab-Velocity-Flat-Unitree-G1 task: a ground plane and the G1 robot.
+Mjlab-Velocity-Flat-Unitree-G1 task (a ground plane and the G1 robot),
+``yam_lift_cube_model()`` that of Mjlab-Lift-Cube-Yam (a ground plane, the
+YAM arm and the cube).
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from dataclasses import dataclass, field
 from typing import Callable, Sequence
 
 import mujoco
+
+from mjlab_tpu_torch.utils.spec import auto_wrap_fixed_base_mocap
 
 _SCENE_VISUAL_XML = """
 <mujoco>
@@ -36,9 +41,14 @@ PLANE_FRICTION = (1.0, 0.005, 0.0001)
 
 @dataclass
 class InitialStateCfg:
+    """Root pose (a floating base's free joint, or a fixed base's mocap
+    frame) and joint positions by regex; joint_pos None adds no keyframe."""
+
     pos: tuple = (0.0, 0.0, 0.0)
     rot: tuple = (1.0, 0.0, 0.0, 0.0)
-    joint_pos: dict[str, float] = field(default_factory=lambda: {".*": 0.0})
+    joint_pos: dict[str, float] | None = field(
+        default_factory=lambda: {".*": 0.0}
+    )
 
 
 @dataclass
@@ -89,13 +99,16 @@ def _matching_values(data: dict[str, float], names: Sequence[str]) -> dict:
 
 
 def build_entity_spec(cfg: EntityCfg) -> mujoco.MjSpec:
-    """The entity's spec with its editors applied: unnamed geoms and sites
-    named, collision presets, one actuator per claimed joint, and an
-    "init_state" keyframe from cfg.init_state."""
-    spec = cfg.spec_fn()
+    """The entity's spec with its editors applied: a fixed base wrapped in
+    a mocap body, unnamed geoms and sites named, collision presets, one
+    actuator per claimed joint, and an "init_state" keyframe from
+    cfg.init_state (none when its joint_pos is None: a free object keeps
+    the model's qpos0)."""
+    spec = auto_wrap_fixed_base_mocap(cfg.spec_fn)()
     joints = list(spec.joints)
-    if not joints or joints[0].type != mujoco.mjtJoint.mjJNT_FREE:
-        raise NotImplementedError("only floating-base entities are ported")
+    floating = bool(joints) and joints[0].type == mujoco.mjtJoint.mjJNT_FREE
+    if floating:
+        joints = joints[1:]
     for i, g in enumerate(spec.geoms):
         if not g.name:
             g.name = f"_geom{i}"
@@ -105,7 +118,7 @@ def build_entity_spec(cfg: EntityCfg) -> mujoco.MjSpec:
     for editor in cfg.collisions:
         editor.edit_spec(spec)
 
-    joint_names = [j.name for j in joints[1:]]
+    joint_names = [j.name for j in joints]
     claimed: set[str] = set()
     for acfg in cfg.actuators:
         names = _matching(acfg.joint_names_expr, joint_names)
@@ -116,8 +129,13 @@ def build_entity_spec(cfg: EntityCfg) -> mujoco.MjSpec:
         acfg.edit_spec(spec, names)
 
     ist = cfg.init_state
+    if ist.joint_pos is None:
+        if spec.keys:
+            spec.keys[0].name = "init_state"
+        return spec
     by_name = _matching_values(ist.joint_pos, joint_names)
-    qpos = list(ist.pos) + list(ist.rot) + [by_name.get(n, 0.0) for n in joint_names]
+    qpos = list(ist.pos) + list(ist.rot) if floating else []
+    qpos += [by_name.get(n, 0.0) for n in joint_names]
     ctrl = []
     for a in spec.actuators:
         is_position = float(a.gainprm[0]) > 0 and float(a.biasprm[1]) < 0
@@ -158,3 +176,20 @@ def g1_velocity_flat_model() -> mujoco.MjModel:
     )
 
     return Scene(SceneCfg(entities={"robot": get_g1_robot_cfg()})).compile()
+
+
+def yam_lift_cube_model() -> mujoco.MjModel:
+    """The compiled scene of Mjlab-Lift-Cube-Yam: a ground plane, the YAM
+    arm as "robot/" (fixed base, wrapped in a mocap body) and a free cube
+    as "cube/" (options as compiled; Simulation applies the task's
+    MujocoCfg)."""
+    from mjlab_tpu_torch.asset_zoo.robots.i2rt_yam.yam_constants import (
+        get_yam_robot_cfg,
+    )
+    from mjlab_tpu_torch.tasks.manipulation.config.yam.physics import (
+        cube_entity_cfg,
+    )
+
+    return Scene(SceneCfg(entities={
+        "robot": get_yam_robot_cfg(), "cube": cube_entity_cfg(),
+    })).compile()

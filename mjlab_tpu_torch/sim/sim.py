@@ -92,25 +92,25 @@ class SimulationCfg:
     dtype: str = "float32"
 
 
-def check_supported(m: Model) -> None:
+def check_supported(m: Model, device: str | torch.device | None = None) -> None:
     """Raise NotImplementedError on a model feature this package does not
-    carry yet (see ROADMAP.md)."""
+    carry yet on ``device`` (the model's own when None; see ROADMAP.md)."""
+    device = torch.device(device) if device is not None else m.device
     if m.ntendon:
         raise NotImplementedError("tendons are not ported yet")
     if m.na:
         raise NotImplementedError("activation states (na > 0) are not ported yet")
-    if m.nmocap:
-        raise NotImplementedError("mocap bodies are not ported yet")
-    if m.neq_jnt:
-        raise NotImplementedError("equality constraints are not ported yet")
     if any(int(t) != TRN_JOINT for t in m.actuator_trntype):
         raise NotImplementedError("only joint transmissions are ported")
-    if int(m.opt.cone) != CONE_PYRAMIDAL:
-        raise NotImplementedError("the elliptic cone is not ported yet")
     missing = pair_families(m) - PAIR_FAMILIES if m.pairs.ncon else set()
     if missing:
         raise NotImplementedError(
             f"narrowphase families {sorted(missing)} are not ported yet"
+        )
+    if device.type == "cuda" and m.neq_jnt and int(m.opt.cone) == CONE_PYRAMIDAL:
+        raise NotImplementedError(
+            "equality rows under the pyramidal cone are not in the CUDA kernel "
+            "yet (the elliptic kernel and the CPU carry them)"
         )
     if not (m.pairs.ncon and m.ncon_max and m.nlimit):
         raise NotImplementedError(
@@ -190,7 +190,8 @@ class Simulation:
 
     def reset(self, mask: np.ndarray | torch.Tensor | None = None) -> None:
         """Reset the masked envs (all when mask is None) to qpos0, zero
-        velocity and fresh derived state."""
+        velocity, the mocap bodies' model frames and fresh derived
+        state."""
         if mask is None:
             mask = torch.ones(self.num_envs, dtype=torch.bool)
         mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)

@@ -1,6 +1,10 @@
 """The port's contact stack against JAX at f64: narrowphase (collision_lm),
 per-slot parameters (slot_params) and the kernel-mode constraint rows
-(make_constraint_lm with assemble_j=False in the JAX package).
+(make_constraint_lm with assemble_j=False in the JAX package), on the G1,
+the toy with a capsule foot and with a box foot (plane-box), the elliptic
+toy (condim 3 and 6, a joint equality) and the YAM lift-cube model
+(plane-box, sphere-box, capsule-box and box-box, condim 6 fingertips,
+elliptic cone, a joint equality, a mocap base).
 
 Both sides read the same geom frames (the port's kin_com at f64, itself
 held against JAX in test_torch_stages.py). Float outputs agree within 1e-9
@@ -23,12 +27,12 @@ from mjlab_tpu_torch.phys.lm import constraint as pcon
 from mjlab_tpu_torch.phys.lm.base import Params
 
 from torch_port_common import (
-    G1_NCONMAX, TOY_NCONMAX, g1_mj, model_pair, rel_err, state_np, tnp,
-    toy_mj,
+    G1_NCONMAX, TOY_NCONMAX, YAM_NCONMAX, ell_mj, g1_mj, model_pair,
+    rel_err, state_np, tnp, toy_mj, yam_mj, yam_states,
 )
 
 
-def _g1_states(mj, E):
+def _g1_states(mj, m, E):
     """Keyframe states lowered into the ground (feet and hands in contact),
     the first two envs noise-free so mirrored contacts tie exactly."""
     q, v, c = state_np(mj, E, keyframe=True, qpos_noise=0.05, qvel_noise=0.5)
@@ -36,39 +40,54 @@ def _g1_states(mj, E):
     q[:2] = base
     v[:2] = 0.0
     q[:, 2] -= np.linspace(0.0, 0.12, E)
-    return q, v, c
+    return q, v, None
 
 
-def _toy_states(mj, E):
+def _toy_states(mj, m, E):
     q, v, c = state_np(mj, E, qpos_noise=0.05)
     q[:, 2] -= np.linspace(0.0, 0.04, E)
-    return q, v, c
+    return q, v, None
+
+
+def _yam_states(mj, m, E):
+    """Half the envs at the reset state (the cube on the table), half
+    pinching the cube; mocap frames env-last."""
+    q, v, _, mp, mq = yam_states(m, E)
+    return q, v, tuple(
+        torch.as_tensor(np.ascontiguousarray(np.moveaxis(x, 0, -1)))
+        for x in (mp, mq)
+    )
 
 
 CASES = {
     "toy": (toy_mj, TOY_NCONMAX, _toy_states),
     "g1": (g1_mj, G1_NCONMAX, _g1_states),
+    "toy_box": (lambda: toy_mj(capsule=False), TOY_NCONMAX, _toy_states),
+    "ell_toy": (ell_mj, TOY_NCONMAX, _toy_states),
+    "yam": (yam_mj, YAM_NCONMAX, _yam_states),
 }
 
-# kernel-mode outputs compared as floats / exactly
+# kernel-mode outputs compared as floats / exactly; the friction inputs
+# per cone
 FLOAT_KEYS = (
-    "efc_D", "efc_aref", "efc_fl", "efc_lim_side", "efc_pos", "efc_margin",
-    "con_mu_dirs", "con_Dc", "con_bb", "con_kimp", "con_W1", "con_W2",
+    "efc_D", "efc_aref", "efc_fl", "efc_Jeq", "efc_lim_side", "efc_pos",
+    "efc_margin", "con_Dc", "con_bb", "con_kimp", "con_W1", "con_W2",
     "con_O1", "con_O2", "con_dist_k", "con_pos_k", "con_frame_k",
     "con_mu_k", "con_dim_k", "con_solref_k", "con_solimp_k", "con_margin_k",
 )
+CONE_KEYS = (("con_mu_dirs",), ("con_Dfri", "con_mut"))
 EXACT_KEYS = ("con_sel", "con_sel_active", "con_on", "efc_active")
 
 
 def _run_both(name, E=16):
     make, nconmax, states = CASES[name]
     mj = make()
-    q, v, _ = states(mj, E)
     with jax.enable_x64(True):
         jm, m = model_pair(mj, nconmax, np.float64)
+        q, v, mocap = states(mj, m, E)
         qT = torch.as_tensor(np.ascontiguousarray(q.T))
         vT = torch.as_tensor(np.ascontiguousarray(v.T))
-        gxpos, gxmat, subcom, *_ = sk.kin_com(m, qT)
+        gxpos, gxmat, subcom, *_ = sk.kin_com(m, qT, *(mocap or ()))
         cg = list(sk.collision_geoms(m))
         gx = torch.zeros(m.ngeom, 3, E, dtype=torch.float64)
         gm = torch.zeros(m.ngeom, 9, E, dtype=torch.float64)
@@ -107,9 +126,13 @@ def _run_both(name, E=16):
     return m, kp, kj, sp, sj
 
 
-@pytest.mark.parametrize("name", ["toy", "g1"])
+@pytest.mark.parametrize("name", ["toy", "g1", "toy_box", "ell_toy"])
 def test_contact_stack_matches_jax_f64(name):
-    m, kp, kj, sp, sj = _run_both(name)
+    """(tests/test_torch_yam.py runs the YAM case.)"""
+    check_contact_stack(*_run_both(name))
+
+
+def check_contact_stack(m, kp, kj, sp, sj):
     # narrowphase
     for key in ("con_dist", "con_pos", "con_frame"):
         assert kj[key].shape == tuple(kp[key].shape), key
@@ -127,7 +150,7 @@ def test_contact_stack_matches_jax_f64(name):
         np.testing.assert_array_equal(
             kj[key], kp[key].numpy().astype(kj[key].dtype), err_msg=key
         )
-    for key in FLOAT_KEYS:
+    for key in FLOAT_KEYS + CONE_KEYS[int(m.opt.cone)]:
         assert kj[key].shape == tuple(kp[key].shape), key
         assert rel_err(kj[key], tnp(kp[key])) < 1e-9, key
     assert kp["con_sel_active"].any()
@@ -157,8 +180,21 @@ def test_topk_lowest_matches_lax_top_k_on_ties(seed):
     np.testing.assert_array_equal(-np.asarray(neg).T, vals.numpy())
 
 
+HFIELD_XML = """
+<mujoco>
+  <asset><hfield name="h" nrow="4" ncol="4" size="1 1 0.1 0.1"/></asset>
+  <worldbody>
+    <geom type="hfield" hfield="h"/>
+    <body pos="0 0 0.3"><freejoint/><geom type="sphere" size="0.05"/></body>
+  </worldbody>
+</mujoco>
+"""
+
+
 def test_collision_raises_on_missing_family():
-    mj = toy_mj(capsule=False)  # box foot: the plane-box family
+    import mujoco
+
+    mj = mujoco.MjModel.from_xml_string(HFIELD_XML)  # the hfield-sphere family
     from mjlab_tpu_torch.phys.model import put_model
 
     m = put_model(mj, dtype=torch.float64, nconmax=TOY_NCONMAX, device="cpu")

@@ -10,7 +10,9 @@ Tolerances (float32, TF32 matmuls off) are those of the CPU parity tests:
 solve's accelerations and 6e-3 on its per-row forces, relative to
 max(1, |plain|max). chip_smoke.py runs the same comparisons at 4096 envs.
 
-The model is the G1 flat-velocity model the repo keeps as a file, so these
+The models are the G1 flat-velocity model (pyramidal cone: kernel 4) and
+the YAM lift-cube model (elliptic cone, a joint equality and a mocap base:
+kernel 5 and kin_com's mocap inputs) the repo keeps as files, so these
 tests need neither MuJoCo nor the JAX package.
 """
 
@@ -20,9 +22,12 @@ import torch
 
 from mjlab_tpu_torch.phys import smooth_kernels as sk
 from mjlab_tpu_torch.phys import solver_kernels as sv
-from mjlab_tpu_torch.phys.hybrid import contact_stack, has_implicit, solve_args
+from mjlab_tpu_torch.phys.hybrid import (
+    contact_stack, has_implicit, mocap_planes, solve_args,
+)
 from mjlab_tpu_torch.phys.lm.base import Params
 from mjlab_tpu_torch.sim.sim import Simulation
+from mjlab_tpu_torch.tasks.manipulation.config.yam import physics as yam
 from mjlab_tpu_torch.tasks.velocity.config.g1 import physics
 
 pytestmark = pytest.mark.cuda
@@ -52,27 +57,20 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("E", [256, 300])
-def test_kernels_match_plain_versions(E, cuda):
-    """On a state settled for 10 steps (a random state interpenetrates hard
-    and its f32 solve is far more ill-conditioned than the task's)."""
-    m, key_qpos, key_ctrl = physics.load_saved_model(device=cuda)
-    sim = Simulation(E, physics.sim_cfg(), m, device=cuda)
-    q, v, c = _state(key_qpos, key_ctrl, E)
-    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=cuda)  # noqa: E731
-    sim.data = sim.data.replace(qpos=t(q), qvel=t(v), ctrl=t(c))
-    for _ in range(10):
-        sim.step()
-    d = sim.data
+def _check_kernels(m, d, cuda, seed=1):
+    """Each kernel against its plain version on the state d."""
+    E = d.qpos.shape[0]
     qT, vT, ctrlT = (x.T.contiguous() for x in (d.qpos, d.qvel, d.ctrl))
-    rng = np.random.default_rng(1)
+    mcT, mcqT = mocap_planes(m, d)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=cuda)  # noqa: E731
+    rng = np.random.default_rng(seed)
     xfrcT = t((0.1 * rng.standard_normal((m.nbody, 6, E))).astype(np.float32))
     qfaT = t((0.1 * rng.standard_normal((m.nv, E))).astype(np.float32))
 
     launches = sk.kin_com.launches
-    kin_k = sk.kin_com(m, qT)
+    kin_k = sk.kin_com(m, qT, mcT, mcqT)
     assert sk.kin_com.launches == launches + 1
-    kin_p = sk.kin_com_plain(m, qT)
+    kin_p = sk.kin_com_plain(m, qT, mcT, mcqT)
     for p, k in zip(kin_p, kin_k):
         assert rel_err(p, k) < 2e-6
     _, _, subcom, cdof, cinA, cinc, xipos, _, _ = kin_p
@@ -98,20 +96,82 @@ def test_kernels_match_plain_versions(E, cuda):
                           cdof.reshape(nv * 6, E), Mh_cm)
     it_k = torch.zeros(E, dtype=torch.int32, device=cuda)
     it_p = torch.zeros(E, dtype=torch.int32, device=cuda)
+    by_cone = list(sv.newton_assemble_solve.launches_by_cone)
     so_k = sv.newton_assemble_solve(*args, **kw, iters=it_k)
+    by_cone[kw["cone"]] += 1
+    assert sv.newton_assemble_solve.launches_by_cone == by_cone
     so_p = sv.newton_assemble_solve_plain(*args, **kw, iters=it_p)
     for i, (p, kk) in enumerate(zip(so_p, so_k)):
         if i != 3:
-            tol = 6e-3 if i in (1, 2) else 2e-3
+            tol = sv.FORCE_TOL if i in (1, 2) else sv.SOLVE_TOL
             assert rel_err(p, kk) < tol, i
-    # qfrc_constraint: the solve tolerance where both took the same number
-    # of Newton iterations; where the f32 acceptance test stopped them one
-    # step apart, the per-row force tolerance (qfrc = J^T f)
-    same = (it_k == it_p).cpu()
-    ref, got = so_p[3].double().cpu(), so_k[3].double().cpu()
-    scale = max(1.0, float(ref.abs().max()))
-    assert float((ref - got)[:, same].abs().max()) / scale < 2e-3
-    assert float((ref - got).abs().max()) / scale < 6e-3
+    # qfrc_constraint under the iteration-count rule (the f32 acceptance
+    # test can stop the two one Newton step apart)
+    for label, (err, tol) in sv.qfrc_errors(so_p, so_k, it_p, it_k,
+                                            kw["cone"]).items():
+        assert err < tol, label
+
+
+@pytest.mark.parametrize("E", [256, 300])
+def test_kernels_match_plain_versions(E, cuda):
+    """On a state settled for 10 steps (a random state interpenetrates hard
+    and its f32 solve is far more ill-conditioned than the task's)."""
+    m, key_qpos, key_ctrl = physics.load_saved_model(device=cuda)
+    sim = Simulation(E, physics.sim_cfg(), m, device=cuda)
+    q, v, c = _state(key_qpos, key_ctrl, E)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=cuda)  # noqa: E731
+    sim.data = sim.data.replace(qpos=t(q), qvel=t(v), ctrl=t(c))
+    for _ in range(10):
+        sim.step()
+    _check_kernels(m, sim.data, cuda)
+
+
+def _yam_state(sim, seed=0):
+    """Half the envs at the task's reset state, half pinching the cube
+    (yam.task_states)."""
+    _, st = yam.load_saved_model(device="cpu")
+    b = yam.task_states(sim.model, st, sim.num_envs, seed)
+    sim.reset()
+    sim.data = sim.data.replace(**{
+        k: torch.as_tensor(v, dtype=torch.float32, device=sim.device)
+        for k, v in b.items()
+    })
+
+
+def test_yam_kernels_match_plain_versions(cuda):
+    """Kernel 5 (the elliptic cone with a joint equality) and kin_com with
+    the mocap base, on a YAM state settled for 10 steps."""
+    m, _ = yam.load_saved_model(device=cuda)
+    sim = Simulation(256, yam.sim_cfg(), m, device=cuda)
+    _yam_state(sim)
+    for _ in range(10):
+        sim.step()
+    assert int(m.opt.cone) == 1 and m.neq_jnt == 1 and m.nmocap == 1
+    _check_kernels(m, sim.data, cuda)
+
+
+def test_yam_simulation_on_card_matches_cpu(cuda):
+    """A few YAM steps through the kernels against the plain versions."""
+    m, _ = yam.load_saved_model(device="cpu")
+    sims = [Simulation(64, yam.sim_cfg(), m, device=dev) for dev in (cuda, "cpu")]
+    for s in sims:
+        _yam_state(s, seed=1)
+    for _ in range(3):
+        for s in sims:
+            s.step()
+        sims[0].refresh()
+    dc, dp = sims[0].data, sims[1].data
+    # the elliptic multistep tolerances (tests/test_pallas2_solver.py):
+    # the cone's contact dynamics amplify an f32 difference ~3x per step
+    for f, tol in (("qpos", 2e-4), ("qvel", 2e-2), ("qacc", 5e-3)):
+        assert rel_err(getattr(dp, f), getattr(dc, f)) < tol, f
+    assert int(dc.ncheck_reset.sum()) == 0
+    # the same active contact slots in every env (their order may differ
+    # where mirrored fingertip slots tie to a few f32 ulps)
+    for e in range(64):
+        card = dc.con_sel[e][dc.con_sel_active[e]].sort().values.cpu()
+        cpu = dp.con_sel[e][dp.con_sel_active[e]].sort().values
+        assert torch.equal(card, cpu), e
 
 
 def test_simulation_on_card_matches_cpu(cuda):
@@ -143,3 +203,9 @@ def test_wrappers_reject_bad_inputs(cuda):
         sk.kin_com(m, torch.zeros(m.nq, 8, dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError, match="shape"):
         sk.kin_com(m, torch.zeros(m.nq + 1, 8, device=cuda))
+    # equality rows under the pyramidal cone run in the plain version only
+    z = torch.zeros(1, 8, device=cuda)
+    kw = dict(nv=1, K=1, R=4, ndirs=2, neq=1, nlim=1, lim_dofs=(0,),
+              iterations=1, ls_iterations=8, tolerance=1e-8, do_int=False)
+    with pytest.raises(NotImplementedError, match="equality"):
+        sv.newton_assemble_solve(*(z,) * 23, **kw)

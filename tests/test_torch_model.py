@@ -250,26 +250,92 @@ _TENDON_XML = """
 """
 
 
-@pytest.mark.parametrize("case", ["tendon", "box_pair", "elliptic", "activation"])
+_HFIELD_XML = """
+<mujoco>
+  <asset><hfield name="h" nrow="4" ncol="4" size="1 1 0.1 0.1"/></asset>
+  <worldbody>
+    <geom type="hfield" hfield="h"/>
+    <body pos="0 0 0.3">
+      <freejoint/>
+      <geom type="sphere" size="0.05"/>
+      <body pos="0.1 0 0">
+        <joint name="a" type="hinge" axis="0 1 0" range="-1 1"/>
+        <geom type="capsule" size="0.03" fromto="0 0 0 0 0 -0.3"/>
+      </body>
+    </body>
+  </worldbody>
+  <actuator><motor joint="a"/></actuator>
+</mujoco>
+"""
+
+_WELD_XML = _TENDON_XML.replace(
+    '<tendon><fixed name="t"><joint joint="a" coef="1"/></fixed></tendon>',
+    '<equality><weld body1="world" body2="b"/></equality>',
+).replace('<body pos="0.1 0 0">', '<body name="b" pos="0.1 0 0">')
+
+
+@pytest.mark.parametrize(
+    "case", ["tendon", "hfield_pair", "weld_equality", "activation"]
+)
 def test_simulation_raises_on_uncovered_models(case):
+    """What the port does not carry yet: tendons, the heightfield pair
+    families, weld (and connect) equalities, activation states."""
+    cfg = SimulationCfg(nconmax=8)
     if case == "tendon":
         mj = mujoco.MjModel.from_xml_string(_TENDON_XML)
-        cfg = SimulationCfg(nconmax=8)
-    elif case == "box_pair":
-        mj = toy_mj(capsule=False)
-        cfg = SimulationCfg(nconmax=TOY_NCONMAX)
-    elif case == "elliptic":
-        mj = toy_mj()
-        cfg = SimulationCfg(nconmax=TOY_NCONMAX)
-        cfg.mujoco.cone = "elliptic"
+    elif case == "hfield_pair":
+        mj = mujoco.MjModel.from_xml_string(_HFIELD_XML)
+    elif case == "weld_equality":
+        mj = mujoco.MjModel.from_xml_string(_WELD_XML)
     else:
         mj = mujoco.MjModel.from_xml_string(
             _TENDON_XML.replace('<tendon><fixed name="t"><joint joint="a" coef="1"/></fixed></tendon>', "")
             .replace('<motor joint="a"/>', '<general joint="a" dyntype="filter" dynprm="0.1"/>')
         )
-        cfg = SimulationCfg(nconmax=8)
     with pytest.raises(NotImplementedError):
         Simulation(2, cfg, mj, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["box_pair", "elliptic", "equality_mocap"])
+def test_simulation_accepts_ported_features(case):
+    """The box pair families, the elliptic cone, joint equalities and
+    mocap bodies step on the CPU and stay finite."""
+    from torch_port_common import yam_mj
+
+    cfg = SimulationCfg(nconmax=TOY_NCONMAX)
+    if case == "box_pair":
+        mj = toy_mj(capsule=False)
+    elif case == "elliptic":
+        mj = toy_mj()
+        cfg.mujoco.cone = "elliptic"
+    else:
+        mj = yam_mj()
+        cfg = SimulationCfg(nconmax=55, mujoco=dataclasses.replace(
+            cfg.mujoco, cone="elliptic", impratio=10.0))
+        assert mj.nmocap == 1 and mj.neq == 1
+    sim = Simulation(4, cfg, mj, device="cpu")
+    for _ in range(2):
+        sim.step()
+    sim.refresh()
+    assert torch.isfinite(sim.data.qpos).all()
+    assert int(sim.data.ncheck_reset.sum()) == 0
+    if case == "elliptic":
+        assert sim.model.rows_per_con == 3 and int(sim.model.opt.cone) == 1
+
+
+def test_check_supported_rejects_pyramidal_equality_on_cuda():
+    """A joint equality under the pyramidal cone runs on the CPU; on the
+    card Simulation refuses it when it is built, not at the first step."""
+    from torch_port_common import yam_mj
+
+    mj = yam_mj()
+    mj.opt.cone = 0
+    m = pm.put_model(mj, nconmax=55, device="cpu")
+    assert m.neq_jnt == 1 and int(m.opt.cone) == 0
+    check_supported(m)
+    check_supported(m, device="cpu")
+    with pytest.raises(NotImplementedError, match="pyramidal"):
+        check_supported(m, device="cuda")
 
 
 def test_simulation_raises_on_batched_smooth_fields():

@@ -26,8 +26,8 @@ from mjlab_tpu_torch.phys.data import make_data
 from mjlab_tpu_torch.phys.hybrid import forward_solve, step_envlast
 
 from torch_port_common import (
-    G1_NCONMAX, TOY_NCONMAX, g1_mj, model_pair, rel_err, state_np, tnp,
-    toy_mj,
+    G1_NCONMAX, TOY_NCONMAX, ell_mj, g1_mj, model_pair, rel_err, state_np,
+    tnp, toy_mj,
 )
 
 E = 128
@@ -65,12 +65,16 @@ def _jax_forward(jm, q, v, c):
             os.environ["MJLAB_TPU_SOLVER"] = old
 
 
-@pytest.mark.parametrize("name", ["toy", "g1"])
+@pytest.mark.parametrize("name", ["toy", "g1", "ell_toy"])
 def test_newton_plain_matches_solve_lm_f32(name):
-    mj, nconmax, keyframe = (
-        (toy_mj(), TOY_NCONMAX, False) if name == "toy"
-        else (g1_mj(), G1_NCONMAX, True)
-    )
+    """ell_toy: the elliptic cone (condim 3 and 6, impratio 10) with a
+    joint equality row, held against solve_lm's elliptic path."""
+    mj, nconmax, keyframe = {
+        "toy": (toy_mj, TOY_NCONMAX, False),
+        "g1": (g1_mj, G1_NCONMAX, True),
+        "ell_toy": (ell_mj, TOY_NCONMAX, False),
+    }[name]
+    mj = mj()
     jm, m = model_pair(mj, nconmax, np.float32)
     q, v, c = _states(m, mj, keyframe)
     ref = _jax_forward(jm, q, v, c)
@@ -110,11 +114,37 @@ def test_cholesky_solve_matches_numpy():
 
 
 def test_wrapper_rejects_uncovered_options():
+    """Row layouts the solve does not take: friction directions that do
+    not match the cone, more than 6 rows per elliptic contact."""
     kw = dict(nv=1, K=1, R=4, ndirs=2, neq=0, nlim=1, lim_dofs=(0,),
               iterations=1, ls_iterations=8, tolerance=1e-8, do_int=False)
     z = torch.zeros(1, 1)
     args = (z,) * 23
-    with pytest.raises(NotImplementedError, match="elliptic"):
+    with pytest.raises(ValueError, match="ndirs"):
         sv.newton_assemble_solve(*args, **{**kw, "cone": 1})
-    with pytest.raises(NotImplementedError, match="equality"):
-        sv.newton_assemble_solve(*args, **{**kw, "neq": 1})
+    with pytest.raises(ValueError, match="ndirs"):
+        sv.newton_assemble_solve(*args, **{**kw, "ndirs": 3})
+    with pytest.raises(ValueError, match="rows per contact"):
+        sv.newton_assemble_solve(*args, **{**kw, "cone": 1, "R": 7, "ndirs": 6})
+
+
+def test_qfrc_errors_iteration_count_rule():
+    """qfrc_constraint of a kernel against its plain version: SOLVE_TOL
+    where the Newton iteration counts agree, FORCE_TOL where they differ;
+    relative to qfrc's own scale under the pyramidal cone and to the row
+    forces' scale under the elliptic one."""
+    # float32 inputs: the errors carry f32 rounding of 1 + the difference
+    q = torch.ones(3, 4)
+    f = torch.full((5, 4), 10.0)
+    ref = (None, f, f, q)
+    got = (None, f, f, q + torch.tensor([0.0, 0.02, 0.001, 0.0]))
+    it_ref = torch.tensor([2, 2, 3, 3], dtype=torch.int32)
+    it_got = torch.tensor([2, 3, 3, 3], dtype=torch.int32)  # env 1 differs
+    pyr = sv.qfrc_errors(ref, got, it_ref, it_got, 0)
+    assert pyr["equal iteration counts"] == (pytest.approx(0.001, rel=1e-4), sv.SOLVE_TOL)
+    assert pyr["iteration counts differ"] == (pytest.approx(0.02, rel=1e-4), sv.FORCE_TOL)
+    ell = sv.qfrc_errors(ref, got, it_ref, it_got, 1)
+    assert ell["equal iteration counts"] == (pytest.approx(1e-4, rel=1e-4), sv.SOLVE_TOL)
+    assert ell["iteration counts differ"] == (pytest.approx(2e-3, rel=1e-4), sv.FORCE_TOL)
+    same = sv.qfrc_errors(ref, got, it_ref, it_ref, 0)
+    assert same["iteration counts differ"] == (0.0, sv.FORCE_TOL)

@@ -16,10 +16,15 @@ import torch
 
 from mjlab_tpu.phys.model import put_model as jax_put_model
 from mjlab_tpu_torch.phys import model as pm
-from mjlab_tpu_torch.scene.scene import g1_velocity_flat_model
+from mjlab_tpu_torch.scene.scene import (
+    g1_velocity_flat_model, yam_lift_cube_model,
+)
+from mjlab_tpu_torch.tasks.manipulation.config.yam import physics as yam
 from mjlab_tpu_torch.tasks.velocity.config.g1.physics import sim_cfg
 
 from test_hybrid_parity import TOY_XML
+
+from test_pallas2_solver import ELL_XML
 
 # The toy's foot is a box. The port's narrowphase carries the pair families
 # of the G1 velocity task (plane/sphere/capsule); the box family waits for a
@@ -30,8 +35,10 @@ TOY_CAPSULE_XML = TOY_XML.replace(
     '<geom type="capsule" size="0.03" fromto="-0.05 0 0 0.05 0 0"/>',
 )
 
-# the G1 flat-velocity task's contact capacity (velocity_env_cfg.py)
+# the G1 flat-velocity and YAM lift-cube tasks' contact capacities
+# (velocity_env_cfg.py, lift_cube_env_cfg.py)
 G1_NCONMAX = sim_cfg().nconmax
+YAM_NCONMAX = yam.sim_cfg().nconmax
 TOY_NCONMAX = 12
 
 
@@ -61,6 +68,29 @@ def g1_mj() -> mujoco.MjModel:
     mj = g1_velocity_flat_model()
     sim_cfg().mujoco.apply(mj)
     return mj
+
+
+def ell_mj() -> mujoco.MjModel:
+    """The elliptic toy: condim 3 and 6 contacts, impratio 10, a joint
+    equality (tests/test_pallas2_solver.py ELL_XML)."""
+    return mujoco.MjModel.from_xml_string(ELL_XML)
+
+
+def yam_mj() -> mujoco.MjModel:
+    """The YAM lift-cube model with the task's solver options applied."""
+    mj = yam_lift_cube_model()
+    yam.sim_cfg().mujoco.apply(mj)
+    return mj
+
+
+def yam_states(m, E: int, seed: int = 0, dtype=np.float64):
+    """(qpos, qvel, ctrl, mocap_pos, mocap_quat) numpy arrays for E envs of
+    the port's YAM Model m (yam.task_states: half at the reset state, half
+    pinching the cube)."""
+    _, st = yam.load_saved_model(dtype=torch.float64, device="cpu")
+    b = yam.task_states(m, st, E, seed)
+    return tuple(b[k].astype(dtype) for k in (
+        "qpos", "qvel", "ctrl", "mocap_pos", "mocap_quat"))
 
 
 def model_pair(mj, nconmax, dtype):
