@@ -3,17 +3,22 @@
 
     python3 chip_smoke.py
 
-Two main paths, each a Simulation of 4096 envs driven through its public
-entry points (reset, step, refresh), and the five kernels they run:
+Three main paths, each a Simulation of 4096 envs driven through its public
+entry points, and the six kernels they run:
 
-- g1: Mjlab-Velocity-Flat-Unitree-G1 physics (nconmax 35, pyramidal cone):
-  kin_com, crb_packed, vel_smooth and newton_assemble_solve cone 0;
+- g1: Mjlab-Velocity-Flat-Unitree-G1 physics (nconmax 35, pyramidal cone),
+  reset, step and refresh: kin_com, crb_packed, vel_smooth and
+  newton_assemble_solve cone 0;
 - yam: Mjlab-Lift-Cube-Yam physics (nconmax 55, elliptic cone with
-  impratio 10, a joint equality, a mocap base, the box contact families):
-  kin_com with mocap frames, crb_packed, vel_smooth and
-  newton_assemble_solve cone 1 (the elliptic kernel).
+  impratio 10, a joint equality, a mocap base, the box contact families),
+  reset, step and refresh: kin_com with mocap frames, crb_packed,
+  vel_smooth and newton_assemble_solve cone 1 (the elliptic kernel);
+- g1_forward: the G1's Simulation.forward() (mj_forward over the whole
+  Data surface: the batched stages, the dense contact rows, every efc row
+  and the packed contact table written): newton_solve_dense, the solve
+  over the dense constraint Jacobian (nefc 204).
 
-Both: dt 0.005, 10 Newton / 20 line-search iterations, implicitfast.
+All: dt 0.005, 10 Newton / 20 line-search iterations, implicitfast.
 
 Phases, each of which raises on a failure (no phase failure is caught):
 
@@ -41,6 +46,14 @@ then for each path:
    steps of a 64-env Simulation on the card agree with the same steps on
    the CPU (the plain versions) within the step tolerances (E2E_TOL), with
    the same active contact slots in every env.
+
+The g1_forward path seeds and settles the G1 state as the g1 path does,
+holds newton_solve_dense against its plain version on the dense inputs of
+that state's forward pass, times FORWARD_CALLS forward() calls after a
+warm one (launch counts: newton_solve_dense once per call, no other
+kernel) with a per-phase breakdown (position, contact, velocity, solve,
+writeback), and checks forward() of 64 envs on the card against the CPU
+field by field.
 
 The line before the last is the card's name and power limit (nvidia-smi);
 the lines before hold the kernels (JSON), the substep breakdowns and the
@@ -84,6 +97,14 @@ E2E_TOL = {
     "yam": (("qpos", 2e-4), ("qvel", 2e-2), ("qacc", 5e-3)),
 }
 
+# the forward path: timed forward() calls, and the forward() fields held
+# card against CPU on 64 envs (float32 tolerances of the CPU tests,
+# tests/test_torch_forward.py; the solve's outputs at the solve
+# tolerances, qfrc_constraint at the force tolerance where Newton
+# iteration counts may differ by a step)
+FORWARD_CALLS = 10
+FORWARD_TOL = 5e-5
+
 # the TPU kernels the rows replace
 REPLACES = {
     "kin_com": "mjlab_tpu/phys/smooth_pallas.py:237",
@@ -91,6 +112,7 @@ REPLACES = {
     "vel_smooth": "mjlab_tpu/phys/smooth_pallas.py:389",
     "newton_assemble_solve": "mjlab_tpu/phys/solver_pallas2.py:623",
     "newton_assemble_solve_elliptic": "mjlab_tpu/phys/solver_pallas2.py:623",
+    "newton_solve_dense": "mjlab_tpu/phys/solver_pallas.py:255",
 }
 SOURCES = {
     "kin_com": "mjlab_tpu_torch/csrc/kin_com.cu",
@@ -98,6 +120,7 @@ SOURCES = {
     "vel_smooth": "mjlab_tpu_torch/csrc/vel_smooth.cu",
     "newton_assemble_solve": "mjlab_tpu_torch/csrc/newton_solve.cu",
     "newton_assemble_solve_elliptic": "mjlab_tpu_torch/csrc/newton_solve_elliptic.cu",
+    "newton_solve_dense": "mjlab_tpu_torch/csrc/newton_solve_dense.cu",
 }
 
 
@@ -180,10 +203,27 @@ def _ancestor_counts(m):
     return ancestor_dof_mask(m).sum(axis=1)
 
 
+# a dense row's share of the Hessian J^T diag(D) J: D J once (nv), then a
+# multiply-add per entry of the lower triangle (nv (nv + 1))
+def hessian_row_flops(nv) -> int:
+    return nv * (nv + 1) + nv
+
+
+# one row in one line-search probe: the residual at the step (2), the force
+# (1) and the slope's multiply-add (2); the curvature's D v v (3) only in
+# the Newton-bisection probes, not in the 12 bracket doublings
+SLOPE_ROW_FLOPS, CURVATURE_ROW_FLOPS = 5, 3
+
+
+def line_search_flops(nrows, ls) -> int:
+    return nrows * (12 * SLOPE_ROW_FLOPS + ls * (SLOPE_ROW_FLOPS + CURVATURE_ROW_FLOPS))
+
+
 def newton_flops(nv, nlim, nlive, nact, iters, ls) -> float:
     """FLOPs of the pyramidal solve for one env: nlive contact rows built
-    and carried, nact of them active in the Hessian, iters Newton
-    iterations."""
+    and carried, nact of them in the quadratic zone (in the Hessian),
+    iters Newton iterations. The dof-friction and limit rows are unit
+    rows: their Hessian terms are diagonal (nv + nlim)."""
     chol = nv**3 / 3 + 3 * nv * nv
     solve = 4 * nv * nv
     matvec = 2 * nv * nv
@@ -191,9 +231,10 @@ def newton_flops(nv, nlim, nlive, nact, iters, ls) -> float:
     build = 48 * nv * nlive
     cost = 6 * nv + 4 * nlim + 4 * nlive
     setup = chol + solve + 2 * (nv + nlim + rows + matvec + cost)
+    hessian = nact * hessian_row_flops(nv) + nv + nlim
     per_iter = (
-        matvec + rows + 1.5 * nv * nv * nact + chol + solve + rows + matvec
-        + (12 + ls) * (6 * nv + 5 * nlim + 5 * nlive) + matvec + cost
+        matvec + rows + hessian + chol + solve + rows + matvec
+        + line_search_flops(nv + nlim + nlive, ls) + matvec + cost
     )
     tail = rows + matvec + chol + solve
     return build + setup + iters * per_iter + tail
@@ -223,6 +264,24 @@ def newton_flops_elliptic(nv, nlim, neq, R, nlive, ncon, nblock, iters, ls) -> f
     )
     tail = forces + matvec + chol + solve
     return build + setup + iters * per_iter + tail
+
+
+def dense_flops(nv, nlive, nact, iters, ls) -> float:
+    """FLOPs of the dense-Jacobian solve for one env: nlive live rows
+    (D != 0) carried, nact of them in the quadratic zone (in the Hessian),
+    iters Newton iterations."""
+    chol = nv**3 / 3 + 3 * nv * nv
+    solve = 4 * nv * nv
+    matvec = 2 * nv * nv
+    rows = 2 * nv * nlive  # one product of the rows with a vector
+    cost = 6 * nv + 8 * nlive
+    setup = 2 * (nv + rows + matvec + cost)
+    per_iter = (
+        matvec + rows + nact * hessian_row_flops(nv) + nv * (nv + 1) / 2
+        + chol + solve + rows + matvec + line_search_flops(nlive, ls)
+        + matvec + cost
+    )
+    return setup + iters * per_iter + 4 * nlive
 
 
 # ---------------------------------------------------------------------------
@@ -392,11 +451,12 @@ def check_kernels(sim, path: str) -> dict:
     # the row forces' and the errors on its own scale are printed beside
     same = it_k == it_p
     del errs["qfrc_constraint"]
-    for label, e_t in sv.qfrc_errors(so_p, so_k, it_p, it_k, kw["cone"]).items():
+    force_scale = sv.row_force_scale(so_p)
+    row_scale = force_scale if kw["cone"] else 0.0
+    for label, e_t in sv.qfrc_errors(so_p[3], so_k[3], it_p, it_k, row_scale).items():
         errs[f"qfrc_constraint, {label}"] = e_t
-    own = sv.qfrc_errors(so_p, so_k, it_p, it_k, 0)
+    own = sv.qfrc_errors(so_p[3], so_k[3], it_p, it_k)
     qfrc_scale = float(so_p[3].abs().max())
-    force_scale = max(float(so_p[1].abs().max()), float(so_p[2].abs().max()))
     log(f"[check] {path} qfrc_constraint: |qfrc|max {qfrc_scale:.4g}, row forces "
         f"|f|max {force_scale:.4g} (ratio {force_scale / max(1.0, qfrc_scale):.3g}); "
         "on qfrc's own scale: " + ", ".join(f"{k} {e:.3e}" for k, (e, _) in own.items()))
@@ -472,16 +532,16 @@ def traffic(sim, path: str, state: dict, ctrl0, seed: int):
     return random_ctrl
 
 
-def main_path(sim, random_ctrl) -> dict:
-    """CONTROL_STEPS control steps with random_ctrl's ctrl, the launch
-    counts set to 0 just before and read just after."""
+def timed_launches(calls) -> dict:
+    """Run the callables in ``calls`` timed with CUDA events, every kernel
+    wrapper's launch count set to 0 just before and read just after."""
     from mjlab_tpu_torch.phys import smooth_kernels as sk
+    from mjlab_tpu_torch.phys import solver_dense_kernels as sd
     from mjlab_tpu_torch.phys import solver_kernels as sv
 
-    control_step(sim, random_ctrl())  # warm
     torch.cuda.synchronize()
-    ctrls = [random_ctrl() for _ in range(CONTROL_STEPS)]
-    wrappers = (sk.kin_com, sk.crb_packed, sk.vel_smooth, sv.newton_assemble_solve)
+    wrappers = (sk.kin_com, sk.crb_packed, sk.vel_smooth, sv.newton_assemble_solve,
+                sd.newton_solve_dense)
     for w in wrappers:
         w.launches = 0
     sv.newton_assemble_solve.launches_by_cone = [0, 0]
@@ -489,8 +549,8 @@ def main_path(sim, random_ctrl) -> dict:
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    for c in ctrls:
-        control_step(sim, c)
+    for call in calls:
+        call()
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -500,22 +560,31 @@ def main_path(sim, random_ctrl) -> dict:
         "vel_smooth": sk.vel_smooth.launches,
         "newton_assemble_solve": by_cone[0],
         "newton_assemble_solve_elliptic": by_cone[1],
+        "newton_solve_dense": sd.newton_solve_dense.launches,
     }
-    return dict(launches=launches, dev_ms=start.elapsed_time(end), wall=wall,
-                random_ctrl=random_ctrl)
+    return dict(launches=launches, dev_ms=start.elapsed_time(end), wall=wall)
 
 
-def device_profile(sim, ctrl) -> dict:
-    """One control step under torch.profiler: CUDA kernels launched, their
-    summed device time, and the device's idle share between the first
-    kernel's start and the last one's end (the profiler slows the host,
-    so this idle share is an upper bound)."""
+def main_path(sim, random_ctrl) -> dict:
+    """CONTROL_STEPS control steps with random_ctrl's ctrl after a warm
+    one, with launch counts (timed_launches)."""
+    control_step(sim, random_ctrl())  # warm
+    ctrls = [random_ctrl() for _ in range(CONTROL_STEPS)]
+    run = timed_launches([lambda c=c: control_step(sim, c) for c in ctrls])
+    return dict(run, random_ctrl=random_ctrl)
+
+
+def device_profile(step) -> dict:
+    """One call of ``step`` under torch.profiler: CUDA kernels launched,
+    their summed device time, and the device's idle share between the
+    first kernel's start and the last one's end (the profiler slows the
+    host, so this idle share is an upper bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        control_step(sim, ctrl)
+        step()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
@@ -622,6 +691,7 @@ def run_path(path: str) -> tuple[dict, dict, dict]:
         "vel_smooth": substeps,
         "newton_assemble_solve": 0 if elliptic else substeps,
         "newton_assemble_solve_elliptic": substeps if elliptic else 0,
+        "newton_solve_dense": 0,
     }
     log(f"[main] {path} launches {launches}, expected {expected}")
     if launches != expected:
@@ -650,7 +720,8 @@ def run_path(path: str) -> tuple[dict, dict, dict]:
     log(f"[breakdown] {path} ms per substep: " + ", ".join(
         f"{k} {v:.3f}" for k, v in parts.items() if k != "refresh")
         + f" (sum {sub:.3f}); refresh {parts['refresh']:.3f} ms per control step")
-    prof = device_profile(sim, run["random_ctrl"]())
+    ctrl = run["random_ctrl"]()
+    prof = device_profile(lambda: control_step(sim, ctrl))
     if prof["kernels"]:
         log(f"[profile] {path} one control step: {prof['kernels']} CUDA kernels, "
             f"device busy {prof['busy_ms']:.2f} ms of a {prof['span_ms']:.2f} ms "
@@ -668,6 +739,251 @@ def run_path(path: str) -> tuple[dict, dict, dict]:
     return kernels, launches, summary
 
 
+# ---------------------------------------------------------------------------
+# the forward path: Simulation.forward() of the G1 (kernel 6)
+# ---------------------------------------------------------------------------
+
+
+def check_dense_kernel(sim) -> dict:
+    """Kernel 6 against its plain version on the dense inputs of the
+    settled state's forward pass: {"newton_solve_dense": its numbers}."""
+    from mjlab_tpu_torch.phys import solver_dense_kernels as sd
+    from mjlab_tpu_torch.phys import solver_kernels as sv
+    from mjlab_tpu_torch.phys.hybrid import forward_stages, solve_dense_inputs
+
+    m = sim.model
+    E = sim.num_envs
+    d, k, _ = forward_stages(m, sim.data)
+    args, kw = solve_dense_inputs(m, k, d)
+    it_k = torch.zeros(E, dtype=torch.int32, device=sim.device)
+    it_p = torch.zeros(E, dtype=torch.int32, device=sim.device)
+    x_k, f_k = sd.newton_solve_dense(*args, **kw, iters=it_k)
+    x_p, f_p = sd.newton_solve_dense_plain(*args, **kw, iters=it_p)
+    torch.cuda.synchronize()
+    Jt = args[0]
+    q_k = torch.einsum("vre,re->ve", Jt, f_k)
+    q_p = torch.einsum("vre,re->ve", Jt, f_p)
+    errs = {"qacc": (rel_err(x_p, x_k), sv.SOLVE_TOL),
+            "efc_force": (rel_err(f_p, f_k), sv.FORCE_TOL)}
+    for label, e_t in sv.qfrc_errors(q_p, q_k, it_p, it_k).items():
+        errs[f"qfrc_constraint, {label}"] = e_t
+    for label, (err, tol) in errs.items():
+        log(f"[check] g1_forward newton_solve_dense {label}: rel err {err:.3e} "
+            f"(tol {tol:.0e})")
+        if not err < tol:
+            raise AssertionError(f"g1_forward newton_solve_dense {label}: "
+                                 f"{err:.3e} >= {tol:.0e}")
+    # live rows (D != 0: the kernel reads and carries only these) and the
+    # rows in the quadratic zone at the final residuals (row_quad: every
+    # equality row, a dof-friction row below its frictionloss, a one-sided
+    # row with a positive force), which stand for every iteration's
+    D, fl = args[1], args[3]
+    mask = lambda c: torch.as_tensor(c, device=D.device)[:, None]  # noqa: E731
+    live = D != 0
+    quad = live & (D > 0) & (mask(kw["eq_mask"]) | (mask(kw["fr_mask"]) & (f_p.abs() < fl))
+                             | (mask(kw["os_mask"]) & (f_p > 0)))
+    nlive = live.sum(0).double()
+    nact = quad.sum(0).double()
+    differ = int((it_k != it_p).sum())
+    log(f"[check] g1_forward newton_solve_dense: smem "
+        f"{sd.dense_smem_bytes(m.nv, m.nefc)} bytes per env; iterations mean "
+        f"{it_k.double().mean():.2f} kernel, {it_p.double().mean():.2f} plain, "
+        f"different in {differ} of {E} envs; live rows mean "
+        f"{float(nlive.mean()):.1f}, rows in the quadratic zone "
+        f"{float(nact.mean()):.1f} of {m.nefc}")
+    flops = float(sum(
+        dense_flops(m.nv, nl, na, it, kw["ls_iterations"])
+        for nl, na, it in zip(nlive.tolist(), nact.tolist(), it_p.tolist())
+    ))
+    # Jt's live rows only: a row with D = 0 adds nothing and is not read
+    moved = (nbytes(*args[1:], x_k, f_k)
+             + int(live.sum()) * m.nv * Jt.element_size())
+    ms = cuda_ms(lambda: sd.newton_solve_dense(*args, **kw), 10)
+    plain_ms = cuda_ms(lambda: sd.newton_solve_dense_plain(*args, **kw), 2)
+    b_ms, b_by = bound(moved, flops)
+    log(f"[time] g1_forward newton_solve_dense: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: {moved / 1e6:.1f} MB, "
+        f"{flops / 1e9:.3f} GFLOP)")
+    return {"newton_solve_dense": dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=moved,
+        flops=flops, max_abs_err=max(max_abs(x_p, x_k), max_abs(f_p, f_k)),
+        max_rel_err=max(e for e, _ in errs.values()),
+        iteration_counts_differ=differ,
+    )}
+
+
+def forward_breakdown(sim, calls: int) -> dict:
+    """Device time per phase of forward() (CUDA events at its phase
+    marks) and kernel 6's mean Newton iteration count, averaged over
+    ``calls`` calls."""
+    from mjlab_tpu_torch.phys.hybrid import forward_hybrid
+
+    order = ("position", "contact", "velocity", "solve", "writeback")
+    acc = {n: 0.0 for n in order}
+    iters = torch.zeros(sim.num_envs, dtype=torch.int32, device=sim.device)
+    acc["newton_iterations"] = 0.0
+    for _ in range(calls):
+        ev = [torch.cuda.Event(enable_timing=True)]
+        ev[0].record()
+        marks = []
+
+        def mark(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            ev.append(e)
+            marks.append(name)
+
+        sim.data = forward_hybrid(sim.model, sim.data, iters=iters, mark=mark)
+        torch.cuda.synchronize()
+        for name, a, b in zip(marks, ev[:-1], ev[1:]):
+            acc[name] += a.elapsed_time(b)
+        acc["newton_iterations"] += float(iters.double().mean())
+    return {n: v / calls for n, v in acc.items()}
+
+
+def forward_op_counts(sim) -> dict:
+    """Torch operators dispatched per phase of one forward() call (views
+    included: an upper bound on the CUDA kernels each phase launches)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from mjlab_tpu_torch.phys.hybrid import forward_hybrid
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    counts, last = {}, [0]
+
+    def mark(name):
+        counts[name] = Count.n - last[0]
+        last[0] = Count.n
+
+    with Count():
+        sim.data = forward_hybrid(sim.model, sim.data, mark=mark)
+    torch.cuda.synchronize()
+    return counts
+
+
+def forward_check(seed: int):
+    """forward() of 64 settled envs on the card against forward() on the
+    CPU (the plain versions) from the same Data."""
+    from mjlab_tpu_torch.phys import solver_kernels as sv
+    from mjlab_tpu_torch.phys.data import data_from_numpy, tensor_fields
+
+    card, state = make_sim("g1", 64, "cuda")
+    seed_state(card, "g1", state, seed)
+    for _ in range(3):
+        control_step(card)
+    cpu, _ = make_sim("g1", 64, "cpu")
+    get = lambda d, n: d.contact.packed if n == "contact" else getattr(d, n)  # noqa: E731
+    cpu.data = data_from_numpy(
+        {n: get(card.data, n).cpu().numpy() for n in tensor_fields()}, device="cpu")
+    card.forward()
+    cpu.forward()
+    dc, dp = card.data, cpu.data
+    # the same active contact slots in every env; rows compared row by row
+    # in the envs whose slots are in the same order (mirrored slots may
+    # tie to a few f32 ulps and swap)
+    sel_c, act_c = dc.con_sel.cpu(), dc.con_sel_active.cpu()
+    sel_p, act_p = dp.con_sel, dp.con_sel_active
+    differ = [e for e in range(64)
+              if not torch.equal(sel_c[e][act_c[e]].sort().values,
+                                 sel_p[e][act_p[e]].sort().values)]
+    if differ:
+        raise AssertionError(f"g1_forward: envs {differ} select other active "
+                             "slots on the card than on the CPU")
+    same = (sel_c == sel_p).all(dim=1) & (act_c == act_p).all(dim=1)
+    log(f"[e2e] g1_forward 64 envs, card vs CPU: the same active contact slots "
+        f"in all 64, in the same order in {int(same.sum())}")
+    if int(same.sum()) < 32:
+        raise AssertionError("g1_forward: fewer than half the envs keep the "
+                             "CPU's slot order")
+    active = dp.efc_active[same]
+    checks = (
+        ("qacc", sv.SOLVE_TOL, None), ("qacc_smooth", FORWARD_TOL, None),
+        ("efc_force", sv.FORCE_TOL, same), ("qfrc_constraint", sv.FORCE_TOL, None),
+        ("qM", FORWARD_TOL, None), ("qLD", FORWARD_TOL, None),
+        ("efc_D", FORWARD_TOL, same), ("efc_aref", FORWARD_TOL, same),
+        ("efc_Jc", FORWARD_TOL, same), ("geom_xpos", FORWARD_TOL, None),
+        ("geom_xmat", FORWARD_TOL, None), ("site_xpos", FORWARD_TOL, None),
+        ("site_xmat", FORWARD_TOL, None), ("xanchor", FORWARD_TOL, None),
+        ("xaxis", FORWARD_TOL, None), ("contact", FORWARD_TOL, None),
+    )
+    for f, tol, envs in checks:
+        ref, got = get(dp, f), get(dc, f).cpu()
+        if envs is not None:
+            ref, got = ref[envs], got[envs]
+        if f == "efc_Jc":  # the contact rows that are active
+            on = active[:, -ref.shape[1]:, None]
+            ref, got = ref * on, got * on
+        err = rel_err(ref, got)
+        log(f"[e2e] g1_forward {f}: rel err {err:.3e} (tol {tol:.0e})")
+        if not err < tol:
+            raise AssertionError(f"g1_forward {f}: {err:.3e} >= {tol:.0e}")
+    if not torch.equal(dp.efc_active[same], dc.efc_active.cpu()[same]):
+        raise AssertionError("g1_forward: other active rows on the card")
+    if not bool(torch.isfinite(dc.qacc).all()):
+        raise AssertionError("g1_forward: non-finite qacc on the card")
+
+
+def run_forward_path() -> tuple[dict, dict, dict]:
+    """The g1_forward path: (kernel numbers, launches, summary)."""
+    sim, state = make_sim("g1", NUM_ENVS, "cuda")
+    m = sim.model
+    log(f"[model] g1_forward: nq {m.nq} nv {m.nv} nefc {m.nefc}, K "
+        f"{m.ncon_max}, R {m.rows_per_con}; {NUM_ENVS} envs, Simulation.forward()")
+    ctrl0 = seed_state(sim, "g1", state, SEED)
+    for _ in range(SETTLE_STEPS):
+        control_step(sim, ctrl0)
+    torch.cuda.synchronize()
+    log(f"[settle] g1_forward: {SETTLE_STEPS} control steps; contacts active per "
+        f"env {float(sim.data.con_sel_active.sum(1).double().mean()):.1f}")
+
+    kernels = check_dense_kernel(sim)
+
+    sim.forward()  # warm
+    run = timed_launches([sim.forward] * FORWARD_CALLS)
+    launches = run["launches"]
+    expected = {"kin_com": 0, "crb_packed": 0, "vel_smooth": 0,
+                "newton_assemble_solve": 0, "newton_assemble_solve_elliptic": 0,
+                "newton_solve_dense": FORWARD_CALLS}
+    log(f"[main] g1_forward launches {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"g1_forward kernel launches {launches} != {expected}")
+    d = sim.data
+    if not (bool(torch.isfinite(d.qacc).all()) and bool(torch.isfinite(d.efc_force).all())):
+        raise AssertionError("g1_forward: non-finite qacc or efc_force")
+    ms = run["dev_ms"] / FORWARD_CALLS
+    log(f"[main] g1_forward {FORWARD_CALLS} forward() calls at {NUM_ENVS} envs: "
+        f"{run['dev_ms']:.1f} ms (CUDA events), {run['wall'] * 1e3:.1f} ms (host "
+        f"clock); {ms:.2f} ms per forward()")
+    parts = forward_breakdown(sim, 3)
+    its = parts.pop("newton_iterations")
+    log("[breakdown] g1_forward ms per forward(): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()) + f" (sum {sum(parts.values()):.3f}); "
+        f"Newton iterations per env {its:.2f} (warm-started from the previous "
+        "forward()'s qacc)")
+    ops = forward_op_counts(sim)
+    log("[ops] g1_forward torch operators per forward(): " + ", ".join(
+        f"{k} {v}" for k, v in ops.items()) + f" (sum {sum(ops.values())})")
+    prof = device_profile(sim.forward)
+    if prof["kernels"]:
+        log(f"[profile] g1_forward one forward(): {prof['kernels']} CUDA kernels, "
+            f"device busy {prof['busy_ms']:.2f} ms of a {prof['span_ms']:.2f} ms "
+            f"span, idle share {prof['idle_share']:.3f} (under the profiler)")
+    del sim, d
+    torch.cuda.empty_cache()
+
+    forward_check(SEED + 1)
+    summary = {"ms_per_forward": ms, "breakdown_ms_per_forward": parts,
+               "newton_iterations_per_env": its, "torch_ops_per_phase": ops,
+               "profile": prof}
+    return kernels, launches, summary
+
+
 def kernel_rows(per_path: dict, launches: dict) -> list[dict]:
     """One row per kernel. The smooth kernels run on both paths: their row
     holds the YAM path's numbers (this slice's main path) and every
@@ -675,15 +991,17 @@ def kernel_rows(per_path: dict, launches: dict) -> list[dict]:
     own, from the path that runs it."""
     rows = []
     for name in REPLACES:
-        runs = {p: per_path[p][name] for p in PATHS if name in per_path[p]}
-        top = "yam" if "yam" in runs else "g1"
+        runs = {p: per_path[p][name] for p in per_path if name in per_path[p]}
+        top = "yam" if "yam" in runs else next(iter(runs))
         r = runs[top]
         row = dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=launches[top][name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None, path=top,
-            launches_per_control_step=launches[top][name] / CONTROL_STEPS,
+            **({"launches_per_forward": launches[top][name] / FORWARD_CALLS}
+               if top == "g1_forward" else
+               {"launches_per_control_step": launches[top][name] / CONTROL_STEPS}),
             max_rel_err=r["max_rel_err"], bytes=r["bytes"], flops=r["flops"],
         )
         if "iteration_counts_differ" in r:
@@ -712,6 +1030,8 @@ def main() -> int:
     per_path, launches, summary = {}, {}, {}
     for path in PATHS:
         per_path[path], launches[path], summary[path] = run_path(path)
+    path = "g1_forward"
+    per_path[path], launches[path], summary[path] = run_forward_path()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

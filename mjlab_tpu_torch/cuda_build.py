@@ -21,6 +21,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES = (
     "kin_com", "crb_packed", "vel_smooth", "newton_solve", "newton_solve_elliptic",
+    "newton_solve_dense",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

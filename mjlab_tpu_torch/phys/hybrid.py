@@ -1,7 +1,10 @@
-"""The env-last physics step and the per-control-step kinematic refresh.
+"""The env-last physics step, the full forward pass and the per-control-
+step kinematic refresh.
 
-PyTorch counterpart of mjlab_tpu/phys/hybrid.py's kernel path
-(``_step_envlast``, ``refresh_envlast``). One step:
+PyTorch counterpart of mjlab_tpu/phys/hybrid.py: its kernel path
+(``_step_envlast``, ``refresh_envlast``) and its full-writeback
+``forward_hybrid`` and ``step_hybrid(lean=False)`` (here step_full). One
+lean step:
 
     kin_com (kernel)            qpos, mocap -> geom frames, com, cdof, cinert
     collision_lm, constraint    narrowphase + top-K + row data (eager torch)
@@ -14,6 +17,14 @@ Data stays env-first; the step moves qpos/qvel/ctrl to env-last planes on
 the way in and writes back only what the env step consumes (the lean
 writeback): contact activity, the compacted K-slot record and the solver
 outputs.
+
+The full forward pass (mj_forward over the whole Data surface, for reset
+and startup, viewers and parity tests) runs the env-first batched stages
+(phys/kinematics.py, smooth.py, forward.py), the same contact stack with
+the dense contact rows assembled (make_constraint_lm with assemble_j), and
+the dense-Jacobian Newton solve (newton_solve_dense, csrc/
+newton_solve_dense.cu), then writes back every efc row, the packed contact
+table and connormal.
 """
 
 from __future__ import annotations
@@ -23,17 +34,23 @@ from typing import Callable
 import numpy as np
 import torch
 
-from mjlab_tpu_torch.phys.data import Data
-from mjlab_tpu_torch.phys.lm.base import Params
+from mjlab_tpu_torch.phys import forward as fwd
+from mjlab_tpu_torch.phys import smooth
+from mjlab_tpu_torch.phys.data import Contact, Data
+from mjlab_tpu_torch.phys.kinematics import com_pos, kinematics
+from mjlab_tpu_torch.phys.lm.base import Params, quat_to_mat
 from mjlab_tpu_torch.phys.lm.collision import collision_lm, slot_params
 from mjlab_tpu_torch.phys.lm.constraint import make_constraint_lm
 from mjlab_tpu_torch.phys.model import (
-    CONE_PYRAMIDAL, JNT_BALL, JNT_FREE, Model, cached, device_array,
+    CONE_PYRAMIDAL, EFC_CONTACT, EFC_EQUALITY, EFC_FRICTION_DOF,
+    EFC_LIMIT_JOINT, EFC_LIMIT_TENDON, JNT_BALL, JNT_FREE, Model, cached,
+    device_array, limit_rows_static,
 )
 from mjlab_tpu_torch.phys.smooth_kernels import (
     collision_geoms, crb_packed, implicit_flags, integrate_envlast, kin_com,
     qm_dense_cm, vel_smooth,
 )
+from mjlab_tpu_torch.phys.solver_dense_kernels import newton_solve_dense
 from mjlab_tpu_torch.phys.solver_kernels import newton_assemble_solve
 
 
@@ -299,22 +316,169 @@ def step_envlast(m: Model, d: Data,
 
 
 # ---------------------------------------------------------------------------
+# the full forward pass (mj_forward over the whole Data surface)
+# ---------------------------------------------------------------------------
+
+
+def _contact_full(m: Model, P: Params, d: Data) -> dict:
+    """Narrowphase, top-K compaction and the constraint rows with the
+    dense contact Jacobian, from the env-first frames of the batched
+    position stages."""
+    E = d.qpos.shape[0]
+    env_last = lambda x: torch.movedim(x, 0, -1).contiguous()  # noqa: E731
+    k = collision_lm(
+        m, P, env_last(d.geom_xpos), env_last(d.geom_xmat.reshape(E, m.ngeom, 9)),
+        {"subtree_com": env_last(d.subtree_com), "cdof": env_last(d.cdof)},
+    )
+    qT, vT = d.qpos.T, d.qvel.T
+    return make_constraint_lm(
+        m, P, k, tuple(qT[i] for i in range(m.nq)),
+        tuple(vT[i] for i in range(m.nv)), qT.dtype, assemble_j=True,
+    )
+
+
+def _writeback_full(m: Model, d: Data, k: dict, P: Params) -> Data:
+    """The lean writeback plus every efc row, the packed (E, ncon, 26)
+    contact table and connormal."""
+    d = _writeback_lean(m, d, k, P)
+    upd = dict(
+        efc_D=_ef(k["efc_D"]), efc_aref=_ef(k["efc_aref"]),
+        efc_frictionloss=_ef(k["efc_fl"]), efc_pos=_ef(k["efc_pos"]),
+        efc_margin=_ef(k["efc_margin"]), efc_active=_ef(k["efc_active"]),
+        efc_Jeq=_ef(k["efc_Jeq"]), efc_lim_side=_ef(k["efc_lim_side"]),
+        efc_Jc=_ef(k["efc_Jc"]),
+    )
+    S = m.pairs.ncon
+    if S:
+        E = d.qpos.shape[0]
+        f5, sr, si, inclm = slot_params(m, P, d.qpos.dtype)
+        b3 = lambda x, w: torch.broadcast_to(x, (S, w, E))  # noqa: E731
+        packed_t = torch.cat(
+            [k["con_dist"][:, None], b3(inclm[:, None, :], 1), k["con_pos"],
+             b3(f5, 5), b3(sr, 2), b3(si, 5), k["con_frame"]],
+            dim=1,
+        )  # (S, 26, E)
+        upd.update(contact=Contact(packed=_ef(packed_t)),
+                   connormal=_ef(k["con_frame"][:, 0:3]))
+    return d.replace(**upd)
+
+
+def _row_masks(m: Model) -> tuple[tuple[bool, ...], ...]:
+    """(one-sided, dof friction, equality) row-class flags of the rows."""
+    t = m.efc_type
+    os_ = (t == EFC_LIMIT_JOINT) | (t == EFC_LIMIT_TENDON) | (t == EFC_CONTACT)
+    return tuple(tuple(bool(b) for b in x)
+                 for x in (os_, t == EFC_FRICTION_DOF, t == EFC_EQUALITY))
+
+
+def dense_jacobian(m: Model, k: dict) -> torch.Tensor:
+    """The whole constraint Jacobian Jt (nv, nefc, E), rows
+    [equality][dof friction][limits][contacts k-major]: the equality rows,
+    the identity, the limit rows' signed one-hot entries and efc_Jc."""
+    nv, neq = m.nv, m.neq_jnt
+    nlimit = m.nlimit + m.nlimit_ten
+    Jc = k["efc_Jc"]
+    E = Jc.shape[-1]
+    Jt = Jc.new_zeros(nv, m.nefc, E)
+    if neq:
+        Jt[:, :neq] = k["efc_Jeq"].permute(1, 0, 2)
+    diag = device_array(m, "dof_range", lambda: np.arange(nv), torch.long)
+    Jt[diag, neq + diag] = 1.0
+    if nlimit:
+        Pl = device_array(m, "limit_rows_static", lambda: limit_rows_static(m), Jt.dtype)
+        Jt[:, neq + nv:neq + nv + nlimit] = (
+            k["efc_lim_side"][None] * Pl.T[:, :, None])
+    if Jc.shape[0]:
+        Jt[:, neq + nv + nlimit:] = Jc.permute(1, 0, 2)
+    return Jt
+
+
+def solve_dense_inputs(m: Model, k: dict, d: Data):
+    """(args, kwargs) of newton_solve_dense for the rows in k and the
+    env-first Data d (qM, qacc_smooth, qacc_warmstart)."""
+    os_mask, fr_mask, eq_mask = _row_masks(m)
+    args = (
+        dense_jacobian(m, k), k["efc_D"].contiguous(), k["efc_aref"].contiguous(),
+        k["efc_fl"].contiguous(), d.qM.permute(1, 2, 0).contiguous(),
+        d.qacc_smooth.T.contiguous(), d.qacc_warmstart.T.contiguous(),
+    )
+    kw = dict(
+        nv=m.nv, nefc=m.nefc, os_mask=os_mask, fr_mask=fr_mask,
+        eq_mask=eq_mask, iterations=m.opt.iterations,
+        ls_iterations=max(m.opt.ls_iterations, 8),
+        tolerance=float(m.opt.tolerance),
+    )
+    return args, kw
+
+
+def forward_stages(m: Model, d: Data,
+                   mark: Callable[[str], None] | None = None):
+    """Every stage of the full forward pass before the constraint solve:
+    (Data with the position, velocity and actuation fields and
+    qfrc_smooth/qacc_smooth, the constraint rows k, Params). ``mark`` as in
+    forward_hybrid (position, contact, velocity)."""
+    mark = mark or (lambda name: None)
+    P = Params(m, d.qpos.shape[0])
+    d = kinematics(m, d)
+    d = com_pos(m, d)
+    d = smooth.crb(m, d, factor=True)
+    mark("position")
+    k = _contact_full(m, P, d)
+    mark("contact")
+    d = smooth.transmission(m, d)
+    d = smooth.com_vel(m, d)
+    d = smooth.rne(m, d)
+    d = smooth.passive(m, d)
+    d = smooth.fwd_actuation(m, d)
+    d = fwd.fwd_acceleration(m, d)
+    mark("velocity")
+    return d, k, P
+
+
+def forward_hybrid(m: Model, d: Data, iters: torch.Tensor | None = None,
+                   mark: Callable[[str], None] | None = None) -> Data:
+    """mj_forward of every env with the full writeback (pyramidal cone).
+
+    ``iters`` receives each env's Newton iteration count; ``mark(name)``
+    is called after each phase (position, contact, velocity, solve,
+    writeback). The elliptic cone's dense solve (the JAX package's
+    solve_lm) is not ported yet."""
+    if int(m.opt.cone) != CONE_PYRAMIDAL:
+        raise NotImplementedError(
+            "forward() under the elliptic cone is not ported yet"
+        )
+    mark = mark or (lambda name: None)
+    d, k, P = forward_stages(m, d, mark)
+    args, kw = solve_dense_inputs(m, k, d)
+    x, force = newton_solve_dense(*args, **kw, iters=iters)
+    qfrc = torch.einsum("vre,re->ve", args[0], force)
+    mark("solve")
+    d = _writeback_full(m, d, k, P)
+    qacc, efc_force = x.T, force.T
+    d = d.replace(qacc=qacc, qacc_warmstart=qacc, qfrc_constraint=qfrc.T,
+                  efc_force=efc_force)
+    if m.ncon_max and m.pairs.ncon:
+        cf, ct = decode_contact_forces(m, d, efc_force)
+        d = d.replace(con_force_c=cf, con_torque_c=ct)
+    mark("writeback")
+    return d
+
+
+def step_full(m: Model, d: Data) -> Data:
+    """mj_step of every env with the full writeback (the JAX package's
+    step_hybrid(lean=False)): the full forward pass, then the batched
+    integrator, which leave the whole Data surface fresh."""
+    return fwd.integrate(m, forward_hybrid(m, d))
+
+
+# ---------------------------------------------------------------------------
 # per-control-step kinematic refresh
 # ---------------------------------------------------------------------------
 
 
 def _quat_mat_planes(q):
     """(n, 4, E) quats -> (n, 9, E) row-major rotation matrices."""
-    w, x, y, z = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
-    xx, yy, zz = x * x, y * y, z * z
-    xy, xz, yz = x * y, x * z, y * z
-    wx, wy, wz = w * x, w * y, w * z
-    return torch.stack(
-        [1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
-         2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
-         2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)],
-        dim=1,
-    )
+    return torch.stack(quat_to_mat(q.unbind(1)), dim=1)
 
 
 def _child_frames(R, pos, local_mat, local_pos):

@@ -1,12 +1,14 @@
-"""Env-last constraint rows for the fused assemble + solve kernel.
+"""Env-last constraint rows, both friction cones.
 
-PyTorch counterpart of mjlab_tpu/phys/lm/constraint.py in its kernel mode
-(``make_constraint_lm(..., assemble_j=False)``), both friction cones. Row
-layout [joint equality][dof friction][joint limits][contacts]; the dense
-contact Jacobian is not built here: the solver kernel rebuilds it from the
-compact per-slot tensors (positions, frames, ancestor dof masks, and the
-friction coefficients (pyramidal) or friction-row D values and the
-whitened cone coefficient (elliptic)).
+PyTorch counterpart of mjlab_tpu/phys/lm/constraint.py in its two modes.
+Row layout [joint equality][dof friction][joint limits][contacts]. In
+kernel mode (``assemble_j=False``, the step) the dense contact Jacobian is
+not built: the fused solve kernel rebuilds it from the compact per-slot
+tensors (positions, frames, ancestor dof masks, and the friction
+coefficients (pyramidal) or friction-row D values and the whitened cone
+coefficient (elliptic)). With ``assemble_j=True`` (Simulation.forward) the
+contact rows are built here: the dense Jacobian efc_Jc and the contact
+slices of efc_D and efc_aref.
 
 Top-K compaction keeps, per env, the K slots with the lowest score
 (dist - includemargin), lower slot index first on ties: the first K of a
@@ -87,19 +89,71 @@ def _take(arr: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     return torch.gather(arr, 0, idx)
 
 
-def make_constraint_lm(m: Model, P: Params, k: dict, q, qvel, dtype) -> dict:
-    """Kernel-mode constraint rows. q, qvel: tuples of (E,) planes; k holds
-    con_dist/con_pos/con_frame (collision_lm) and subtree_com (nbody, 3, E).
+def _contact_rows(m: Model, cdof, pos_k, frame_k, W1, W2, O1, O2, mu_dirs):
+    """Dense contact rows (K, R, nv, E) of every slot (activity not yet
+    applied): the contact frame's rows of the point Jacobian
+    J2 - J1 (body 2 minus body 1, each about its tree root's subtree com),
+    then of the angular Jacobian for torsion and rolling. Pyramidal rows
+    are [n + mu_i d_i, n - mu_i d_i] per friction direction d_i; elliptic
+    rows are [n, t1, t2, torsion, roll1, roll2][:R]."""
+    K, E = pos_k.shape[0], pos_k.shape[-1]
+    R = m.rows_per_con
+    elliptic = int(m.opt.cone) != CONE_PYRAMIDAL
+    ndirs = R - 1 if elliptic else R // 2
+    cd_ang, cd_lin = cdof[None, :, :3], cdof[None, :, 3:]  # (1, nv, 3, E)
+    w1, w2 = W1.permute(1, 0, 2), W2.permute(1, 0, 2)  # (K, nv, E)
 
-    Adds efc_D/efc_aref/efc_fl (nefc, E) with the contact slices zero (the
-    kernel owns them), efc_Jeq (neq, nv, E), efc_lim_side (nlimit, E),
-    efc_pos/efc_margin/efc_active, and the per-slot kernel inputs
-    con_Dc/con_bb/con_kimp (K, E), con_W1/con_W2 (nv, K, E), con_O1/con_O2
-    (3, K, E), con_on (R*K, E) r-major, with con_mu_dirs (K, R/2, E)
-    (pyramidal) or con_Dfri (K, R-1, E) and con_mut (K, E) (elliptic),
-    plus the compacted slot record (con_sel, con_sel_active, con_dist_k,
-    con_pos_k, con_frame_k, con_mu_k, con_dim_k, con_solref_k,
-    con_solimp_k, con_margin_k)."""
+    def point_jac(w, O):
+        r = (pos_k - O.permute(1, 0, 2))[:, None]  # (K, 1, 3, E)
+        a = cd_ang
+        cx = torch.stack(
+            [
+                a[:, :, 1] * r[:, :, 2] - a[:, :, 2] * r[:, :, 1],
+                a[:, :, 2] * r[:, :, 0] - a[:, :, 0] * r[:, :, 2],
+                a[:, :, 0] * r[:, :, 1] - a[:, :, 1] * r[:, :, 0],
+            ],
+            dim=2,
+        )
+        return (cd_lin + cx) * w[:, :, None]  # (K, nv, 3, E)
+
+    fr = frame_k.reshape(K, 3, 3, E)
+    jacd = point_jac(w2, O2) - point_jac(w1, O1)
+    Jc3 = torch.einsum("kfxe,kvxe->kfve", fr, jacd)  # (K, 3, nv, E)
+    Jn = Jc3[:, 0]
+    dirJ = [Jc3[:, 1], Jc3[:, 2]]
+    if ndirs > 2:
+        Ja = torch.einsum("kfxe,kvxe->kfve", fr, cd_ang * (w2 - w1)[:, :, None])
+        dirJ += [Ja[:, 0], Ja[:, 1], Ja[:, 2]][:ndirs - 2]
+    if elliptic:
+        rows = [Jn] + dirJ[:ndirs]
+    else:
+        rows = []
+        for i in range(ndirs):
+            rows.append(Jn + mu_dirs[:, i, None] * dirJ[i])
+            rows.append(Jn - mu_dirs[:, i, None] * dirJ[i])
+    return torch.stack(rows, dim=1)
+
+
+def make_constraint_lm(m: Model, P: Params, k: dict, q, qvel, dtype,
+                       assemble_j: bool = False) -> dict:
+    """Constraint rows. q, qvel: tuples of (E,) planes; k holds
+    con_dist/con_pos/con_frame (collision_lm) and subtree_com (nbody, 3, E),
+    and with assemble_j also cdof (nv, 6, E).
+
+    Adds efc_D/efc_aref/efc_fl (nefc, E), efc_Jeq (neq, nv, E),
+    efc_lim_side (nlimit, E), efc_pos/efc_margin/efc_active, and the
+    compacted slot record (con_sel, con_sel_active, con_dist_k, con_pos_k,
+    con_frame_k, con_mu_k, con_dim_k, con_solref_k, con_solimp_k,
+    con_margin_k).
+
+    Kernel mode: the contact slices of efc_D/efc_aref are zero (the kernel
+    owns them), and the per-slot kernel inputs con_Dc/con_bb/con_kimp
+    (K, E), con_W1/con_W2 (nv, K, E), con_O1/con_O2 (3, K, E), con_on
+    (R*K, E) r-major, with con_mu_dirs (K, R/2, E) (pyramidal) or con_Dfri
+    (K, R-1, E) and con_mut (K, E) (elliptic) are added. assemble_j: the
+    contact slices of efc_D/efc_aref are filled and the dense contact rows
+    efc_Jc (K*R, nv, E) are added (k-major: the R rows of slot 0, then
+    slot 1, ...), zero on inactive rows."""
     nv = m.nv
     neq = m.neq_jnt
     nlimit = m.nlimit
@@ -281,7 +335,7 @@ def make_constraint_lm(m: Model, P: Params, k: dict, q, qvel, dtype) -> dict:
             margin_rows = torch.cat([margin_k[:, None], zR1], dim=1)
             Dck = torch.where(sel_active, Dn, 0.0)
             mut = mu_k[:, 0] / torch.sqrt(torch.clamp(impratio, min=1e-12))
-            out.update(
+            extra = dict(
                 con_Dfri=Dck[:, None] * impratio * ratio2,
                 con_mut=torch.where(sel_active, mut, 0.0),
                 con_Dc=Dck,
@@ -303,22 +357,43 @@ def make_constraint_lm(m: Model, P: Params, k: dict, q, qvel, dtype) -> dict:
             imp, kk, bb, Dc = _efc_kbid(solref_k, solimp_k, pos_c, diag_approx)
             pos_rows = torch.broadcast_to(dist_k[:, None], (K, R, E))
             margin_rows = torch.broadcast_to(margin_k[:, None], (K, R, E))
-            out.update(con_mu_dirs=mu_dirs, con_Dc=torch.where(sel_active, Dc, 0.0))
+            extra = dict(con_mu_dirs=mu_dirs, con_Dc=torch.where(sel_active, Dc, 0.0))
 
-        on_rm = (sel_active[None] & row_on.permute(1, 0, 2)).reshape(R * K, E)
         on = (sel_active[:, None] & row_on).reshape(KR, E)
+        zKR = torch.zeros((KR, E), dtype=dtype, device=dev)
+        if assemble_j:
+            rowsJ = _contact_rows(
+                m, k["cdof"], pos_k, frame_k, W1, W2, O1, O2, mu_dirs
+            ).reshape(KR, nv, E)
+            vel = torch.einsum("rve,ve->re", rowsJ, torch.stack(qvel))
+            vel = vel.reshape(K, R, E)
+            if elliptic:
+                D_rows = torch.cat(
+                    [Dn[:, None], Dn[:, None] * impratio * ratio2], dim=1
+                )
+                aref_c = -bb[:, None] * vel
+                aref_c[:, 0] = aref_c[:, 0] - kk * imp * pos_c
+            else:
+                aref_c = -bb[:, None] * vel - (kk * imp * pos_c)[:, None]
+                D_rows = torch.broadcast_to(Dc[:, None], (K, R, E))
+            Jc = torch.where(on[:, None, :], rowsJ, 0.0)
+            D_b.append(torch.where(on, D_rows.reshape(KR, E), 0.0))
+            aref_b.append(torch.where(on, aref_c.reshape(KR, E), 0.0))
+        else:
+            on_rm = (sel_active[None] & row_on.permute(1, 0, 2)).reshape(R * K, E)
+            out.update(
+                extra, con_bb=bb, con_kimp=kk * imp * pos_c,
+                con_W1=W1, con_W2=W2, con_O1=O1, con_O2=O2, con_on=on_rm,
+            )
+            D_b.append(zKR)
+            aref_b.append(zKR)
         out.update(
-            con_bb=bb, con_kimp=kk * imp * pos_c,
-            con_W1=W1, con_W2=W2, con_O1=O1, con_O2=O2, con_on=on_rm,
             con_sel=sel, con_sel_active=sel_active,
             con_dist_k=dist_k, con_pos_k=pos_k, con_frame_k=frame_k,
             con_mu_k=mu_k, con_dim_k=dim_k,
             con_solref_k=solref_k, con_solimp_k=solimp_k,
             con_margin_k=margin_k,
         )
-        zKR = torch.zeros((KR, E), dtype=dtype, device=dev)
-        D_b.append(zKR)
-        aref_b.append(zKR)
         fl_b.append(zKR)
         pos_b.append(pos_rows.reshape(KR, E))
         margin_b.append(margin_rows.reshape(KR, E))
@@ -331,6 +406,9 @@ def make_constraint_lm(m: Model, P: Params, k: dict, q, qvel, dtype) -> dict:
         pos_b += [zKR]
         margin_b += [zKR]
         act_b.append(torch.zeros((KR, E), dtype=torch.bool, device=dev))
+    if assemble_j:
+        k["efc_Jc"] = (Jc if S and K
+                       else torch.zeros((KR, nv, E), dtype=dtype, device=dev))
 
     k.update(
         efc_D=torch.cat(D_b, dim=0), efc_aref=torch.cat(aref_b, dim=0),

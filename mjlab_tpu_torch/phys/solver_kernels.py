@@ -37,9 +37,10 @@ _MAX_ROWS_PER_CONTACT = 6  # kMaxR in csrc/newton_solve_elliptic.cu
 _SMEM_OPTIN = 232448  # shared memory a block may opt in to on an H100
 
 
-def _chol_solve(A: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def _chol_solve(A: torch.Tensor, g: torch.Tensor, ridge: float = _RIDGE) -> torch.Tensor:
     """Solve A x = g for SPD A (nv, nv, E) with g (nv, E): Jacobi-scaled
-    column Cholesky with a ridge (solver_pallas2.py chol_solve)."""
+    column Cholesky with a ridge, pivots floored at max(ridge, 1e-12)
+    (solver_pallas2.py chol_solve)."""
     nv = g.shape[0]
     diag = torch.stack([A[j, j] for j in range(nv)])
     scale = torch.rsqrt(torch.clamp(diag, min=_EPS))
@@ -48,10 +49,10 @@ def _chol_solve(A: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     L = []
     for j in range(nv):
         s = A[:, j] * (scale * scale[j])
-        s = s + torch.where(rows == j, _RIDGE, 0.0)
+        s = s + torch.where(rows == j, ridge, 0.0)
         for k in range(j):
             s = s - L[k] * L[k][j]
-        dcol = torch.sqrt(torch.clamp(s[j], min=_RIDGE))
+        dcol = torch.sqrt(torch.clamp(s[j], min=max(ridge, _EPS)))
         L.append(torch.where(rows >= j, s / dcol, 0.0))
     r = g
     ys = []
@@ -536,29 +537,33 @@ SOLVE_TOL = 2e-3  # qacc, qacc_smooth, qacc_int, qfrc_constraint
 FORCE_TOL = 6e-3  # per-row forces
 
 
-def qfrc_errors(ref, got, iters_ref, iters_got, cone) -> dict:
-    """qfrc_constraint of a solve kernel against its plain version under
-    the iteration-count rule. ``ref`` and ``got`` are the two solves'
-    outputs (newton_assemble_solve's tuple), ``iters_*`` their (E,) Newton
-    iteration counts. Returns {label: (error, tolerance)}.
+def qfrc_errors(q_ref, q_got, iters_ref, iters_got, row_scale: float = 0.0) -> dict:
+    """qfrc_constraint of a solve kernel (q_got, (nv, E)) against its plain
+    version (q_ref) under the iteration-count rule; ``iters_*`` are the two
+    solves' (E,) Newton iteration counts. Returns {label: (error,
+    tolerance)}.
 
     At convergence the acceptance test compares two f32 costs that differ
     by rounding, so an env's Newton iteration count depends on the order
     of its sums. Where the counts agree, qfrc is held at SOLVE_TOL; where
     they differ by that one step it is held at FORCE_TOL, qfrc being J^T f.
-    Errors are relative to max(1, |qfrc|max) under the pyramidal cone and
-    to max(1, |qfrc|max, |f|max), the row forces' scale, under the
-    elliptic cone: when fingers pinch an object their row forces cancel on
-    its dofs, so qfrc there is a small difference of large row forces and
-    carries their error (cone=0 gives the errors on qfrc's own scale)."""
-    q = ref[3].double()
-    scale = max(1.0, float(q.abs().max()))
-    if cone:
-        scale = max(scale, float(ref[1].abs().max()), float(ref[2].abs().max()))
-    diff = (q - got[3].to(q.device).double()).abs().amax(0) / scale
+    Errors are relative to max(1, |qfrc|max, row_scale). Under the
+    elliptic cone row_scale is the row forces' |f|max: when fingers pinch
+    an object their row forces cancel on its dofs, so qfrc there is a
+    small difference of large row forces and carries their error; 0 gives
+    the errors on qfrc's own scale."""
+    q = q_ref.double()
+    scale = max(1.0, float(q.abs().max()), row_scale)
+    diff = (q - q_got.to(q.device).double()).abs().amax(0) / scale
     same = (iters_ref == iters_got.to(iters_ref.device)).to(diff.device)
     worst = lambda m: float(diff[m].max()) if bool(m.any()) else 0.0  # noqa: E731
     return {
         "equal iteration counts": (worst(same), SOLVE_TOL),
         "iteration counts differ": (worst(~same), FORCE_TOL),
     }
+
+
+def row_force_scale(out) -> float:
+    """|f|max of newton_assemble_solve's row forces (non-contact and
+    contact), the scale qfrc_errors takes under the elliptic cone."""
+    return max(float(out[1].abs().max()), float(out[2].abs().max()))

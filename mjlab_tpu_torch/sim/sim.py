@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from mjlab_tpu_torch.phys.data import Data, make_data, reset_data
-from mjlab_tpu_torch.phys.hybrid import refresh_envlast, step_envlast
+from mjlab_tpu_torch.phys.hybrid import forward_hybrid, refresh_envlast, step_envlast
 from mjlab_tpu_torch.phys.lm.collision import PAIR_FAMILIES, pair_families
 from mjlab_tpu_torch.phys.model import (
     CONE_ELLIPTIC, CONE_PYRAMIDAL, INT_EULER, INT_IMPLICITFAST,
@@ -139,7 +139,8 @@ _VECTOR_FIELDS = frozenset({
 
 
 class Simulation:
-    """Holds the batched (Model, Data) pair: step(), reset(mask), refresh().
+    """Holds the batched (Model, Data) pair: step(), forward(), reset(mask),
+    refresh().
 
     Per-env (domain-randomised) model fields are not carried yet; every
     env shares the one Model."""
@@ -182,6 +183,13 @@ class Simulation:
     def step(self) -> None:
         """One physics step of every env."""
         self.data = step_envlast(self.model, self.data)
+
+    def forward(self) -> None:
+        """mj_forward of every env: positions, velocities, forces and the
+        constraint solve, with the whole Data surface written (efc rows,
+        the packed contact table, qM/qLD/qLDinv, every frame). Pyramidal
+        cone only: raises NotImplementedError under the elliptic one."""
+        self.data = forward_hybrid(self.model, self.data)
 
     def refresh(self) -> None:
         """Per-control-step kinematic refresh of every env (frames, com,

@@ -10,10 +10,11 @@ Tolerances (float32, TF32 matmuls off) are those of the CPU parity tests:
 solve's accelerations and 6e-3 on its per-row forces, relative to
 max(1, |plain|max). chip_smoke.py runs the same comparisons at 4096 envs.
 
-The models are the G1 flat-velocity model (pyramidal cone: kernel 4) and
-the YAM lift-cube model (elliptic cone, a joint equality and a mocap base:
-kernel 5 and kin_com's mocap inputs) the repo keeps as files, so these
-tests need neither MuJoCo nor the JAX package.
+The models are the G1 flat-velocity model (pyramidal cone: kernel 4, and
+kernel 6 under Simulation.forward()) and the YAM lift-cube model (elliptic
+cone, a joint equality and a mocap base: kernel 5 and kin_com's mocap
+inputs) the repo keeps as files, so these tests need neither MuJoCo nor
+the JAX package.
 """
 
 import numpy as np
@@ -21,9 +22,12 @@ import pytest
 import torch
 
 from mjlab_tpu_torch.phys import smooth_kernels as sk
+from mjlab_tpu_torch.phys.data import data_from_numpy, tensor_fields
+from mjlab_tpu_torch.phys import solver_dense_kernels as sd
 from mjlab_tpu_torch.phys import solver_kernels as sv
 from mjlab_tpu_torch.phys.hybrid import (
-    contact_stack, has_implicit, mocap_planes, solve_args,
+    contact_stack, forward_stages, has_implicit, mocap_planes, solve_args,
+    solve_dense_inputs,
 )
 from mjlab_tpu_torch.phys.lm.base import Params
 from mjlab_tpu_torch.sim.sim import Simulation
@@ -107,8 +111,9 @@ def _check_kernels(m, d, cuda, seed=1):
             assert rel_err(p, kk) < tol, i
     # qfrc_constraint under the iteration-count rule (the f32 acceptance
     # test can stop the two one Newton step apart)
-    for label, (err, tol) in sv.qfrc_errors(so_p, so_k, it_p, it_k,
-                                            kw["cone"]).items():
+    row_scale = sv.row_force_scale(so_p) if kw["cone"] else 0.0
+    for label, (err, tol) in sv.qfrc_errors(so_p[3], so_k[3], it_p, it_k,
+                                            row_scale).items():
         assert err < tol, label
 
 
@@ -195,6 +200,74 @@ def test_simulation_on_card_matches_cpu(cuda):
     for f, tol in (("qpos", 1e-4), ("qvel", 1e-3), ("qacc", 5e-3)):
         assert rel_err(getattr(dp, f), getattr(dc, f)) < tol, f
     assert int(dc.ncheck_reset.sum()) == 0
+
+
+def _settled_g1(E, device, seed=0):
+    """A G1 Simulation of E envs on ``device`` at a seeded state, settled
+    for 10 steps."""
+    m, key_qpos, key_ctrl = physics.load_saved_model(device="cpu")
+    sim = Simulation(E, physics.sim_cfg(), m, device=device)
+    q, v, c = _state(key_qpos, key_ctrl, E, seed)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=sim.device)  # noqa: E731
+    sim.data = sim.data.replace(qpos=t(q), qvel=t(v), ctrl=t(c))
+    for _ in range(10):
+        sim.step()
+    return sim
+
+
+@pytest.mark.parametrize("E", [256, 300])
+def test_dense_kernel_matches_plain_version(E, cuda):
+    """Kernel 6 (the dense-Jacobian solve of forward()) against its plain
+    version on the dense inputs of a settled G1 state's forward pass."""
+    sim = _settled_g1(E, cuda)
+    d, k, _ = forward_stages(sim.model, sim.data)
+    args, kw = solve_dense_inputs(sim.model, k, d)
+    it_k = torch.zeros(E, dtype=torch.int32, device=cuda)
+    it_p = torch.zeros(E, dtype=torch.int32, device=cuda)
+    launches = sd.newton_solve_dense.launches
+    x_k, f_k = sd.newton_solve_dense(*args, **kw, iters=it_k)
+    assert sd.newton_solve_dense.launches == launches + 1
+    x_p, f_p = sd.newton_solve_dense_plain(*args, **kw, iters=it_p)
+    torch.cuda.synchronize()
+    assert rel_err(x_p, x_k) < sv.SOLVE_TOL
+    assert rel_err(f_p, f_k) < sv.FORCE_TOL
+    Jt = args[0]
+    q_k = torch.einsum("vre,re->ve", Jt, f_k)
+    q_p = torch.einsum("vre,re->ve", Jt, f_p)
+    for label, (err, tol) in sv.qfrc_errors(q_p, q_k, it_p, it_k).items():
+        assert err < tol, label
+    first_contact_row = sim.model.nv + sim.model.nlimit
+    assert int(it_p.max()) > 1 and bool((f_p[first_contact_row:] != 0).any())
+
+
+def test_forward_on_card_matches_cpu(cuda):
+    """forward() through kernel 6 on the card against forward() on the CPU
+    (the plain versions) from the same 64 settled G1 envs."""
+    card = _settled_g1(64, cuda, seed=2)
+    cpu = Simulation(64, physics.sim_cfg(), physics.load_saved_model(device="cpu")[0],
+                     device="cpu")
+    cpu.data = data_from_numpy({
+        n: (card.data.contact.packed if n == "contact" else getattr(card.data, n))
+        .cpu().numpy() for n in tensor_fields()
+    }, device="cpu")
+    n6, n4 = sd.newton_solve_dense.launches, sv.newton_assemble_solve.launches
+    card.forward()
+    cpu.forward()
+    assert sd.newton_solve_dense.launches == n6 + 1
+    assert sv.newton_assemble_solve.launches == n4
+    dc, dp = card.data, cpu.data
+    for f, tol in (("qacc", sv.SOLVE_TOL), ("qacc_smooth", 1e-4),
+                   ("qfrc_constraint", sv.FORCE_TOL), ("efc_force", sv.FORCE_TOL),
+                   ("qM", 1e-5), ("qLD", 1e-5), ("efc_D", 1e-4), ("efc_aref", 1e-4),
+                   ("efc_Jc", 1e-4), ("geom_xpos", 1e-5), ("site_xpos", 1e-5),
+                   ("xanchor", 1e-5)):
+        assert rel_err(getattr(dp, f), getattr(dc, f)) < tol, f
+    assert rel_err(dp.contact.packed, dc.contact.packed) < 1e-4
+    assert torch.equal(dp.efc_active, dc.efc_active.cpu())
+    for e in range(64):
+        on_card = dc.con_sel[e][dc.con_sel_active[e]].sort().values.cpu()
+        on_cpu = dp.con_sel[e][dp.con_sel_active[e]].sort().values
+        assert torch.equal(on_card, on_cpu), e
 
 
 def test_wrappers_reject_bad_inputs(cuda):

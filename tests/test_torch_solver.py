@@ -140,11 +140,12 @@ def test_qfrc_errors_iteration_count_rule():
     got = (None, f, f, q + torch.tensor([0.0, 0.02, 0.001, 0.0]))
     it_ref = torch.tensor([2, 2, 3, 3], dtype=torch.int32)
     it_got = torch.tensor([2, 3, 3, 3], dtype=torch.int32)  # env 1 differs
-    pyr = sv.qfrc_errors(ref, got, it_ref, it_got, 0)
+    pyr = sv.qfrc_errors(ref[3], got[3], it_ref, it_got)
     assert pyr["equal iteration counts"] == (pytest.approx(0.001, rel=1e-4), sv.SOLVE_TOL)
     assert pyr["iteration counts differ"] == (pytest.approx(0.02, rel=1e-4), sv.FORCE_TOL)
-    ell = sv.qfrc_errors(ref, got, it_ref, it_got, 1)
+    assert sv.row_force_scale(ref) == 10.0
+    ell = sv.qfrc_errors(ref[3], got[3], it_ref, it_got, sv.row_force_scale(ref))
     assert ell["equal iteration counts"] == (pytest.approx(1e-4, rel=1e-4), sv.SOLVE_TOL)
     assert ell["iteration counts differ"] == (pytest.approx(2e-3, rel=1e-4), sv.FORCE_TOL)
-    same = sv.qfrc_errors(ref, got, it_ref, it_ref, 0)
+    same = sv.qfrc_errors(ref[3], got[3], it_ref, it_ref)
     assert same["iteration counts differ"] == (0.0, sv.FORCE_TOL)

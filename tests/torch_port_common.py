@@ -35,6 +35,10 @@ TOY_CAPSULE_XML = TOY_XML.replace(
     '<geom type="capsule" size="0.03" fromto="-0.05 0 0 0.05 0 0"/>',
 )
 
+# the elliptic toy (box foot, condim 3 and 6 contacts, a joint equality)
+# under the pyramidal cone
+EQ_XML = ELL_XML.replace('cone="elliptic" impratio="10" ', "")
+
 # the G1 flat-velocity and YAM lift-cube tasks' contact capacities
 # (velocity_env_cfg.py, lift_cube_env_cfg.py)
 G1_NCONMAX = sim_cfg().nconmax
@@ -74,6 +78,12 @@ def ell_mj() -> mujoco.MjModel:
     """The elliptic toy: condim 3 and 6 contacts, impratio 10, a joint
     equality (tests/test_pallas2_solver.py ELL_XML)."""
     return mujoco.MjModel.from_xml_string(ELL_XML)
+
+
+def eq_mj() -> mujoco.MjModel:
+    """The elliptic toy under the pyramidal cone (impratio 1): a joint
+    equality row in the pyramidal solves."""
+    return mujoco.MjModel.from_xml_string(EQ_XML)
 
 
 def yam_mj() -> mujoco.MjModel:
