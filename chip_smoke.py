@@ -34,7 +34,8 @@ then for each path:
    state, at the path's shapes (float32; TF32 matmuls off), and time both
    (the tolerances are those of the CPU parity tests; qfrc_constraint
    under the iteration-count rule of solver_kernels.qfrc_errors, and the
-   count of envs whose Newton iteration counts differ is printed);
+   count of envs whose Newton iteration counts differ is printed, with the
+   solve kernel's launch shape and resident threads per SM);
 5. the main path on the path's traffic (G1: the settled state, random
    ctrl around the keyframe; YAM: the task's own, every env reset and
    random actions, as bench.py): 25 control steps of 4 physics substeps
@@ -347,9 +348,10 @@ def build_kernels():
     log(f"[build] {len(times)} kernels built in {time.perf_counter() - t0:.1f} s "
         f"(nvcc, sm_90a): " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
     for name in cuda_build.SOURCES:
-        for line in cuda_build.ptxas_report(name).splitlines():
-            if "registers" in line:
-                log(f"[build] {name}: {line}")
+        for k in cuda_build.ptxas_report(name):
+            log(f"[build] {name}: {k['kernel']}: {k['registers']} registers, "
+                f"{k['stack']} bytes stack frame, {k['spill_stores']} bytes spill "
+                f"stores, {k['spill_loads']} bytes spill loads")
 
 
 def check_kernels(sim, path: str) -> dict:
@@ -483,17 +485,24 @@ def check_kernels(sim, path: str) -> dict:
             for nl, na, it in zip(nlive.tolist(), nact.tolist(), it_p.tolist())
         )) / E
         rows_note = f"active rows {float(nact.mean()):.1f}"
-    smem = (f"smem {sv.elliptic_smem_bytes(nv, K, R, kw['neq'], kw['nlim'])} bytes "
-            "per env; " if kw["cone"] else "")
-    log(f"[check] {path} {name}: {smem}iterations mean {it_k.double().mean():.2f} kernel, "
+    shape = sv.newton_launch_shape(kw["cone"], nv, K, R, kw["neq"], kw["nlim"])
+    blocks = sv.blocks_per_sm(kw["cone"], R, shape.smem_bytes_per_env)
+    log(f"[check] {path} {name}: launch shape {shape.threads_per_env} threads per env, "
+        f"{shape.envs_per_block} env per block, {shape.smem_bytes_per_env} bytes of shared "
+        f"memory per env; {blocks} envs per SM, {blocks * shape.threads_per_env} resident "
+        "threads per SM")
+    log(f"[check] {path} {name}: iterations mean {it_k.double().mean():.2f} kernel, "
         f"{it_p.double().mean():.2f} plain, different in {int((~same).sum())} "
-        f"of {E} envs; live contact rows mean {float(nlive.mean()):.1f}, {rows_note}")
+        f"of {E} envs; at the {kw['iterations']}-iteration cap {int((it_k == kw['iterations']).sum())} "
+        f"kernel, {int((it_p == kw['iterations']).sum())} plain; live contact rows mean "
+        f"{float(nlive.mean()):.1f}, {rows_note}")
     in_args = [a for a in args if a.shape[0] > 1]
     record(name, errs, nbytes(*in_args, *so_k), flops,
            lambda: sv.newton_assemble_solve(*args, **kw),
            lambda: sv.newton_assemble_solve_plain(*args, **kw), 10,
            max(max_abs(p, kk) for p, kk in zip(so_p, so_k)))
     out[name]["iteration_counts_differ"] = int((~same).sum())
+    out[name]["resident_threads_per_sm"] = blocks * shape.threads_per_env
     return out
 
 

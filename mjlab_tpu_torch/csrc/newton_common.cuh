@@ -1,10 +1,10 @@
-// newton_common.cuh: the parts of the Newton constraint solve that do not
-// depend on the friction cone, shared by newton_solve.cu (pyramidal) and
-// newton_solve_elliptic.cu (elliptic): the env's common shared-memory
-// layout, the warp reductions, the mass-matrix products, the
-// Jacobi-equilibrated Cholesky and its solves, the dof-friction and limit
-// rows (implicit rows: cost, slope, Hessian diagonal, forces), the line
-// search, and the loads and stores around the solve.
+// newton_common.cuh: what every Newton solve kernel shares (the env-last
+// input macro IN, the Cholesky's constants, the warp butterfly sum), and
+// the one-warp-per-env routines of newton_solve_dense.cu: the env's
+// shared-memory layout, the mass-matrix products, the Jacobi-equilibrated
+// Cholesky and its solves, the row compaction and the line search. The
+// block-wide routines of newton_solve.cu and newton_solve_elliptic.cu are
+// in newton_block.cuh.
 //
 // One warp per env: lane is the thread's lane, every loop over dofs or
 // rows strides by 32, and every sum that feeds a branch is a butterfly
@@ -23,18 +23,14 @@ namespace {
 constexpr float kEps = 1e-12f;
 constexpr float kRidge = 1e-6f;
 
-// the part of an env's shared-memory layout both cones have: the dense
-// contact rows (J [row][dof], D, aref, residual jar, search direction v)
-// with the list of live ones, the mass matrix M, the Hessian / factor L,
-// the dof vectors, and the friction and limit rows
+// an env's shared-memory layout: the dense rows (J [row][dof], D, aref,
+// residual jar, search direction v) with the list of live ones, the mass
+// matrix M, the Hessian / factor L and the dof vectors
 struct EnvBase {
-  int lane, nv, nlim;
+  int lane, nv;
   float *J, *M, *L, *Dd, *arefd, *jar_d, *v_d;
   int* live;
-  float *scale, *grad, *dx, *t1, *t2, *xm, *x, *jar_fr, *diagv, *work, *xt,
-      *asm_, *qv, *cdof, *D_fr, *aref_fr, *fl_fr;
-  float *D_lim, *aref_lim, *side, *jar_lim, *v_lim;
-  int* lim;
+  float *scale, *grad, *dx, *t1, *t2, *xm, *x, *work, *xt, *asm_;
   int nlive;
 };
 
@@ -135,81 +131,6 @@ __device__ float smooth_cost(const EnvBase& s, const float* base, float t, const
   return 0.5f * warp_sum(acc);
 }
 
-// ---------- the dof-friction and limit rows ----------
-
-// this lane's share of their cost at jar + t * v (vf, vl == nullptr: at jar)
-__device__ __forceinline__ float fr_lim_cost(const EnvBase& s, float t, const float* vf,
-                                             const float* vl) {
-  float c = 0.f;
-  for (int i = s.lane; i < s.nv; i += 32) {
-    const float j = s.jar_fr[i] + (vf ? t * vf[i] : 0.f);
-    const float D = s.D_fr[i], fl = s.fl_fr[i];
-    c = c + (fabsf(D * j) <= fl ? 0.5f * D * j * j
-                                : fl * fabsf(j) - 0.5f * fl * fl / fmaxf(D, kEps));
-  }
-  for (int l = s.lane; l < s.nlim; l += 32) {
-    const float j = s.jar_lim[l] + (vl ? t * vl[l] : 0.f);
-    if (j < 0.f) c = c + 0.5f * s.D_lim[l] * j * j;
-  }
-  return c;
-}
-
-// this lane's share of their slope (sl, their forces along dx) and, with
-// need_h, curvature (hl) at step al along dx
-__device__ __forceinline__ void fr_lim_slope(const EnvBase& s, float al, bool need_h,
-                                             float& sl, float& hl) {
-  for (int i = s.lane; i < s.nv; i += 32) {
-    const float v = s.dx[i];
-    const float j = s.jar_fr[i] + al * v;
-    const float D = s.D_fr[i], fl = s.fl_fr[i];
-    const float fq = -D * j;
-    sl = sl + v * fminf(fmaxf(fq, -fl), fl);
-    if (need_h && fabsf(fq) <= fl && D > 0.f) hl = hl + D * v * v;
-  }
-  for (int l = s.lane; l < s.nlim; l += 32) {
-    const float v = s.v_lim[l];
-    const float j = s.jar_lim[l] + al * v;
-    if (j < 0.f) {
-      const float D = s.D_lim[l];
-      sl = sl + v * (-D * j);
-      if (need_h && D > 0.f) hl = hl + D * v * v;
-    }
-  }
-}
-
-// their Hessian diagonal into diagv (friction rows in the quadratic zone,
-// active limits)
-__device__ __forceinline__ void fr_lim_diag(const EnvBase& s) {
-  for (int i = s.lane; i < s.nv; i += 32) {
-    const float fq = -s.D_fr[i] * s.jar_fr[i];
-    const bool q = fabsf(fq) <= s.fl_fr[i] && s.D_fr[i] > 0.f;
-    s.diagv[i] = q ? s.D_fr[i] : 0.f;
-  }
-  __syncwarp();
-  for (int l = s.lane; l < s.nlim; l += 32)
-    if (s.jar_lim[l] < 0.f && s.D_lim[l] > 0.f) s.diagv[s.lim[l]] = s.diagv[s.lim[l]] + s.D_lim[l];
-}
-
-// dof-friction force of dof i at the current jar (clipped at its loss)
-__device__ __forceinline__ float fr_force(const EnvBase& s, int i) {
-  const float fq = -s.D_fr[i] * s.jar_fr[i];
-  const float fl = s.fl_fr[i];
-  return fminf(fmaxf(fq, -fl), fl);
-}
-
-// limit force of limit row l at the current jar
-__device__ __forceinline__ float lim_force(const EnvBase& s, int l) {
-  const float j = s.jar_lim[l];
-  return j < 0.f ? -s.D_lim[l] * j : 0.f;
-}
-
-// out[dof] += the limit rows' forces (distinct dofs: no race)
-__device__ __forceinline__ void lim_scatter(const EnvBase& s, float* out) {
-  for (int l = s.lane; l < s.nlim; l += 32)
-    out[s.lim[l]] = out[s.lim[l]] + s.side[l] * lim_force(s, l);
-  __syncwarp();
-}
-
 // ---------- the Newton step ----------
 
 // the Newton direction dx = -L^-1 grad from the Hessian in L (factored in
@@ -252,80 +173,6 @@ __device__ float line_search(Dphi dphi, int ls_iterations) {
     al = (an > lo && an < hi) ? an : 0.5f * (lo + hi);
   }
   return fmaxf(al, 0.f);
-}
-
-// x += step dx and the residuals of the friction, limit and live contact
-// rows with it (the caller syncs the warp)
-__device__ __forceinline__ void advance(const EnvBase& s, float step) {
-  for (int i = s.lane; i < s.nv; i += 32) {
-    s.x[i] = s.x[i] + step * s.dx[i];
-    s.jar_fr[i] = s.jar_fr[i] + step * s.dx[i];
-  }
-  for (int l = s.lane; l < s.nlim; l += 32) s.jar_lim[l] = s.jar_lim[l] + step * s.v_lim[l];
-  for (int n = s.lane; n < s.nlive; n += 32) {
-    const int row = s.live[n];
-    s.jar_d[row] = s.jar_d[row] + step * s.v_d[row];
-  }
-}
-
-// ---------- loads and stores ----------
-
-// the mass matrix, cdof, qvel, and the friction and limit rows, which
-// start at row off of the non-contact inputs (after the equality rows)
-__device__ void load_common(const EnvBase& s, const float* Mc, const float* cdof,
-                            const float* qvel, const float* Dnc, const float* arefnc,
-                            const float* flnc, const float* side, const int* lim,
-                            int off, int E, int e) {
-  const int nv = s.nv;
-  for (int r = s.lane; r < nv * nv; r += 32) s.M[r] = IN(Mc, r);
-  for (int r = s.lane; r < 6 * nv; r += 32) s.cdof[r] = IN(cdof, r);
-  for (int i = s.lane; i < nv; i += 32) {
-    s.qv[i] = IN(qvel, i);
-    s.D_fr[i] = IN(Dnc, off + i);
-    s.aref_fr[i] = IN(arefnc, off + i);
-    s.fl_fr[i] = IN(flnc, off + i);
-  }
-  for (int l = s.lane; l < s.nlim; l += 32) {
-    s.D_lim[l] = IN(Dnc, off + nv + l);
-    s.aref_lim[l] = IN(arefnc, off + nv + l);
-    s.side[l] = IN(side, l);
-    s.lim[l] = lim[l];
-  }
-}
-
-// the unconstrained acceleration: M a_smooth = qfrc_smooth, into asm_
-__device__ void smooth_acceleration(const EnvBase& s, const float* qfs, int E, int e) {
-  for (int i = s.lane; i < s.nv; i += 32) s.t1[i] = IN(qfs, i);
-  __syncwarp();
-  chol_factor(s, s.M, s.L, s.scale);
-  chol_solve(s, s.L, s.scale, s.t1, s.asm_, s.work);
-}
-
-// qacc, a_smooth, and the friction and limit forces at row off of fnc
-__device__ void store_common(const EnvBase& s, float* x, float* asm_, float* fnc, int off,
-                             int E, int e) {
-  for (int i = s.lane; i < s.nv; i += 32) {
-    IN(fnc, off + i) = fr_force(s, i);
-    IN(x, i) = s.x[i];
-    IN(asm_, i) = s.asm_[i];
-  }
-  for (int l = s.lane; l < s.nlim; l += 32) IN(fnc, off + s.nv + l) = lim_force(s, l);
-}
-
-// qacc_int: with do_int, Mh^-1 (M qacc) (the implicit velocity update),
-// else qacc
-__device__ void store_qacc_int(const EnvBase& s, const float* Mh, float* qint, int do_int,
-                               int E, int e) {
-  if (do_int) {
-    mat_vec(s, s.M, s.x, s.xt);
-    for (int r = s.lane; r < s.nv * s.nv; r += 32) s.L[r] = IN(Mh, r);
-    __syncwarp();
-    chol_factor(s, s.L, s.L, s.scale);
-    chol_solve(s, s.L, s.scale, s.xt, s.t1, s.work);
-    for (int i = s.lane; i < s.nv; i += 32) IN(qint, i) = s.t1[i];
-  } else {
-    for (int i = s.lane; i < s.nv; i += 32) IN(qint, i) = s.x[i];
-  }
 }
 
 }  // namespace

@@ -18,11 +18,11 @@
 // Design: one warp per env, one env per block. The live rows of the env's
 // J ([row][dof]), the mass matrix, the Hessian / Cholesky factor and the
 // row and dof vectors live in shared memory (46.3 KB per env at nv 35,
-// nefc 204: four envs per SM). The common parts are those of the fused
-// kernels (newton_common.cuh): the equilibrated Cholesky with its 1e-6
-// ridge, the triangular solves, the mass-matrix products, the line search,
-// the warp butterfly sums (every sum that feeds a branch leaves every lane
-// the same bits, so the warp branches together).
+// nefc 204: four envs per SM). The one-warp routines are in
+// newton_common.cuh: the equilibrated Cholesky with its 1e-6 ridge, the
+// triangular solves, the mass-matrix products, the line search, the warp
+// butterfly sums (every sum that feeds a branch leaves every lane the same
+// bits, so the warp branches together).
 //
 // Load pattern: in the env-last Jt one env's entries lie E floats apart,
 // so each 4-byte load of a warp that loads one env touches a 32-byte sector
@@ -136,7 +136,6 @@ __global__ void newton_solve_dense_kernel(DenseArgs a) {
   Env s = {};
   s.lane = threadIdx.x;
   s.nv = nv;
-  s.nlim = 0;
   float* p = sm;
   auto take = [&](int n) { float* q = p; p += n; return q; };
   s.J = take(nefc * nv);

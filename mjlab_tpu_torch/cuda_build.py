@@ -90,15 +90,30 @@ def build_all() -> dict[str, float]:
     return times
 
 
-def ptxas_report(name: str) -> str:
-    """The register / spill lines ptxas printed for a kernel's build."""
+def ptxas_report(name: str) -> list[dict]:
+    """What ptxas printed for each kernel (entry function) of a source's
+    build: [{"kernel", "registers", "stack", "spill_stores",
+    "spill_loads"}] (bytes for the last three)."""
     log = BUILD_DIR / f"{name}.log"
     if not log.exists():
-        return ""
-    return "\n".join(
-        ln.strip() for ln in log.read_text().splitlines()
-        if "registers" in ln or "spill" in ln
-    )
+        return []
+    out, entry, props = [], None, {}
+    for ln in log.read_text().splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1]
+            props = {}
+        elif "Function properties for" in ln:
+            props = {"for": ln.split("for", 1)[1].strip()}
+        elif "bytes stack frame" in ln:
+            n = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            props.update(stack=n[0], spill_stores=n[1], spill_loads=n[2])
+        elif "Used" in ln and "registers" in ln and entry is not None:
+            regs = int(ln.split("Used", 1)[1].split()[0])
+            out.append(dict(kernel=entry, registers=regs, stack=props.get("stack", 0),
+                            spill_stores=props.get("spill_stores", 0),
+                            spill_loads=props.get("spill_loads", 0)))
+            entry = None
+    return out
 
 
 @functools.cache

@@ -3,10 +3,13 @@
 PyTorch counterpart of mjlab_tpu/phys/solver_pallas2.py
 (``newton_assemble_solve``), both friction cones, with joint-equality rows.
 The CUDA kernels (csrc/newton_solve.cu for the pyramidal cone,
-csrc/newton_solve_elliptic.cu for the elliptic one; one warp per env) and
-the plain PyTorch version below share inputs, outputs and arithmetic; the wrapper runs the plain version for CPU tensors and launches
-the kernel for CUDA tensors, and ``newton_assemble_solve.launches`` counts
-kernel launches (``launches_by_cone`` per cone).
+csrc/newton_solve_elliptic.cu for the elliptic one, both built on
+csrc/newton_block.cuh; one env per block of 128 threads, launch shape from
+newton_launch_shape) and the plain PyTorch version below share inputs,
+outputs and arithmetic; the wrapper runs the plain version for CPU tensors
+and launches the kernel for CUDA tensors, and
+``newton_assemble_solve.launches`` counts kernel launches
+(``launches_by_cone`` per cone).
 
 Row layout: [equality (neq), dof friction (nv), joint limits (nlim),
 contacts r-major] (row r of every slot contiguous). The friction rows are
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -33,8 +37,10 @@ from mjlab_tpu_torch import cuda_build
 
 _EPS = 1e-12
 _RIDGE = 1e-6
-_MAX_ROWS_PER_CONTACT = 6  # kMaxR in csrc/newton_solve_elliptic.cu
+_MAX_ROWS_PER_CONTACT = 6  # the elliptic kernel's R templates: 3 to 6
+_MAX_PYRAMID_ROWS = 4  # pyramid rows come from the frame's two tangents
 _SMEM_OPTIN = 232448  # shared memory a block may opt in to on an H100
+_DOUBLING_PROBES = 12
 
 
 def _chol_solve(A: torch.Tensor, g: torch.Tensor, ridge: float = _RIDGE) -> torch.Tensor:
@@ -333,10 +339,10 @@ def newton_assemble_solve_plain(
                 d2 = d2 + (Dd * qd * v_d * v_d).sum(0)
             return d1, d2
 
-        hi = torch.ones_like(q1)
-        for _ in range(12):
-            g_hi, _ = dphi(hi, need_h=False)
-            hi = torch.where(g_hi < 0, hi * 2.0, hi)
+        hi = doubling_replay(torch.stack([
+            dphi(torch.full_like(q1, 2.0 ** k), need_h=False)[0]
+            for k in range(_DOUBLING_PROBES)
+        ]))
         lo = torch.zeros_like(q1)
         a = torch.clamp(hi, max=1.0)
         for _ in range(ls_iterations):
@@ -373,19 +379,69 @@ def newton_assemble_solve_plain(
     return x, fnc, f_d[:RK], qfrc, a_smooth, qint
 
 
+def doubling_replay(slopes: torch.Tensor) -> torch.Tensor:
+    """hi of the line search's 12 doubling probes (hi = 1; 12 times: if
+    the slope at hi is negative, hi doubles) from the slopes at 2^0 ..
+    2^11, (12, E). hi is always 2^k with k at most the probe's number,
+    and it stays where the slope is first not negative (0 or NaN): every
+    later probe reads that same slope. So hi = 2^k for the first such k,
+    2^12 if there is none. The kernels evaluate the 12 slopes in one
+    batched sum and replay them so (csrc/newton_block.cuh
+    line_search_w)."""
+    k = torch.cumprod((slopes < 0).to(torch.int32), dim=0).sum(0)
+    return torch.exp2(k.to(slopes.dtype))
+
+
+class LaunchShape(NamedTuple):
+    """How newton_assemble_solve launches its kernel: threads per env,
+    envs per block, shared memory per env (bytes), and the envs per SM
+    the kernel's registers are budgeted for (its __launch_bounds__)."""
+
+    threads_per_env: int
+    envs_per_block: int
+    smem_bytes_per_env: int
+    min_blocks_per_sm: int
+
+
+# csrc/newton_block.cuh: kThreads, kNumDofVecs, kNumLimVecs, kNumRowVecs,
+# warp 0's kNumBcast results and 4 counts, kMaxNv; kMinBlocks of
+# csrc/newton_solve.cu and csrc/newton_solve_elliptic.cu
+_THREADS_PER_ENV = 128
+_DOF_VECS, _LIM_VECS, _ROW_VECS = 15, 5, 5
+_SMALL_FLOATS = 4 + 4
+_MIN_BLOCKS_PER_SM = (6, 5)
+_MAX_NV = 45
+
+
+def newton_launch_shape(cone, nv, K, R, neq, nlim) -> LaunchShape:
+    """The solve kernel's launch shape at these sizes: one env per block
+    of 128 threads, and the shared memory of the env's layout
+    (csrc/newton_block.cuh env_floats, which the launcher checks this
+    against: it refuses another shape)."""
+    if nv > _MAX_NV:
+        raise ValueError(f"the solve kernels take at most {_MAX_NV} dofs, got {nv}")
+    ND = R * K + neq
+    floats = (
+        ND * nv + nv * nv + max(nv * nv, 6 * nv) + (_ROW_VECS + 1) * ND
+        + (_DOF_VECS + 1) * nv + (_LIM_VECS + 1) * nlim + K + _SMALL_FLOATS
+    )
+    if cone:
+        floats += 2 * K + 2 * R * nv
+    return LaunchShape(_THREADS_PER_ENV, 1, 4 * floats, _MIN_BLOCKS_PER_SM[int(cone != 0)])
+
+
+def blocks_per_sm(cone, R, smem_bytes) -> int:
+    """Envs (blocks) of the cone's kernel one SM holds at smem_bytes per
+    env: the CUDA occupancy calculator, registers included."""
+    name = "newton_solve_elliptic" if cone else "newton_solve"
+    f = cuda_build.launcher(name, f"{name}_blocks_per_sm", (ctypes.c_int, ctypes.c_int))
+    return int(f(R, smem_bytes))
+
+
 @functools.cache
 def _lim_table(lim_dofs: tuple, device: str) -> torch.Tensor:
     """The limit rows' dof addresses on the device, copied once."""
     return torch.as_tensor(lim_dofs, dtype=torch.int32, device=device)
-
-
-def elliptic_smem_bytes(nv, K, R, neq, nlim) -> int:
-    """Shared memory one env (one block) of the elliptic kernel takes."""
-    f = cuda_build.launcher(
-        "newton_solve_elliptic", "newton_solve_elliptic_smem_bytes",
-        (ctypes.c_int,) * 5,
-    )
-    return int(f(nv, K, R, neq, nlim))
 
 
 def newton_assemble_solve(
@@ -410,8 +466,7 @@ def newton_assemble_solve(
     iteration count.
 
     On the card, cone 0 launches csrc/newton_solve.cu and cone 1
-    csrc/newton_solve_elliptic.cu; equality rows under the pyramidal cone
-    run in the plain version only.
+    csrc/newton_solve_elliptic.cu, in the shape newton_launch_shape gives.
 
     Returns (x (nv, E), f_noncon (neq+nv+nlim, E), f_con r-major (R*K, E),
     qfrc_constraint (nv, E), a_smooth (nv, E), qacc_int (nv, E)).
@@ -429,12 +484,13 @@ def newton_assemble_solve(
         raise ValueError(f"ndirs {ndirs} does not match R {R} and cone {cone}")
     if elliptic and not 3 <= R <= _MAX_ROWS_PER_CONTACT:
         raise ValueError(f"the elliptic cone takes 3 to 6 rows per contact, got {R}")
+    if not elliptic and R > _MAX_PYRAMID_ROWS:
+        raise ValueError(
+            "the pyramidal cone takes contacts of condim <= 3 (pyramid rows along "
+            f"the frame's two tangents, R <= 4), got R {R}"
+        )
     if qvel.device.type == "cpu":
         return newton_assemble_solve_plain(*args, **kw)
-    if neq and not elliptic:
-        raise NotImplementedError(
-            "equality rows under the pyramidal cone are not in the CUDA kernel yet"
-        )
 
     E = qvel.shape[-1]
     RK = R * K
@@ -465,18 +521,17 @@ def newton_assemble_solve(
             raise ValueError(
                 f"{name}: expected contiguous {shape}, got {tuple(x.shape)}"
             )
-    if nlim == 0:
-        raise ValueError("the kernel takes a nonempty limit block")
+    if len(set(lim_dofs)) != len(lim_dofs):
+        raise ValueError("the kernel takes at most one limit row per dof")
     dev = qvel.device
-    if elliptic:
-        smem = elliptic_smem_bytes(nv, K, R, neq, nlim)
-        limit = getattr(torch.cuda.get_device_properties(dev),
-                        "shared_memory_per_block_optin", _SMEM_OPTIN)
-        if smem > limit:
-            raise ValueError(
-                f"one env of this model needs {smem} bytes of shared memory, "
-                f"more than a block can have ({limit})"
-            )
+    shape = newton_launch_shape(cone, nv, K, R, neq, nlim)
+    limit = getattr(torch.cuda.get_device_properties(dev),
+                    "shared_memory_per_block_optin", _SMEM_OPTIN)
+    if shape.smem_bytes_per_env > limit:
+        raise ValueError(
+            f"one env of this model needs {shape.smem_bytes_per_env} bytes of "
+            f"shared memory, more than a block can have ({limit})"
+        )
     f32 = dict(dtype=torch.float32, device=dev)
     outs = [
         torch.empty((nv, E), **f32), torch.empty((NC, E), **f32),
@@ -489,37 +544,23 @@ def newton_assemble_solve(
     lim = _lim_table(lim_dofs, str(dev))
     vp, ci = ctypes.c_void_p, ctypes.c_int
     P = cuda_build.ptr
+    # inputs a model does not have (no implicit integrator, no equality
+    # rows, the pyramidal cone's mut) are never read: any tensor stands in
     Mh_arg = Mh if do_int else Mc
-    if elliptic:
-        name = "newton_solve_elliptic"
-        launch = cuda_build.launcher(
-            name, "newton_solve_elliptic_launch",
-            (vp,) * 31 + (ci,) * 7 + (ctypes.c_float, ci, ci, vp),
-        )
-        rc = launch(
-            P(Mc), P(qfrc_smooth), P(x_ws), P(qvel), P(Mh_arg), P(Dnc),
-            P(arefnc), P(flnc), P(side), P(Jeq), P(cdof), P(pos_k), P(O1),
-            P(O2), P(frame_k), P(mu_dirs), P(mut), P(Dc), P(bb), P(kimp),
-            P(on_rm), P(W1), P(W2), P(lim), *[P(o) for o in outs], P(it_out),
-            ci(nv), ci(K), ci(R), ci(neq), ci(nlim), ci(iterations),
-            ci(ls_iterations), ctypes.c_float(tolerance), ci(int(do_int)),
-            ci(E), cuda_build.stream(),
-        )
-    else:
-        name = "newton_solve"
-        launch = cuda_build.launcher(
-            name, "newton_solve_launch",
-            (vp,) * 29 + (ci,) * 6 + (ctypes.c_float, ci, ci, vp),
-        )
-        rc = launch(
-            P(Mc), P(qfrc_smooth), P(x_ws), P(qvel), P(Mh_arg), P(Dnc),
-            P(arefnc), P(flnc), P(side), P(cdof), P(pos_k), P(O1), P(O2),
-            P(frame_k), P(mu_dirs), P(Dc), P(bb), P(kimp), P(on_rm), P(W1),
-            P(W2), P(lim), *[P(o) for o in outs], P(it_out),
-            ci(nv), ci(K), ci(R), ci(nlim), ci(iterations),
-            ci(ls_iterations), ctypes.c_float(tolerance), ci(int(do_int)),
-            ci(E), cuda_build.stream(),
-        )
+    name = "newton_solve_elliptic" if elliptic else "newton_solve"
+    launch = cuda_build.launcher(
+        name, f"{name}_launch", (vp,) * 31 + (ci,) * 7 + (ctypes.c_float,) + (ci,) * 5 + (vp,),
+    )
+    rc = launch(
+        P(Mc), P(qfrc_smooth), P(x_ws), P(qvel), P(Mh_arg), P(Dnc), P(arefnc),
+        P(flnc), P(side), P(Jeq), P(cdof), P(pos_k), P(O1), P(O2), P(frame_k),
+        P(mu_dirs), P(mut), P(Dc), P(bb), P(kimp), P(on_rm), P(W1), P(W2),
+        P(lim), *[P(o) for o in outs], P(it_out),
+        ci(nv), ci(K), ci(R), ci(neq), ci(nlim), ci(iterations),
+        ci(ls_iterations), ctypes.c_float(tolerance), ci(int(do_int)), ci(E),
+        ci(shape.threads_per_env), ci(shape.envs_per_block),
+        ci(shape.smem_bytes_per_env), cuda_build.stream(),
+    )
     cuda_build.check(cuda_build.library(name), rc, "newton_assemble_solve")
     newton_assemble_solve.launches += 1
     newton_assemble_solve.launches_by_cone[int(elliptic)] += 1

@@ -92,10 +92,9 @@ class SimulationCfg:
     dtype: str = "float32"
 
 
-def check_supported(m: Model, device: str | torch.device | None = None) -> None:
+def check_supported(m: Model) -> None:
     """Raise NotImplementedError on a model feature this package does not
-    carry yet on ``device`` (the model's own when None; see ROADMAP.md)."""
-    device = torch.device(device) if device is not None else m.device
+    carry yet (see ROADMAP.md); the CPU and the card carry the same."""
     if m.ntendon:
         raise NotImplementedError("tendons are not ported yet")
     if m.na:
@@ -107,15 +106,8 @@ def check_supported(m: Model, device: str | torch.device | None = None) -> None:
         raise NotImplementedError(
             f"narrowphase families {sorted(missing)} are not ported yet"
         )
-    if device.type == "cuda" and m.neq_jnt and int(m.opt.cone) == CONE_PYRAMIDAL:
-        raise NotImplementedError(
-            "equality rows under the pyramidal cone are not in the CUDA kernel "
-            "yet (the elliptic kernel and the CPU carry them)"
-        )
-    if not (m.pairs.ncon and m.ncon_max and m.nlimit):
-        raise NotImplementedError(
-            "the solver kernel takes a model with contacts and joint limits"
-        )
+    if not (m.pairs.ncon and m.ncon_max):
+        raise NotImplementedError("the solver kernel takes a model with contacts")
     for name in SMOOTH_HOST_FIELDS:
         rows = getattr(m, _FIELD_ROWS[name.split("_")[0]])
         shape = tuple(getattr(m, name).shape)

@@ -324,18 +324,18 @@ def test_simulation_accepts_ported_features(case):
 
 
 def test_check_supported_rejects_pyramidal_equality_on_cuda():
-    """A joint equality under the pyramidal cone runs on the CPU; on the
-    card Simulation refuses it when it is built, not at the first step."""
-    from torch_port_common import yam_mj
+    """A joint equality under the pyramidal cone, which the card once
+    refused, is now carried there too (csrc/newton_solve.cu takes equality
+    rows): check_supported, which no longer depends on the device, accepts
+    it, and so does a model without joint limits."""
+    import torch_toy_models as toys
 
-    mj = yam_mj()
-    mj.opt.cone = 0
-    m = pm.put_model(mj, nconmax=55, device="cpu")
-    assert m.neq_jnt == 1 and int(m.opt.cone) == 0
-    check_supported(m)
-    check_supported(m, device="cpu")
-    with pytest.raises(NotImplementedError, match="pyramidal"):
-        check_supported(m, device="cuda")
+    eq = toys.convert("eq_toy")
+    assert eq.neq_jnt == 1 and int(eq.opt.cone) == 0
+    check_supported(eq)
+    free = toys.convert("nolimit_toy")
+    assert free.nlimit == 0
+    check_supported(free)
 
 
 def test_simulation_raises_on_batched_smooth_fields():

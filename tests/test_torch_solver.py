@@ -115,7 +115,8 @@ def test_cholesky_solve_matches_numpy():
 
 def test_wrapper_rejects_uncovered_options():
     """Row layouts the solve does not take: friction directions that do
-    not match the cone, more than 6 rows per elliptic contact."""
+    not match the cone, more than 6 rows per elliptic contact, more than 4
+    pyramid rows per contact."""
     kw = dict(nv=1, K=1, R=4, ndirs=2, neq=0, nlim=1, lim_dofs=(0,),
               iterations=1, ls_iterations=8, tolerance=1e-8, do_int=False)
     z = torch.zeros(1, 1)
@@ -126,6 +127,9 @@ def test_wrapper_rejects_uncovered_options():
         sv.newton_assemble_solve(*args, **{**kw, "ndirs": 3})
     with pytest.raises(ValueError, match="rows per contact"):
         sv.newton_assemble_solve(*args, **{**kw, "cone": 1, "R": 7, "ndirs": 6})
+    # pyramid rows along the frame's two tangents only: condim <= 3
+    with pytest.raises(ValueError, match="condim"):
+        sv.newton_assemble_solve(*args, **{**kw, "R": 10, "ndirs": 5})
 
 
 def test_qfrc_errors_iteration_count_rule():
