@@ -115,6 +115,15 @@ REPLACES = {
     "newton_assemble_solve_elliptic": "mjlab_tpu/phys/solver_pallas2.py:623",
     "newton_solve_dense": "mjlab_tpu/phys/solver_pallas.py:255",
 }
+# the CUDA kernel (entry function) of each row
+KERNEL_NAMES = {
+    "kin_com": "kin_com_kernel",
+    "crb_packed": "crb_packed_kernel",
+    "vel_smooth": "vel_smooth_kernel",
+    "newton_assemble_solve": "newton_solve_kernel",
+    "newton_assemble_solve_elliptic": "newton_solve_elliptic_kernel",
+    "newton_solve_dense": "newton_solve_dense_kernel",
+}
 SOURCES = {
     "kin_com": "mjlab_tpu_torch/csrc/kin_com.cu",
     "crb_packed": "mjlab_tpu_torch/csrc/crb_packed.cu",
@@ -140,7 +149,9 @@ def max_abs(ref: torch.Tensor, got: torch.Tensor) -> float:
 
 
 def cuda_ms(fn, reps: int, warm: int = 1) -> float:
-    """Mean device time of fn over reps calls, CUDA events."""
+    """Mean time of fn over reps calls back to back, CUDA events: for a
+    kernel wrapper this includes the host's work between launches (output
+    allocations, argument checks), where it is longer than the kernel."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -152,6 +163,30 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, kernel: str, reps: int, warm: int = 1) -> float:
+    """Mean device time per launch of the CUDA kernel whose name contains
+    ``kernel`` over reps calls of fn, from the profiler's kernel records
+    (the kernel's own execution, without the gaps between launches). The
+    profiler may drop a record now and then: the mean is over the records
+    it kept. Raises when it kept fewer than half."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name]
+    if not 2 * len(times) >= reps:
+        raise RuntimeError(f"the profiler recorded {len(times)} launches of {kernel}, "
+                           f"expected {reps}")
+    return sum(times) / len(times) / 1e3
 
 
 def nbytes(*tensors) -> int:
@@ -380,15 +415,17 @@ def check_kernels(sim, path: str) -> dict:
             log(f"[check] {path} {name} {label}: rel err {err:.3e} (tol {tol:.0e})")
             if not err < tol:
                 raise AssertionError(f"{path} {name} {label}: {err:.3e} >= {tol:.0e}")
-        ms = cuda_ms(fn_k, reps)
+        ms = kernel_ms(fn_k, KERNEL_NAMES[name], reps)
+        wrapper_ms = cuda_ms(fn_k, reps)
         plain_ms = cuda_ms(fn_p, 2)
         b_ms, b_by = bound(outs_in_bytes, flops * E)
         out[name] = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            bytes=outs_in_bytes, flops=flops * E,
+            ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, bytes=outs_in_bytes, flops=flops * E,
             max_abs_err=abs_err, max_rel_err=max(e for e, _ in errs.values()),
         )
-        log(f"[time] {path} {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        log(f"[time] {path} {name}: kernel {ms:.4f} ms (device, profiler), wrapper "
+            f"{wrapper_ms:.4f} ms (back to back, CUDA events), plain {plain_ms:.3f} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
 
     # kernel 1: kin_com (with the mocap frames where the model has them)
@@ -601,8 +638,13 @@ def device_profile(step) -> dict:
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels)) / 1e3
+    ours = {}
+    for row, name in KERNEL_NAMES.items():
+        times = [e.time_range.elapsed_us() / 1e3 for e in kernels if name in e.name]
+        if times:
+            ours[row] = {"launches": len(times), "ms_per_launch": sum(times) / len(times)}
     return {"kernels": len(kernels), "busy_ms": busy, "span_ms": span,
-            "idle_share": 1.0 - busy / span}
+            "idle_share": 1.0 - busy / span, "by_kernel": ours}
 
 
 def breakdown(sim, steps: int) -> dict:
@@ -734,7 +776,9 @@ def run_path(path: str) -> tuple[dict, dict, dict]:
     if prof["kernels"]:
         log(f"[profile] {path} one control step: {prof['kernels']} CUDA kernels, "
             f"device busy {prof['busy_ms']:.2f} ms of a {prof['span_ms']:.2f} ms "
-            f"span, idle share {prof['idle_share']:.3f} (under the profiler)")
+            f"span, idle share {prof['idle_share']:.3f} (under the profiler); "
+            + ", ".join(f"{k} {v['launches']} x {v['ms_per_launch']:.4f} ms"
+                        for k, v in prof["by_kernel"].items()))
     else:
         log(f"[profile] {path}: torch.profiler recorded no CUDA kernels: idle "
             "share not measured")
@@ -807,14 +851,18 @@ def check_dense_kernel(sim) -> dict:
     # Jt's live rows only: a row with D = 0 adds nothing and is not read
     moved = (nbytes(*args[1:], x_k, f_k)
              + int(live.sum()) * m.nv * Jt.element_size())
-    ms = cuda_ms(lambda: sd.newton_solve_dense(*args, **kw), 10)
+    fn_k = lambda: sd.newton_solve_dense(*args, **kw)  # noqa: E731
+    ms = kernel_ms(fn_k, KERNEL_NAMES["newton_solve_dense"], 10)
+    wrapper_ms = cuda_ms(fn_k, 10)
     plain_ms = cuda_ms(lambda: sd.newton_solve_dense_plain(*args, **kw), 2)
     b_ms, b_by = bound(moved, flops)
-    log(f"[time] g1_forward newton_solve_dense: kernel {ms:.4f} ms, plain "
+    log(f"[time] g1_forward newton_solve_dense: kernel {ms:.4f} ms (device, profiler), "
+        f"wrapper {wrapper_ms:.4f} ms (back to back, CUDA events), plain "
         f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: {moved / 1e6:.1f} MB, "
         f"{flops / 1e9:.3f} GFLOP)")
     return {"newton_solve_dense": dict(
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bytes=moved,
+        ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        bytes=moved,
         flops=flops, max_abs_err=max(max_abs(x_p, x_k), max_abs(f_p, f_k)),
         max_rel_err=max(e for e, _ in errs.values()),
         iteration_counts_differ=differ,
@@ -1006,7 +1054,8 @@ def kernel_rows(per_path: dict, launches: dict) -> list[dict]:
         row = dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=launches[top][name], max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            ms=r["ms"], wrapper_ms=r["wrapper_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None, path=top,
             **({"launches_per_forward": launches[top][name] / FORWARD_CALLS}
                if top == "g1_forward" else

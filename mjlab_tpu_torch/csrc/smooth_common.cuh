@@ -133,12 +133,6 @@ __device__ __forceinline__ void st3(float* p, int row, int E, int e, V3 v) {
   p[(3 * row + 1) * E + e] = v.y;
   p[(3 * row + 2) * E + e] = v.z;
 }
-__device__ __forceinline__ V3 tab3(const float* p, int i) {
-  return {p[3 * i], p[3 * i + 1], p[3 * i + 2]};
-}
-__device__ __forceinline__ Q4 tab4(const float* p, int i) {
-  return {p[4 * i], p[4 * i + 1], p[4 * i + 2], p[4 * i + 3]};
-}
 
 // spatial (6-vectors [angular, linear]) in env-last rows of 6
 struct S6 { float v[6]; };

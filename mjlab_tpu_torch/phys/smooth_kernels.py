@@ -2,11 +2,13 @@
 mass matrix, and the velocity stages.
 
 PyTorch counterpart of mjlab_tpu/phys/smooth_pallas.py. Each of the three
-kernels has a CUDA implementation (csrc/kin_com.cu, csrc/crb_packed.cu,
-csrc/vel_smooth.cu: one thread per env, table-driven) and a plain PyTorch
-version built on phys/lm/stages.py, with the same inputs and outputs. The
-wrapper runs the plain version for tensors on the CPU and launches the
-kernel for CUDA tensors; ``<wrapper>.launches`` counts kernel launches.
+kernels has a CUDA implementation, table-driven (csrc/kin_com.cu and
+csrc/vel_smooth.cu: many threads per env on the tree schedule of
+tree_schedule and csrc/smooth_tree.cuh; csrc/crb_packed.cu: one thread
+per env), and a plain PyTorch version built on phys/lm/stages.py, with the
+same inputs and outputs. The wrapper runs the plain version for tensors on
+the CPU and launches the kernel for CUDA tensors; ``<wrapper>.launches``
+counts kernel launches.
 
     kin_com     qpos -> collision-geom frames, subtree com, cdof, cinert
     crb_packed  cdof + cinert -> ancestor-pair mass-matrix values
@@ -32,15 +34,21 @@ from mjlab_tpu_torch.phys.model import (
 )
 
 SYM6 = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+_JOINT_DOFS = {JNT_FREE: 6, JNT_BALL: 3}  # 1 for hinge and slide
 _MAX_BODY = 128  # MJT_MAX_BODY in csrc/smooth_common.cuh
 
 
 def collision_geoms(m: Model) -> tuple[int, ...]:
-    """Static ids of geoms that take part in narrowphase pairs."""
-    pt = m.pairs
-    if not pt.ncon:
-        return ()
-    return tuple(sorted({int(g) for g in pt.geom1} | {int(g) for g in pt.geom2}))
+    """Static ids of geoms that take part in narrowphase pairs (computed
+    once per Model)."""
+
+    def make():
+        pt = m.pairs
+        if not pt.ncon:
+            return ()
+        return tuple(sorted({int(g) for g in pt.geom1} | {int(g) for g in pt.geom2}))
+
+    return cached(m, "collision_geoms", make)
 
 
 def _crb_pairs(m: Model) -> list[tuple[int, int]]:
@@ -60,6 +68,64 @@ def implicit_flags(m: Model) -> tuple[bool, bool]:
     eulerdamp = not (int(m.opt.disableflags) & DSBL_EULERDAMP)
     implicitfast = integ == INT_IMPLICITFAST
     return implicitfast or (integ == INT_EULER and eulerdamp), implicitfast
+
+
+def _csr(lists) -> tuple[np.ndarray, np.ndarray]:
+    """Lists of ints -> (start offsets (n + 1,), the lists concatenated)."""
+    adr = np.cumsum([0] + [len(x) for x in lists]).astype(np.int32)
+    return adr, np.asarray([v for x in lists for v in x], np.int32)
+
+
+def body_tree(parent) -> dict[str, np.ndarray]:
+    """The body-tree part of tree_schedule from body_parentid (parent[b] <
+    b, MuJoCo's body order): body_level, level_adr/level_body,
+    child_adr/child_body."""
+    parent = [int(p) for p in parent]
+    nb = len(parent)
+    level = [0] * nb
+    for b in range(1, nb):
+        level[b] = level[parent[b]] + 1
+    level_adr, level_body = _csr(
+        [[b for b in range(nb) if level[b] == L] for L in range(max(level) + 1)]
+    )
+    child_adr, child_body = _csr(
+        [[c for c in range(nb - 1, 0, -1) if parent[c] == b] for b in range(nb)]
+    )
+    return dict(body_level=np.asarray(level, np.int32), level_adr=level_adr,
+                level_body=level_body, child_adr=child_adr, child_body=child_body)
+
+
+def tree_schedule(m: Model) -> dict[str, np.ndarray]:
+    """The tree schedule of the many-threads-per-env kernels
+    (csrc/smooth_tree.cuh), int32 tables:
+
+    body_level (nbody,): depth in the tree, the world body at 0;
+    level_adr (nlevel + 1,), level_body (nbody,): bodies grouped by level,
+      ascending within a level;
+    child_adr (nbody + 1,), child_body: each body's children, descending;
+    dof_jnt (nv,): the joint that owns each dof;
+    dof_act_adr (nv + 1,), dof_act: each dof's actuators (the first dof of
+      an actuator's joint owns it), ascending;
+    dof_sub_adr (nv + 1,), dof_sub_body: the bodies b >= 1 whose chain from
+      the world holds the dof (stages.ancestor_dof_mask), ascending;
+    cg_body (ncg,): the body that owns each collision geom.
+    """
+    dof_jnt = np.zeros(m.nv, np.int32)
+    for j in range(m.njnt):
+        adr = int(m.jnt_dofadr[j])
+        dof_jnt[adr:adr + _JOINT_DOFS.get(int(m.jnt_type[j]), 1)] = j
+    act_dof = [int(m.jnt_dofadr[int(m.actuator_trnid[u, 0])]) for u in range(m.nu)]
+    anc = stages.ancestor_dof_mask(m)
+    dof_act_adr, dof_act = _csr([[u for u in range(m.nu) if act_dof[u] == i]
+                                 for i in range(m.nv)])
+    dof_sub_adr, dof_sub_body = _csr([[b for b in range(1, m.nbody) if anc[b, i]]
+                                      for i in range(m.nv)])
+    geom_bodyid = np.asarray(m.geom_bodyid)
+    return dict(
+        body_tree(m.body_parentid), dof_jnt=dof_jnt, dof_act_adr=dof_act_adr,
+        dof_act=dof_act, dof_sub_adr=dof_sub_adr, dof_sub_body=dof_sub_body,
+        cg_body=np.asarray([int(geom_bodyid[g]) for g in collision_geoms(m)], np.int32),
+    )
 
 
 def _stack(planes, E, like):
@@ -104,9 +170,22 @@ class _SmoothTables(ctypes.Structure):
     )
 
 
+_TREE_TABLES = (
+    "level_adr", "level_body", "child_adr", "child_body", "dof_jnt",
+    "dof_act_adr", "dof_act", "dof_sub_adr", "dof_sub_body", "cg_body",
+)
+
+
+class _SmoothTree(ctypes.Structure):
+    """Mirror of struct SmoothTree (csrc/smooth_tree.cuh)."""
+
+    _fields_ = [("nlevel", ctypes.c_int)] + [(n, ctypes.c_void_p) for n in _TREE_TABLES]
+
+
 class DeviceTables:
     """The model's tree and constants on the card, uploaded once per
-    Model (two flat tensors, pointers in a SmoothTables struct)."""
+    Model: two flat tensors with pointers in a SmoothTables struct, and the
+    tree schedule's tensor with pointers in a SmoothTree struct."""
 
     def __init__(self, m: Model):
         if m.nbody > _MAX_BODY:
@@ -167,6 +246,14 @@ class DeviceTables:
             setattr(s, name, self.floats.data_ptr() + 4 * foff[name])
         self.struct = s
         self.npair = len(pairs)
+        sched = tree_schedule(m)
+        tbuf, toff = self._pack(sched, _TREE_TABLES, np.int32)
+        self.tree_ints = torch.as_tensor(tbuf, device=m.device)
+        tr = _SmoothTree()
+        tr.nlevel = len(sched["level_adr"]) - 1
+        for name in _TREE_TABLES:
+            setattr(tr, name, self.tree_ints.data_ptr() + 4 * toff[name])
+        self.tree = tr
 
     @staticmethod
     def _pack(arrays, names, dtype):
@@ -183,6 +270,7 @@ class DeviceTables:
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _TABLES = ctypes.POINTER(_SmoothTables)
+_TREE = ctypes.POINTER(_SmoothTree)
 
 
 def device_tables(m: Model) -> DeviceTables:
@@ -281,16 +369,13 @@ def kin_com(m: Model, qT: torch.Tensor, mcT=None, mcqT=None):
     if G > len(collision_geoms(m)):
         outs[0].zero_()
         outs[1].zero_()
-    xanchor = _empty((m.njnt, 3, E), qT)
-    xaxis = _empty((m.njnt, 3, E), qT)
     launch = cuda_build.launcher(
-        "kin_com", "kin_com_launch", (_TABLES,) + (_P,) * 14 + (_I, _P)
+        "kin_com", "kin_com_launch", (_TABLES, _TREE) + (_P,) * 12 + (_I, _P)
     )
     rc = launch(
-        ctypes.byref(t.struct), cuda_build.ptr(qT), cuda_build.ptr(mcT),
-        cuda_build.ptr(mcqT),
+        ctypes.byref(t.struct), ctypes.byref(t.tree), cuda_build.ptr(qT),
+        cuda_build.ptr(mcT), cuda_build.ptr(mcqT),
         *[cuda_build.ptr(o) for o in outs],
-        cuda_build.ptr(xanchor), cuda_build.ptr(xaxis),
         ctypes.c_int(E), cuda_build.stream(),
     )
     cuda_build.check(cuda_build.library("kin_com"), rc, "kin_com")
@@ -464,15 +549,14 @@ def vel_smooth(m: Model, qT, vT, ctrlT, cdof, cinA, cinc, xq):
     afrc = _empty((nu, E), vT)
     avel = _empty((nu, E), vT)
     diag = _empty((nv, E), vT)
-    scratch = _empty(((nb * 6) * 3 + nv * 6 + 3 * nv, E), vT)
     launch = cuda_build.launcher(
-        "vel_smooth", "vel_smooth_launch", (_TABLES,) + (_P,) * 15 + (_I, _P)
+        "vel_smooth", "vel_smooth_launch", (_TABLES, _TREE) + (_P,) * 14 + (_I, _P)
     )
     rc = launch(
-        ctypes.byref(t.struct),
+        ctypes.byref(t.struct), ctypes.byref(t.tree),
         *[cuda_build.ptr(x) for x in (
             qT, vT, ctrlT, cdof, cinA, cinc, subcom, xipos, xfrcT, qfaT,
-            qfs, afrc, avel, diag, scratch,
+            qfs, afrc, avel, diag,
         )],
         ctypes.c_int(E), cuda_build.stream(),
     )

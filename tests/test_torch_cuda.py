@@ -13,9 +13,12 @@ max(1, |plain|max). chip_smoke.py runs the same comparisons at 4096 envs.
 The models are the G1 flat-velocity model (pyramidal cone: kernel 4, and
 kernel 6 under Simulation.forward()), the YAM lift-cube model (elliptic
 cone, a joint equality and a mocap base: kernel 5 and kin_com's mocap
-inputs) and three toys (tests/torch_toy_models.py: a joint equality under
-the pyramidal cone, and each cone without joint limits) the repo keeps as
-files, so these tests need neither MuJoCo nor the JAX package.
+inputs) and four toys (tests/torch_toy_models.py: a joint equality under
+the pyramidal cone, each cone without joint limits, and joint_toy, with
+every joint type, springs and a multi-geom body, for the smooth kernels)
+the repo keeps as files, so these tests need neither MuJoCo nor the JAX
+package. E = 300 is not a multiple of the smooth kernels' 16 envs per block
+(csrc/smooth_tree.cuh), so their ragged edge runs too.
 """
 
 from pathlib import Path
@@ -214,6 +217,42 @@ def test_toy_kernels_match_plain_versions(name, cuda):
         assert m.nlimit == 0
     _check_kernels(m, sim.data, cuda, stable_only=elliptic)
     assert bool(torch.isfinite(sim.data.qpos).all())
+
+
+@pytest.mark.parametrize("E", [256, 300])
+def test_smooth_kernels_on_every_joint_type(E, cuda):
+    """kin_com and vel_smooth against their plain versions on joint_toy:
+    free, ball, hinge and slide joints (a hinge and a slide on one body),
+    a spring on each, a multi-geom body, a position actuator and a
+    force-limited motor, implicitfast; at a seeded random state."""
+    m, _ = pm.load_model(Path(__file__).parent / "models" / "joint_toy.npz", device=cuda)
+    assert sorted(int(t) for t in m.jnt_type) == [0, 1, 2, 3]
+    assert bool((m.jnt_stiffness > 0).all()) and m.nu == 2
+    rng = np.random.default_rng(E)
+    f = lambda x: torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32,  # noqa: E731
+                                  device=cuda)
+    qT = f(m.qpos0.cpu().numpy()[:, None] + 0.3 * rng.standard_normal((m.nq, E)))
+    vT = f(rng.standard_normal((m.nv, E)))
+    ctrlT = f(2 * rng.standard_normal((m.nu, E)))  # past the ranges and limits
+    xfrcT = f(0.1 * rng.standard_normal((m.nbody, 6, E)))
+    qfaT = f(0.1 * rng.standard_normal((m.nv, E)))
+    launches = (sk.kin_com.launches, sk.vel_smooth.launches)
+    kin_k = sk.kin_com(m, qT)
+    kin_p = sk.kin_com_plain(m, qT)
+    for p, k in zip(kin_p, kin_k):
+        assert rel_err(p, k) < 2e-6
+    _, _, subcom, cdof, cinA, cinc, xipos, _, _ = kin_p
+    xq = (subcom, xipos, xfrcT, qfaT)
+    vs_k = sk.vel_smooth(m, qT, vT, ctrlT, cdof, cinA, cinc, xq)
+    vs_p = sk.vel_smooth_plain(m, qT, vT, ctrlT, cdof, cinA, cinc, xq)
+    for p, k in zip(vs_p, vs_k):
+        assert rel_err(p, k) < 5e-6
+    assert (sk.kin_com.launches, sk.vel_smooth.launches) == (launches[0] + 1, launches[1] + 1)
+    # the force limit and the implicitfast dF/dv both took effect
+    assert bool((vs_p[1][1].abs() == 0.5).any())
+    hinge = int(m.jnt_dofadr[list(m.jnt_type).index(3)])
+    h_damping = float(m.opt.timestep) * float(m.dof_damping[hinge])
+    assert bool((vs_p[3][hinge] != h_damping).all())
 
 
 def _yam_state(sim, seed=0):

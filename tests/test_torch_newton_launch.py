@@ -105,7 +105,7 @@ def test_doubling_replay_on_the_plain_versions_slopes(monkeypatch):
     assert seen and all(seen)
 
 
-@pytest.mark.parametrize("name", toys.NAMES)
+@pytest.mark.parametrize("name", toys.ALL)
 def test_toy_model_files_match_fresh_conversion(name):
     fresh = toys.convert(name)
     saved, _ = pm.load_model(toys.DIR / f"{name}.npz", dtype=torch.float64, device="cpu")
