@@ -7,8 +7,9 @@ Three main paths, each a Simulation of 4096 envs driven through its public
 entry points, and the six kernels they run:
 
 - g1: Mjlab-Velocity-Flat-Unitree-G1 physics (nconmax 35, pyramidal cone),
-  reset, step and refresh: kin_com, crb_packed, vel_smooth and
-  newton_assemble_solve cone 0;
+  reset, step and refresh: kin_com, crb_packed (the kernel of crb_dense:
+  the dense mass matrix and its implicit diagonal in one launch),
+  vel_smooth and newton_assemble_solve cone 0;
 - yam: Mjlab-Lift-Cube-Yam physics (nconmax 55, elliptic cone with
   impratio 10, a joint equality, a mocap base, the box contact families),
   reset, step and refresh: kin_com with mocap frames, crb_packed,
@@ -59,7 +60,9 @@ field by field.
 The line before the last is the card's name and power limit (nvidia-smi);
 the lines before hold the kernels (JSON), the substep breakdowns and the
 physics throughputs. The last line is {"ok": true, "device": {...}}. Exits
-non-zero, printing no result, when there is no CUDA card.
+non-zero, printing no result, when there is no CUDA card (2) and when
+mjlab_tpu_torch is not importable, e.g. the script copied alone into an
+empty directory (1).
 """
 
 from __future__ import annotations
@@ -87,7 +90,7 @@ PEAK_F32_FLOPS = 67e12
 # kernel vs plain version, float32 (tests/test_torch_stages.py,
 # tests/test_torch_solver.py): relative to max(1, |plain|max)
 TOL_FRAMES = 2e-6  # kin_com outputs
-TOL_SMOOTH = 5e-6  # crb_packed, vel_smooth
+TOL_SMOOTH = 5e-6  # crb_packed (qM, Mh), vel_smooth
 # the solve kernels: phys/solver_kernels.py SOLVE_TOL and FORCE_TOL
 # 64 envs x 3 steps on the card against the CPU: the step tolerances of
 # tests/test_torch_step.py; under the elliptic cone the contact dynamics
@@ -187,6 +190,26 @@ def kernel_ms(fn, kernel: str, reps: int, warm: int = 1) -> float:
         raise RuntimeError(f"the profiler recorded {len(times)} launches of {kernel}, "
                            f"expected {reps}")
     return sum(times) / len(times) / 1e3
+
+
+def cuda_kernels_per_call(fn, reps: int = 10) -> tuple[float, set]:
+    """(CUDA kernel records per call, the set of their names, shortened to
+    the KERNEL_NAMES entry they contain where there is one) over reps calls
+    of fn under the profiler, which may drop a record now and then."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not names:
+        raise RuntimeError("the profiler recorded no CUDA kernel")
+    short = {next((k for k in KERNEL_NAMES.values() if k in n), n) for n in names}
+    return len(names) / reps, short
 
 
 def nbytes(*tensors) -> int:
@@ -443,15 +466,6 @@ def check_kernels(sim, path: str) -> dict:
            max(max_abs(p, k) for p, k in zip(outs_p, outs_k)))
     gxpos, gxmat, subcom, cdof, cinA, cinc, xipos, _, _ = outs_p
 
-    # kernel 2: crb_packed
-    qm_k = sk.crb_packed(m, cdof, cinA, cinc)
-    qm_p = sk.crb_packed_plain(m, cdof, cinA, cinc)
-    record("crb_packed", {"qM_pairs": (rel_err(qm_p, qm_k), TOL_SMOOTH)},
-           nbytes(cdof, cinA, cinc, qm_k), crb_flops(m, qm_k.shape[0]),
-           lambda: sk.crb_packed(m, cdof, cinA, cinc),
-           lambda: sk.crb_packed_plain(m, cdof, cinA, cinc), 20,
-           max_abs(qm_p, qm_k))
-
     # kernel 3: vel_smooth
     xq = (subcom, xipos, xfrcT, qfaT)
     vs_k = sk.vel_smooth(m, qT, vT, ctrlT, cdof, cinA, cinc, xq)
@@ -466,14 +480,32 @@ def check_kernels(sim, path: str) -> dict:
            20, max(max_abs(p, k) for p, k in zip(vs_p, vs_k)))
     qfs, _, _, mh_diag = vs_p
 
+    # kernel 2: crb_packed, fused with the dense scatter and the implicit
+    # diagonal (crb_dense): the whole crb phase of the step in one launch
+    mh = mh_diag if has_implicit(m) else None
+    crb_k = sk.crb_dense(m, cdof, cinA, cinc, mh)
+    qM_cm, Mh_cm = sk.crb_dense_plain(m, cdof, cinA, cinc, mh)
+    errs = {"qM": (rel_err(qM_cm, crb_k[0]), TOL_SMOOTH)}
+    if mh is not None:
+        errs["Mh"] = (rel_err(Mh_cm, crb_k[1]), TOL_SMOOTH)
+    outs = [x for x in crb_k if x is not None]
+    record("crb_packed", errs,
+           nbytes(cdof, cinA, cinc, *([mh] if mh is not None else []), *outs),
+           crb_flops(m, len(sk._crb_pairs(m))),
+           lambda: sk.crb_dense(m, cdof, cinA, cinc, mh),
+           lambda: sk.crb_dense_plain(m, cdof, cinA, cinc, mh), 20,
+           max(max_abs(p, kk) for p, kk in zip((qM_cm, Mh_cm), crb_k) if p is not None))
+    per_call, names = cuda_kernels_per_call(lambda: sk.crb_dense(m, cdof, cinA, cinc, mh))
+    per_call_p, _ = cuda_kernels_per_call(lambda: sk.crb_dense_plain(m, cdof, cinA, cinc, mh))
+    log(f"[check] {path} crb phase: {per_call:.2f} CUDA kernels per call (profiler, 10 "
+        f"calls), all {sorted(names)}; the plain version {per_call_p:.1f}")
+    if names != {KERNEL_NAMES["crb_packed"]}:
+        raise AssertionError(f"{path}: the crb phase launched {sorted(names)}")
+    out["crb_packed"]["phase_kernels_per_call"] = per_call
+
     # kernel 4 / 5: newton_assemble_solve (the path's cone), on the plain
     # versions' inputs
     k = contact_stack(m, Params(m, E), qT, vT, gxpos, gxmat, subcom)
-    qM_cm = sk.qm_dense_cm(m, qm_p)
-    Mh_cm = None
-    if has_implicit(m):
-        Mh_cm = qM_cm.clone()
-        Mh_cm[torch.arange(nv, device=qT.device) * (nv + 1)] += mh_diag
     args, kw = solve_args(m, k, qM_cm, qfs, d.qacc_warmstart.T, vT,
                           cdof.reshape(nv * 6, E), Mh_cm)
     it_k = torch.zeros(E, dtype=torch.int32, device=qT.device)
@@ -586,7 +618,7 @@ def timed_launches(calls) -> dict:
     from mjlab_tpu_torch.phys import solver_kernels as sv
 
     torch.cuda.synchronize()
-    wrappers = (sk.kin_com, sk.crb_packed, sk.vel_smooth, sv.newton_assemble_solve,
+    wrappers = (sk.kin_com, sk.crb_dense, sk.vel_smooth, sv.newton_assemble_solve,
                 sd.newton_solve_dense)
     for w in wrappers:
         w.launches = 0
@@ -602,7 +634,7 @@ def timed_launches(calls) -> dict:
     wall = time.perf_counter() - t0
     by_cone = list(sv.newton_assemble_solve.launches_by_cone)
     launches = {
-        "kin_com": sk.kin_com.launches, "crb_packed": sk.crb_packed.launches,
+        "kin_com": sk.kin_com.launches, "crb_packed": sk.crb_dense.launches,
         "vel_smooth": sk.vel_smooth.launches,
         "newton_assemble_solve": by_cone[0],
         "newton_assemble_solve_elliptic": by_cone[1],
@@ -832,18 +864,25 @@ def check_dense_kernel(sim) -> dict:
     # row with a positive force), which stand for every iteration's
     D, fl = args[1], args[3]
     mask = lambda c: torch.as_tensor(c, device=D.device)[:, None]  # noqa: E731
-    live = D != 0
+    live = (D != 0) & (mask(kw["os_mask"]) | mask(kw["fr_mask"]) | mask(kw["eq_mask"]))
     quad = live & (D > 0) & (mask(kw["eq_mask"]) | (mask(kw["fr_mask"]) & (f_p.abs() < fl))
                              | (mask(kw["os_mask"]) & (f_p > 0)))
     nlive = live.sum(0).double()
     nact = quad.sum(0).double()
     differ = int((it_k != it_p).sum())
-    log(f"[check] g1_forward newton_solve_dense: smem "
-        f"{sd.dense_smem_bytes(m.nv, m.nefc)} bytes per env; iterations mean "
+    shape = sd.dense_launch_shape(m.nv, m.nefc, int(nlive.max()))
+    blocks = sd.dense_blocks_per_sm(shape.smem_bytes_per_env)
+    log(f"[check] g1_forward newton_solve_dense: launch shape {shape.threads_per_env} "
+        f"threads per env, {shape.smem_bytes_per_env} bytes of shared memory per env "
+        f"({int(nlive.max())} live rows); {blocks} envs per SM, "
+        f"{blocks * shape.threads_per_env} resident threads per SM")
+    log(f"[check] g1_forward newton_solve_dense: iterations mean "
         f"{it_k.double().mean():.2f} kernel, {it_p.double().mean():.2f} plain, "
-        f"different in {differ} of {E} envs; live rows mean "
-        f"{float(nlive.mean()):.1f}, rows in the quadratic zone "
-        f"{float(nact.mean()):.1f} of {m.nefc}")
+        f"different in {differ} of {E} envs; at the {kw['iterations']}-iteration cap "
+        f"{int((it_k == kw['iterations']).sum())} kernel, "
+        f"{int((it_p == kw['iterations']).sum())} plain; live rows max "
+        f"{int(nlive.max())}, mean {float(nlive.mean()):.1f}, rows in the quadratic "
+        f"zone {float(nact.mean()):.1f} of {m.nefc}")
     flops = float(sum(
         dense_flops(m.nv, nl, na, it, kw["ls_iterations"])
         for nl, na, it in zip(nlive.tolist(), nact.tolist(), it_p.tolist())
@@ -865,7 +904,9 @@ def check_dense_kernel(sim) -> dict:
         bytes=moved,
         flops=flops, max_abs_err=max(max_abs(x_p, x_k), max_abs(f_p, f_k)),
         max_rel_err=max(e for e, _ in errs.values()),
-        iteration_counts_differ=differ,
+        iteration_counts_differ=differ, live_rows_max=int(nlive.max()),
+        live_rows_mean=float(nlive.mean()),
+        resident_threads_per_sm=blocks * shape.threads_per_env,
     )}
 
 
@@ -1077,6 +1118,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 2
+
+    try:
+        import mjlab_tpu_torch  # noqa: F401
+    except ImportError:
+        print("chip_smoke: the package mjlab_tpu_torch is not importable: run this "
+              "script from the root of a checkout of the repository", file=sys.stderr)
+        return 1
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -1,18 +1,25 @@
-// newton_block.cuh: the fused contact-Jacobian assembly + Newton
-// constraint solve of newton_solve.cu (pyramidal cone) and
-// newton_solve_elliptic.cu (elliptic cone), one env per block of kThreads
-// threads. This header holds all of it but the cone: the shared-memory
-// layout, the loads, the dof-friction and limit rows, the register-tiled
-// Hessian and Cholesky, the triangular solves, the line search and the
-// outputs, in one routine (solve_env) templated on a cone policy (the
-// dense contact rows: their assembly, forces, costs, slopes and Hessian
-// terms), which each .cu file supplies.
+// newton_block.cuh: the Newton constraint solve of the port's three solve
+// kernels, one env per block of kThreads threads: newton_solve.cu (the
+// fused contact-Jacobian assembly, pyramidal cone), newton_solve_elliptic.cu
+// (the same, elliptic cone) and newton_solve_dense.cu (the solve over a
+// dense, materialised Jacobian). This header holds all of it but the rows:
+// the shared-memory layout, the loads, the dof-friction and limit rows,
+// the register-tiled Hessian and Cholesky, the triangular solves, the line
+// search and the outputs, in one routine (solve_env) templated on a row
+// policy (the dense rows: their assembly or loads, forces, costs, slopes
+// and Hessian terms), which each .cu file supplies. A policy with
+// kImplicitRows (kernels 4 and 5) has the dof-friction and limit rows
+// carried implicitly, solves a_smooth from qfrc_smooth and writes
+// qfrc_constraint, a_smooth and qacc_int; the dense policy (kernel 6) has
+// every row dense, takes a_smooth as an input and writes its own outputs.
 //
 // Who does what. The four warps split the matrix work: phase A (one
 // (slot, dof) pair per thread), the row products, the gradient, the
 // Hessian (a 3x3 tile of its lower triangle per thread, kept in registers)
-// and the Cholesky (right-looking on those register tiles, one barrier per
-// column). Warp 0 alone runs the scalar sequence that decides each step:
+// and the Cholesky (right-looking by panels of three columns on those
+// register tiles: warp 0 factors a panel, the tiles right of it take its
+// update, two barriers per panel). Warp 0 alone runs the scalar sequence
+// that decides each step:
 // the costs, q1 and q2, the gradient norm, and the line search, with the
 // lane-strided sums and butterflies of a one-warp-per-env solve, so every
 // lane holds the same bits and the arithmetic of each decision is that of
@@ -20,18 +27,33 @@
 // the step to the block through shared memory. The f32 solve's acceptance
 // test and its 20-probe line search flip on rounding, so the kernel keeps
 // the one-warp kernel's order wherever a sum feeds them.
+//
+// IN(p, r) reads row r of an env-last (rows, E) input for env e; the
+// callers name the env count E and the env e.
 #pragma once
 
-#include "newton_common.cuh"
+#include <cuda_runtime.h>
+
 #include "newton_phases.cuh"
+
+#define FULL 0xffffffffu
+#define IN(p, r) (p)[(size_t)(r) * E + e]
 
 namespace {
 
+constexpr float kEps = 1e-12f;
+constexpr float kRidge = 1e-6f;
 constexpr int kThreads = 128;            // threads per env (one env per block)
 constexpr int kTile = 3;                 // a thread's Hessian / factor entries: a kTile^2 tile
 constexpr int kMaxNv = 45;               // one tile per thread: 15 * 16 / 2 tiles <= kThreads
 constexpr int kDoubling = 12;            // doubling probes of the line search
 constexpr int kShapeMismatch = 1001;     // launcher error: not the kernel's launch shape
+
+// a warp butterfly sum: every lane gets the same bits
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
 
 // dof vectors, nv floats each
 enum DofVec {
@@ -71,6 +93,13 @@ struct SolveArgs {
   int* iters;
   int nv, K, R, neq, nlim, iterations, ls_iterations, do_int, E;
   float tolerance;
+  // the dense solve (newton_solve_dense.cu): Jt (nv, nefc, E), the rows'
+  // D, aref and frictionloss (nefc, E), their classes (nefc), a_smooth
+  // (nv, E) in, every row's force (nefc, E) out; at most ncap live rows
+  const float *Jt, *Dr, *arefr, *flr, *asm_in;
+  const int* cls;
+  float* fr;
+  int nefc, ncap;
 };
 
 // one env's block: sizes, counts and the shared-memory layout
@@ -287,7 +316,10 @@ __device__ __forceinline__ void fr_lim_slope(const Blk& s, float al, bool need_h
 // the rows' cost at jar + t v (with_v) or at jar
 template <class Cone>
 __device__ __forceinline__ float cost_rows(const Blk& s, const Cone& cone, float t, bool with_v) {
-  return warp_sum(fr_lim_cost(s, t, with_v) + cone.cost_lane(s, t, with_v));
+  if constexpr (Cone::kImplicitRows)
+    return warp_sum(fr_lim_cost(s, t, with_v) + cone.cost_lane(s, t, with_v));
+  else
+    return warp_sum(cone.cost_lane(s, t, with_v));
 }
 
 // 0.5 (y - a_smooth)' M (y - a_smooth), y = base + t dir (dir == nullptr:
@@ -310,7 +342,7 @@ template <class Cone>
 __device__ __forceinline__ float dphi(const Blk& s, const Cone& cone, float q1, float q2,
                                       float al, bool need_h, float& h) {
   float sl = 0.f, hl = 0.f;
-  fr_lim_slope(s, al, need_h, sl, hl);
+  if constexpr (Cone::kImplicitRows) fr_lim_slope(s, al, need_h, sl, hl);
   cone.slope_lane(s, al, need_h, sl, hl);
   const float ssum = warp_sum(sl);
   if (need_h) h = q2 + warp_sum(hl);
@@ -337,7 +369,7 @@ __device__ __forceinline__ float line_search_w(const Blk& s, const Cone& cone, f
   for (int k = 0; k < kDoubling; ++k) {
     float sl = 0.f, hl = 0.f;
     const float al = static_cast<float>(1 << k);
-    fr_lim_slope(s, al, false, sl, hl);
+    if constexpr (Cone::kImplicitRows) fr_lim_slope(s, al, false, sl, hl);
     cone.slope_lane(s, al, false, sl, hl);
     g[k] = sl;
   }
@@ -418,7 +450,9 @@ __device__ __forceinline__ void tile_add(const Blk& s, Tile& h, const float* x, 
     for (int b = 0; b < kTile; ++b) h.v[a][b] = h.v[a][b] + xi[a] * yj[b];
 }
 
-// H = (M + the friction and limit diagonal) + the tile's sums
+// H = (M + the friction and limit diagonal) + the tile's sums; M + the
+// tile's sums for a policy without implicit rows
+template <class Cone>
 __device__ __forceinline__ void tile_hessian(const Blk& s, Tile& h) {
 #pragma unroll
   for (int a = 0; a < kTile; ++a)
@@ -426,7 +460,10 @@ __device__ __forceinline__ void tile_hessian(const Blk& s, Tile& h) {
     for (int b = 0; b < kTile; ++b) {
       if (!tile_has(s, h, a, b)) continue;
       const int i = h.i0 + a, j = h.j0 + b;
-      h.v[a][b] = (s.M[j * s.nv + i] + (i == j ? fr_lim_diag(s, i) : 0.f)) + h.v[a][b];
+      if constexpr (Cone::kImplicitRows)
+        h.v[a][b] = (s.M[j * s.nv + i] + (i == j ? fr_lim_diag(s, i) : 0.f)) + h.v[a][b];
+      else
+        h.v[a][b] = s.M[j * s.nv + i] + h.v[a][b];
     }
 }
 
@@ -441,16 +478,19 @@ __device__ __forceinline__ void tile_load(const Blk& s, Tile& h, const float* A)
 }
 
 // Jacobi-equilibrated Cholesky with a ridge of the matrix A whose tiles
-// the threads hold, right-looking on the tiles: Lo (column-major) gets the
-// factor of S = diag(scale) A diag(scale) + ridge I below the diagonal and
-// piv its diagonal, scale = 1/sqrt(diag A), pivots floored at the ridge;
-// yb gets the forward solve L^-1 (scale b). Column j1's step: every owner
-// of one of its entries derives the pivot from the diagonal value the
-// last step published (in Lo's diagonal slot), applies column j1 - 1's
-// update to its tile, finalises its column-j1 entries and publishes the
-// next diagonal value; one barrier per column. Each entry's arithmetic is
-// the sequential left-looking factor's, in the same order, and the
-// forward solve's is the column-oriented one's.
+// the threads hold, right-looking by panels of kTile columns: Lo
+// (column-major) gets the factor of S = diag(scale) A diag(scale) + ridge I
+// below the diagonal and piv its diagonal, scale = 1/sqrt(diag A), pivots
+// floored at the ridge; yb gets the forward solve L^-1 (scale b). Panel J
+// (columns kTile J ..): the tiles of block column J publish their entries,
+// every earlier panel's update applied, into Lo; warp 0 factors the panel
+// column by column (the pivot, the column below it, the panel's later
+// columns and the forward solve updated, with warp barriers); then every
+// tile right of the panel applies the panel's columns in order. Two block
+// barriers per panel. Each entry's arithmetic is the sequential
+// left-looking factor's, in the same order (v - L(i, c) L(k, c) for
+// ascending c, then / the pivot), and the forward solve's is the
+// column-oriented one's.
 __device__ __forceinline__ void block_chol(Blk& s, Tile& h, const float* b, float* Lo,
                                            float* scale, float* yb, float* piv) {
   const int nv = s.nv;
@@ -468,10 +508,8 @@ __device__ __forceinline__ void block_chol(Blk& s, Tile& h, const float* b, floa
       float v = h.v[a][c] * (scale[i] * scale[k]);
       if (i == k) v = v + kRidge;
       h.v[a][c] = v;
-      if (i == 0) Lo[0] = v;  // the first pivot's diagonal value
     }
   for (int i = s.tid; i < nv; i += kThreads) yb[i] = b[i] * scale[i];
-  __syncthreads();
   // the entries this thread holds, bit a * kTile + c
   unsigned held = 0;
 #pragma unroll
@@ -479,65 +517,56 @@ __device__ __forceinline__ void block_chol(Blk& s, Tile& h, const float* b, floa
 #pragma unroll
     for (int c = 0; c < kTile; ++c)
       if (tile_has(s, h, a, c)) held |= 1u << (a * kTile + c);
-  for (int j1 = 0; j1 < nv; ++j1) {
-    const int j = j1 - 1;
-    const float* Lj = Lo + j * nv;  // column j, final (j1 >= 1)
-    // column j1's pivot (dn) and diagonal entry (ljj) from the diagonal
-    // value the last step published
-    auto pivot = [&](float& dn, float& ljj) {
-      float djn = Lo[j1 * nv + j1];
-      if (j1 >= 1) {
-        const float l = Lj[j1];
-        djn = djn - l * l;
+  for (int c0 = 0; c0 < nv; c0 += kTile) {
+    const int c1 = min(c0 + kTile, nv);
+    // the panel's tiles publish their entries
+    if (held && h.j0 == c0) {
+#pragma unroll
+      for (int a = 0; a < kTile; ++a)
+#pragma unroll
+        for (int c = 0; c < kTile; ++c)
+          if ((held >> (a * kTile + c)) & 1u) Lo[(h.j0 + c) * nv + h.i0 + a] = h.v[a][c];
+    }
+    __syncthreads();
+    // warp 0 factors the panel
+    if (s.tid < 32) {
+      for (int c = c0; c < c1; ++c) {
+        const float djn = Lo[c * nv + c];
+        const float dn = sqrtf(fmaxf(djn, kRidge));
+        const float ljj = djn / dn;
+        const float y = yb[c] / ljj;
+        float* Lc = Lo + c * nv;
+        for (int i = c + 1 + s.lane; i < nv; i += 32) Lc[i] = Lc[i] / dn;
+        __syncwarp();
+        for (int i = c + 1 + s.lane; i < nv; i += 32) {
+          const float l = Lc[i];
+          for (int k = c + 1; k < c1 && k <= i; ++k) Lo[k * nv + i] = Lo[k * nv + i] - l * Lc[k];
+          yb[i] = yb[i] - y * l;
+        }
+        if (s.lane == 0) {
+          piv[c] = ljj;
+          yb[c] = y;
+        }
+        __syncwarp();
       }
-      dn = sqrtf(fmaxf(djn, kRidge));
-      ljj = djn / dn;
-    };
-    if (held && h.j0 + kTile > j1) {  // the tile has columns k >= j1
-      if (j1 >= 1) {
+    }
+    __syncthreads();
+    // the tiles right of the panel apply its columns, in order
+    if (held && h.j0 >= c1) {
+      for (int c = c0; c < c1; ++c) {
+        const float* Lc = Lo + c * nv;
         float li[kTile], lk[kTile];
 #pragma unroll
         for (int a = 0; a < kTile; ++a) {
-          li[a] = Lj[min(h.i0 + a, nv - 1)];
-          lk[a] = Lj[min(h.j0 + a, nv - 1)];
+          li[a] = Lc[min(h.i0 + a, nv - 1)];
+          lk[a] = Lc[min(h.j0 + a, nv - 1)];
         }
 #pragma unroll
         for (int a = 0; a < kTile; ++a)
 #pragma unroll
-          for (int c = 0; c < kTile; ++c)
-            if (((held >> (a * kTile + c)) & 1u) && h.j0 + c >= j1)
-              h.v[a][c] = h.v[a][c] - li[a] * lk[c];
-      }
-      if (h.j0 <= j1) {  // column j1 is in the tile: finalise it
-        float dn, ljj;
-        pivot(dn, ljj);
-#pragma unroll
-        for (int a = 0; a < kTile; ++a)
-#pragma unroll
-          for (int c = 0; c < kTile; ++c) {
-            if (!((held >> (a * kTile + c)) & 1u) || h.j0 + c != j1) continue;
-            const int i = h.i0 + a;
-            if (i == j1) piv[j1] = ljj;
-            else Lo[j1 * nv + i] = h.v[a][c] / dn;
-          }
-      }
-      if (h.i0 == h.j0) {  // publish the next pivot's diagonal value
-#pragma unroll
-        for (int a = 0; a < kTile; ++a)
-          if (((held >> (a * kTile + a)) & 1u) && h.i0 + a == j1 + 1) Lo[(j1 + 1) * (nv + 1)] = h.v[a][a];
+          for (int k = 0; k < kTile; ++k) h.v[a][k] = h.v[a][k] - li[a] * lk[k];
       }
     }
-    if (s.tid >= j1 && s.tid < nv) {
-      float v = yb[s.tid];
-      if (j1 >= 1) v = v - yb[j] * Lj[s.tid];
-      if (s.tid == j1) {
-        float dn, ljj;
-        pivot(dn, ljj);
-        v = v / ljj;
-      }
-      yb[s.tid] = v;
-    }
-    __syncthreads();
   }
 }
 
@@ -573,10 +602,13 @@ __device__ __forceinline__ void block_solve(Blk& s, Tile& h, const float* b, flo
 // ---------- residuals and forces ----------
 
 // the rows' residuals at y: friction, limits, live rows (no barrier)
+template <class Cone>
 __device__ __forceinline__ void jar_at(const Blk& s, const float* y) {
-  for (int i = s.tid; i < s.nv; i += kThreads) s.dv(kJarFr)[i] = y[i] - s.dv(kArefFr)[i];
-  for (int l = s.tid; l < s.nlim; l += kThreads)
-    s.lv(kJarLim)[l] = s.lv(kSide)[l] * y[s.limdof[l]] - s.lv(kArefLim)[l];
+  if constexpr (Cone::kImplicitRows) {
+    for (int i = s.tid; i < s.nv; i += kThreads) s.dv(kJarFr)[i] = y[i] - s.dv(kArefFr)[i];
+    for (int l = s.tid; l < s.nlim; l += kThreads)
+      s.lv(kJarLim)[l] = s.lv(kSide)[l] * y[s.limdof[l]] - s.lv(kArefLim)[l];
+  }
   for (int t = s.tid; t < s.nrows; t += kThreads) {
     const int row = s.live[t];
     s.rv(kJarD)[row] = row_dot_b(s, row, y) - s.rv(kArefD)[row];
@@ -594,33 +626,72 @@ __device__ __forceinline__ float jt_force(const Blk& s, int i) {
   return acc;
 }
 
+// the outputs of a policy with kImplicitRows, its row forces in kFd (and
+// visible to the block): qacc, a_smooth, every row's force,
+// qfrc_constraint and qacc_int (with do_int Mh^-1 (M qacc), the implicit
+// velocity update, else qacc)
+template <class Cone>
+__device__ __forceinline__ void step_outputs(Blk& s, const SolveArgs& a, int E, int e) {
+  const int nv = s.nv, tid = s.tid;
+  const float* asm_ = s.dv(kAsm);
+  for (int i = tid; i < nv; i += kThreads) {
+    IN(a.x, i) = s.dv(kX)[i];
+    IN(a.asm_, i) = asm_[i];
+    IN(a.fnc, s.neq + i) = fr_force(s, i);
+    IN(a.qfrc, i) = fr_lim_force(s, i, jt_force(s, i));
+    if (a.do_int) s.dv(kT1)[i] = mv_row(s, s.dv(kX), i);
+  }
+  for (int l = tid; l < s.nlim; l += kThreads) IN(a.fnc, s.neq + nv + l) = lim_force(s, l);
+  for (int q = tid; q < s.neq; q += kThreads)
+    IN(a.fnc, q) = -s.rv(kDd)[s.RK + q] * s.rv(kJarD)[s.RK + q];
+  for (int r = tid; r < s.RK; r += kThreads) IN(a.fcon, r) = s.rv(kFd)[r];
+  if (a.do_int) {
+    for (int r = tid; r < nv * nv; r += kThreads) cp_async4(s.L + r, &IN(a.Mh, r));
+    cp_async_wait();
+    __syncthreads();
+    Tile h;
+    tile_load(s, h, s.L);
+    block_solve(s, h, s.dv(kT1), s.dv(kT2), 1.f);
+    for (int i = tid; i < nv; i += kThreads) IN(a.qint, i) = s.dv(kT2)[i];
+  } else {
+    for (int i = tid; i < nv; i += kThreads) IN(a.qint, i) = s.dv(kX)[i];
+  }
+}
+
 // ---------- the solve of one env ----------
 
-// One env's solve, the block's whole work. Cone supplies: load(s, a, E, e)
-// (its own inputs, issued before load_common's wait), slot_live(s, k),
-// row_live(s, row), assemble(s, a, E, e) (J of the live slots' rows and
+// One env's solve, the block's whole work. Cone supplies: kImplicitRows;
+// load(s, a, E, e) (its own inputs: with kImplicitRows issued before
+// load_common's wait; without, every input: the live rows with their J,
+// D and aref, M, a_smooth and the warmstart, ending with a barrier), slot_live(s, k), row_live(s, row) and
+// assemble(s, a, E, e) (with kImplicitRows: J of the live slots' rows and
 // their D and aref, ending with a barrier), cost_lane and slope_lane (this
 // lane's share over its items), forces(s) (kFd of the live rows at the
-// current residuals, no barrier) and hessian(s, h) (the rows' terms into
-// the thread's tile).
+// current residuals, no barrier), hessian(s, h) (the rows' terms into the
+// thread's tile); without kImplicitRows also layout(s, sm, a) (the shared
+// memory) and store(s, a, E, e) (the outputs but x and the iterations).
 template <class Cone>
 __device__ __forceinline__ void solve_env(float* sm, const SolveArgs& a, Cone& cone) {
+  constexpr bool kImp = Cone::kImplicitRows;
   const int E = a.E, e = blockIdx.x;
   Blk s;
-  blk_init(s, sm, a);
+  if constexpr (kImp) blk_init(s, sm, a);
+  else cone.layout(s, sm, a);
   PHASE_BEGIN();
   const int nv = s.nv, tid = s.tid;
   const bool w0 = tid < 32;
 
   // ---------- the env's inputs, the live rows, phase A ----------
   cone.load(s, a, E, e);
-  load_common(s, a, E, e);
-  live_rows(s, cone);
-  cone.assemble(s, a, E, e);
+  if constexpr (kImp) {
+    load_common(s, a, E, e);
+    live_rows(s, cone);
+    cone.assemble(s, a, E, e);
+  }
   PHASE_MARK(kPhLoad);
 
   // ---------- unconstrained acceleration: M a_smooth = qfrc_smooth ----------
-  {
+  if constexpr (kImp) {
     Tile h;
     tile_load(s, h, s.M);
     block_solve(s, h, s.dv(kT1), s.dv(kAsm), 1.f);
@@ -630,12 +701,12 @@ __device__ __forceinline__ void solve_env(float* sm, const SolveArgs& a, Cone& c
   // ---------- initial point: the cheaper of warmstart (kXm) and a_smooth ----------
   float* ws = s.dv(kXm);
   float* asm_ = s.dv(kAsm);
-  jar_at(s, ws);
+  jar_at<Cone>(s, ws);
   __syncthreads();
   float c_ws = 0.f;
   if (w0) c_ws = smooth_cost_w(s, ws, 0.f, nullptr) + cost_rows(s, cone, 0.f, false);
   __syncthreads();
-  jar_at(s, asm_);
+  jar_at<Cone>(s, asm_);
   __syncthreads();
   if (w0) {
     const float c_sm = smooth_cost_w(s, asm_, 0.f, nullptr) + cost_rows(s, cone, 0.f, false);
@@ -648,7 +719,7 @@ __device__ __forceinline__ void solve_env(float* sm, const SolveArgs& a, Cone& c
   const bool take_ws = s.bc[kTakeWs] != 0.f;
   float cost_x = s.bc[kStep];
   for (int i = tid; i < nv; i += kThreads) s.dv(kX)[i] = take_ws ? ws[i] : asm_[i];
-  if (take_ws) jar_at(s, ws);
+  if (take_ws) jar_at<Cone>(s, ws);
   __syncthreads();
   PHASE_MARK(kPhInit);
 
@@ -663,7 +734,8 @@ __device__ __forceinline__ void solve_env(float* sm, const SolveArgs& a, Cone& c
     for (int i = tid; i < nv; i += kThreads) {
       const float t1 = mv_row(s, s.dv(kXm), i);
       s.dv(kT1)[i] = t1;
-      s.dv(kGrad)[i] = t1 - fr_lim_force(s, i, jt_force(s, i));
+      if constexpr (kImp) s.dv(kGrad)[i] = t1 - fr_lim_force(s, i, jt_force(s, i));
+      else s.dv(kGrad)[i] = t1 - jt_force(s, i);
     }
     PHASE_MARK(kPhGrad);
 
@@ -672,7 +744,7 @@ __device__ __forceinline__ void solve_env(float* sm, const SolveArgs& a, Cone& c
     Tile h;
     tile_init(s, h);
     cone.hessian(s, h);
-    tile_hessian(s, h);
+    tile_hessian<Cone>(s, h);
     PHASE_MARK(kPhHess);
 
     // the Newton direction dx = -H^-1 grad
@@ -718,7 +790,7 @@ __device__ __forceinline__ void solve_env(float* sm, const SolveArgs& a, Cone& c
     if (s.bc[kOk] != 0.f) {
       for (int i = tid; i < nv; i += kThreads) {
         s.dv(kX)[i] = s.dv(kX)[i] + step * dx[i];
-        s.dv(kJarFr)[i] = s.dv(kJarFr)[i] + step * dx[i];
+        if constexpr (kImp) s.dv(kJarFr)[i] = s.dv(kJarFr)[i] + step * dx[i];
       }
       for (int l = tid; l < s.nlim; l += kThreads)
         s.lv(kJarLim)[l] = s.lv(kJarLim)[l] + step * s.lv(kVlim)[l];
@@ -737,29 +809,11 @@ __device__ __forceinline__ void solve_env(float* sm, const SolveArgs& a, Cone& c
   // ---------- outputs ----------
   cone.forces(s);
   __syncthreads();
-  for (int i = tid; i < nv; i += kThreads) {
-    IN(a.x, i) = s.dv(kX)[i];
-    IN(a.asm_, i) = asm_[i];
-    IN(a.fnc, s.neq + i) = fr_force(s, i);
-    IN(a.qfrc, i) = fr_lim_force(s, i, jt_force(s, i));
-    if (a.do_int) s.dv(kT1)[i] = mv_row(s, s.dv(kX), i);
-  }
-  for (int l = tid; l < s.nlim; l += kThreads) IN(a.fnc, s.neq + nv + l) = lim_force(s, l);
-  for (int q = tid; q < s.neq; q += kThreads)
-    IN(a.fnc, q) = -s.rv(kDd)[s.RK + q] * s.rv(kJarD)[s.RK + q];
-  for (int r = tid; r < s.RK; r += kThreads) IN(a.fcon, r) = s.rv(kFd)[r];
-  // qacc_int: with do_int, Mh^-1 (M qacc) (the implicit velocity update),
-  // else qacc
-  if (a.do_int) {
-    for (int r = tid; r < nv * nv; r += kThreads) cp_async4(s.L + r, &IN(a.Mh, r));
-    cp_async_wait();
-    __syncthreads();
-    Tile h;
-    tile_load(s, h, s.L);
-    block_solve(s, h, s.dv(kT1), s.dv(kT2), 1.f);
-    for (int i = tid; i < nv; i += kThreads) IN(a.qint, i) = s.dv(kT2)[i];
+  if constexpr (kImp) {
+    step_outputs<Cone>(s, a, E, e);
   } else {
-    for (int i = tid; i < nv; i += kThreads) IN(a.qint, i) = s.dv(kX)[i];
+    for (int i = tid; i < nv; i += kThreads) IN(a.x, i) = s.dv(kX)[i];
+    cone.store(s, a, E, e);
   }
   PHASE_MARK(kPhOut);
 }
@@ -769,6 +823,7 @@ __device__ __forceinline__ void solve_env(float* sm, const SolveArgs& a, Cone& c
 extern "C" const char* mjt_error_string(int code) {
   if (code == kShapeMismatch)
     return "the launch shape does not match the kernel's (phys/solver_kernels.py "
-           "newton_launch_shape against csrc/newton_block.cuh env_floats)";
+           "newton_launch_shape or phys/solver_dense_kernels.py dense_launch_shape "
+           "against the layout of csrc/newton_block.cuh)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

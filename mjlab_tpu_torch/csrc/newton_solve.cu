@@ -18,7 +18,8 @@
 // design does (newton_block.cuh): 128 threads per env; the Hessian and the
 // Cholesky are register tiles (each thread holds a 3x3 tile of the lower
 // triangle, fed by one pass over the active rows, factored right-looking
-// with one barrier per column and the forward solve carried along); the
+// by panels of three columns, two barriers per panel, with the forward
+// solve carried along); the
 // 12 doubling probes are one batched pass; the env's inputs arrive in one
 // burst of cp.async copies; warp 0 runs the scalar decisions (costs, the
 // line search) with the one-warp kernel's sums. Shared memory holds the
@@ -44,6 +45,8 @@ namespace {
 constexpr int kMinBlocks = 6;  // envs per SM the registers are budgeted for
 
 struct PyrCone {
+  static constexpr bool kImplicitRows = true;  // dof friction and limits
+
   __device__ __forceinline__ void load(Blk&, const SolveArgs&, int, int) const {}
 
   __device__ __forceinline__ bool slot_live(const Blk& s, int k) const {

@@ -1,5 +1,5 @@
 // newton_solve_dense: Newton constraint solve over a dense, materialised
-// constraint Jacobian, one warp per env.
+// constraint Jacobian, one env per block of 128 threads.
 //
 // Replaces the TPU kernel newton_solve_pallas / newton_solve_pallas_envlast
 // (mjlab_tpu/phys/solver_pallas.py: kernel _make_kernel at :40, launcher
@@ -7,63 +7,59 @@
 // Simulation.forward(). Unlike newton_solve.cu, which rebuilds the contact
 // rows from per-slot tensors and keeps the friction and limit rows
 // implicit, every row here is dense: Jt (nv, nefc, E) arrives whole, with a
-// class per row (equality, dof friction, one-sided).
+// class per row (equality, dof friction, one-sided). Everything but the
+// rows is newton_block.cuh's solve_env, shared with kernels 4 and 5; this
+// file is the dense rows' policy (DenseRows): their loads, forces, costs,
+// slopes and Hessian terms. The implicit dof-friction and limit blocks of
+// solve_env are empty here: in the dense contract those rows are dense.
 //
-// What bounds it on an H100: operations and the latency between them, as
-// for newton_solve.cu. Each Newton iteration builds the Hessian M + J^T
-// diag(D q) J (nv^2/2 multiply-adds per active row), factors it (nv^3/6),
-// and runs 12 + ls_iterations line-search probes over the live rows. The
-// bytes (Jt, 28.6 KB per env at the G1's shapes, read once) come second.
-//
-// Design: one warp per env, one env per block. The live rows of the env's
-// J ([row][dof]), the mass matrix, the Hessian / Cholesky factor and the
-// row and dof vectors live in shared memory (46.3 KB per env at nv 35,
-// nefc 204: four envs per SM). The one-warp routines are in
-// newton_common.cuh: the equilibrated Cholesky with its 1e-6 ridge, the
-// triangular solves, the mass-matrix products, the line search, the warp
-// butterfly sums (every sum that feeds a branch leaves every lane the same
-// bits, so the warp branches together).
+// What bounds it on an H100: the latency of one env's dependent steps and
+// the instructions they issue. Each Newton iteration builds the Hessian
+// M + J^T diag(D q) J (nv^2/2 multiply-adds per row in the quadratic
+// zone), factors it (nv^3/6) and runs 12 + ls_iterations line-search
+// probes over the live rows; the bytes (Jt's live rows, ~20 KB per env on
+// the G1, read once) and the operations are far below the card's rates.
+// What the design does (newton_block.cuh): 128 threads per env, the
+// Hessian and the Cholesky on register tiles, the 12 doubling probes in
+// one batched pass, the inputs in bursts of cp.async copies, warp 0 for
+// the scalar decisions with the one-warp kernel's sums. Shared memory
+// holds only the live rows (D != 0, a class): the layout is sized by ncap,
+// the batch's largest live count, which the wrapper reads from the device
+// (one read from device to host per call); an env's rows beyond ncap
+// cannot occur, and would turn its qacc to NaN rather than drop a row.
 //
 // Load pattern: in the env-last Jt one env's entries lie E floats apart,
-// so each 4-byte load of a warp that loads one env touches a 32-byte sector
-// of its own (8x the bytes it uses); the neighbouring envs' blocks read the
-// other 7 floats of each sector at about the same time, which L2 may
-// serve. Only live rows are loaded: a row with D = 0 (an inactive limit or
-// contact row) adds exactly nothing to the cost, the forces or the
-// Hessian, so it is skipped everywhere and its force written as 0. Rows
-// with D q = 0 are skipped in the Hessian.
+// so each 4-byte load touches a 32-byte sector of its own; the
+// neighbouring envs' blocks read the other 7 floats of each sector at
+// about the same time, which L2 (and L1, for blocks on one SM) serves.
 //
 // The TPU kernel's arithmetic is kept: the initial point is the cheaper of
-// warmstart and a_smooth, a step is accepted only when the cost drops, and
-// an env is done when gnorm2 < (tolerance nv)^2 or a step is rejected. The
-// TPU's 128-env tile iterates until all its envs are done, with step 0 for
-// a done env (which is then rejected); here the warp leaves its loop when
-// its env is done, which leaves the same x.
-#include "newton_common.cuh"
+// warmstart and a_smooth, the Hessian is exact, the factor is the
+// Jacobi-equilibrated Cholesky with a 1e-6 ridge, the line search is 12
+// doubling probes then safeguarded Newton/bisection steps, a step is
+// accepted only when the cost drops, and an env is done when
+// gnorm2 < (tolerance nv)^2 or a step is rejected. The TPU's 128-env tile
+// iterates until all its envs are done, with step 0 for a done env (which
+// is then rejected); here the block leaves its loop when its env is done,
+// which leaves the same x.
+#include "newton_block.cuh"
 
 namespace {
 
+constexpr int kMinBlocks = 6;  // envs per SM the registers are budgeted for
+
 enum RowClass { kEquality = 0, kFriction = 1, kOneSided = 2 };
 
-struct DenseArgs {
-  const float *Jt, *D, *aref, *fl, *M, *asm_, *ws;
-  const int* cls;
-  float *x, *force;
-  int* iters;
-  int nv, nefc, iterations, ls_iterations, E;
-  float tolerance;
-};
-
-// floats of shared memory one env takes (the int lists count as floats)
-__host__ __device__ inline int dense_smem_floats(int nv, int nefc) {
-  return nefc * nv + 2 * nv * nv + 8 * nefc + 10 * nv;
+// floats of shared memory one env takes (int lists count as floats): J of
+// ncap live rows (the region first holds every row's D and class), M, the
+// factor L, the row vectors with the live list, the dof vectors up to kYb,
+// warp 0's results and counts, each live row's frictionloss and class, and
+// the list of live rows of Jt (nefc)
+__host__ __device__ inline int dense_env_floats(int nv, int nefc, int ncap) {
+  const int nJ = ncap * nv > 2 * nefc ? ncap * nv : 2 * nefc;
+  return nJ + 2 * nv * nv + (kNumRowVecs + 1) * ncap + (kYb + 1) * nv + kNumBcast + 4 +
+         2 * ncap + nefc;
 }
-
-struct Env : EnvBase {
-  float* fl;
-  int *cls, *act;
-  int nact;
-};
 
 // the row's force at residual j (solver_pallas.py row_forces)
 __device__ __forceinline__ float row_force(int c, float D, float fl, float j) {
@@ -93,212 +89,181 @@ __device__ __forceinline__ float row_cost(int c, float D, float fl, float j) {
   return 0.f;
 }
 
-// residuals J y - aref of the live rows
-__device__ void jar_into(const Env& s, const float* y) {
-  for (int n = s.lane; n < s.nlive; n += 32) {
-    const int row = s.live[n];
-    s.jar_d[row] = row_dot(s, row, y) - s.arefd[row];
-  }
-  __syncwarp();
-}
+// The dense rows. Live row n (n < s.nrows, in the order of Jt) is row
+// src[n] of Jt; its J, D, aref, residual, direction and force sit at index
+// n (s.live is the identity).
+struct DenseRows {
+  static constexpr bool kImplicitRows = false;
+  float* fl;  // (ncap) each live row's frictionloss
+  int* cls;   // (ncap) its class
+  int* src;   // (nefc) its row of Jt
 
-// cost of the live rows at jar + t * v (vd == nullptr: at jar)
-__device__ float cost_rows(const Env& s, float t, const float* vd) {
-  float c = 0.f;
-  for (int n = s.lane; n < s.nlive; n += 32) {
-    const int row = s.live[n];
-    const float j = s.jar_d[row] + (vd ? t * vd[row] : 0.f);
-    c = c + row_cost(s.cls[row], s.Dd[row], s.fl[row], j);
+  __device__ __forceinline__ void layout(Blk& s, float* sm, const SolveArgs& a) {
+    s.tid = threadIdx.x;
+    s.lane = threadIdx.x & 31;
+    s.nv = a.nv;
+    s.K = s.R = s.RK = s.neq = s.nlim = 0;
+    s.ND = a.ncap;
+    const int nv = a.nv;
+    float* p = sm;
+    auto take = [&](int n) { float* q = p; p += n; return q; };
+    s.J = take(s.ND * nv > 2 * a.nefc ? s.ND * nv : 2 * a.nefc);
+    s.M = take(nv * nv);
+    s.L = take(nv * nv);
+    s.row = take(kNumRowVecs * s.ND);
+    s.live = reinterpret_cast<int*>(take(s.ND));
+    s.dof = take((kYb + 1) * nv);
+    s.bc = take(kNumBcast);
+    s.cnt = reinterpret_cast<int*>(take(4));
+    fl = take(s.ND);
+    cls = reinterpret_cast<int*>(take(s.ND));
+    src = reinterpret_cast<int*>(take(a.nefc));
+    s.doflim = s.limdof = s.con = nullptr;
+    s.lim = nullptr;
+    s.tail = p;
   }
-  return warp_sum(c);
-}
 
-// out = J^T f at the current residuals, summed over the live rows in order
-__device__ void jt_forces(const Env& s, float* out) {
-  for (int i = s.lane; i < s.nv; i += 32) {
-    float acc = 0.f;
-    for (int n = 0; n < s.nlive; ++n) {
-      const int row = s.live[n];
-      const float f = row_force(s.cls[row], s.Dd[row], s.fl[row], s.jar_d[row]);
-      acc = acc + s.J[row * s.nv + i] * f;
+  // every input: each row's D and class, M (row-major, symmetric) into the
+  // column-major s.M, a_smooth and the warmstart (kXm); then, by warp 0's
+  // ballots, the live rows (D != 0 and a class) in order, and their J, D,
+  // aref, frictionloss and class. Ends with a barrier.
+  __device__ __forceinline__ void load(Blk& s, const SolveArgs& a, int E, int e) {
+    const int nv = s.nv, tid = s.tid, nefc = a.nefc;
+    float* allD = s.J;
+    int* allC = reinterpret_cast<int*>(s.J + nefc);
+    for (int r = tid; r < nefc; r += kThreads) {
+      cp_async4(allD + r, &IN(a.Dr, r));
+      cp_async4(allC + r, a.cls + r);
     }
-    out[i] = acc;
+    for (int r = tid; r < nv * nv; r += kThreads) {
+      const int i = r / nv, j = r - i * nv;
+      cp_async4(s.M + j * nv + i, &IN(a.Mc, r));
+    }
+    for (int i = tid; i < nv; i += kThreads) {
+      cp_async4(s.dv(kAsm) + i, &IN(a.asm_in, i));
+      cp_async4(s.dv(kXm) + i, &IN(a.ws, i));
+    }
+    cp_async_wait();
+    __syncthreads();
+    if (tid < 32) {
+      const int n = warp_compact(s, nefc, src, [&](int r) {
+        return allD[r] != 0.f && allC[r] <= kOneSided;
+      });
+      if (s.lane == 0) s.cnt[0] = n;
+    }
+    __syncthreads();
+    s.nrows = min(s.cnt[0], s.ND);
+    for (int n = tid; n < s.nrows; n += kThreads) {
+      const int r = src[n];
+      s.rv(kDd)[n] = allD[r];
+      cls[n] = allC[r];
+      s.live[n] = n;
+    }
+    __syncthreads();  // every row's D and class read before J overwrites them
+    for (int t = tid; t < s.nrows * nv; t += kThreads) {
+      const int n = t / nv, i = t - n * nv;
+      cp_async4(s.J + t, &IN(a.Jt, i * nefc + src[n]));
+    }
+    for (int n = tid; n < s.nrows; n += kThreads) {
+      cp_async4(s.rv(kArefD) + n, &IN(a.arefr, src[n]));
+      cp_async4(fl + n, &IN(a.flr, src[n]));
+    }
+    cp_async_wait();
+    __syncthreads();
   }
-  __syncwarp();
-}
 
-__global__ void newton_solve_dense_kernel(DenseArgs a) {
-  const int E = a.E;
-  const int e = blockIdx.x;
-  const int nv = a.nv, nefc = a.nefc;
+  // this lane's share of the live rows' cost at jar + t v (with_v) or at jar
+  __device__ __forceinline__ float cost_lane(const Blk& s, float t, bool with_v) const {
+    float c = 0.f;
+    for (int n = s.lane; n < s.nrows; n += 32) {
+      const float j = s.rv(kJarD)[n] + (with_v ? t * s.rv(kVd)[n] : 0.f);
+      c = c + row_cost(cls[n], s.rv(kDd)[n], fl[n], j);
+    }
+    return c;
+  }
+
+  // this lane's share of their slope and curvature at step al
+  __device__ __forceinline__ void slope_lane(const Blk& s, float al, bool need_h, float& sl,
+                                             float& hl) const {
+    for (int n = s.lane; n < s.nrows; n += 32) {
+      const int c = cls[n];
+      const float v = s.rv(kVd)[n], D = s.rv(kDd)[n], f = fl[n];
+      const float j = s.rv(kJarD)[n] + al * v;
+      sl = sl + v * row_force(c, D, f, j);
+      if (need_h && row_quad(c, D, f, j)) hl = hl + D * v * v;
+    }
+  }
+
+  __device__ __forceinline__ void forces(const Blk& s) const {
+    for (int n = s.tid; n < s.nrows; n += kThreads)
+      s.rv(kFd)[n] = row_force(cls[n], s.rv(kDd)[n], fl[n], s.rv(kJarD)[n]);
+  }
+
+  // J^T diag(D q) J over the rows in the quadratic zone into the tile, in
+  // one pass over the rows
+  __device__ __forceinline__ void hessian(Blk& s, Tile& h) const {
+    for (int n = 0; n < s.nrows; ++n) {
+      const float D = s.rv(kDd)[n];
+      if (h.on && row_quad(cls[n], D, fl[n], s.rv(kJarD)[n])) {
+        const float* Jr = s.J + n * s.nv;
+        tile_add(s, h, Jr, Jr, D);
+      }
+    }
+  }
+
+  // every row's force: 0, then the live rows' (kFd, visible to the block)
+  __device__ __forceinline__ void store(Blk& s, const SolveArgs& a, int E, int e) const {
+    for (int r = s.tid; r < a.nefc; r += kThreads) IN(a.fr, r) = 0.f;
+    __syncthreads();
+    for (int n = s.tid; n < s.nrows; n += kThreads) IN(a.fr, src[n]) = s.rv(kFd)[n];
+    if (s.cnt[0] > s.ND)
+      for (int i = s.tid; i < s.nv; i += kThreads) IN(a.x, i) = __int_as_float(0x7fc00000);
+  }
+};
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks) newton_solve_dense_kernel(SolveArgs a) {
   extern __shared__ float sm[];
-
-  Env s = {};
-  s.lane = threadIdx.x;
-  s.nv = nv;
-  float* p = sm;
-  auto take = [&](int n) { float* q = p; p += n; return q; };
-  s.J = take(nefc * nv);
-  s.M = take(nv * nv);
-  s.L = take(nv * nv);
-  s.Dd = take(nefc);
-  s.arefd = take(nefc);
-  s.fl = take(nefc);
-  s.jar_d = take(nefc);
-  s.v_d = take(nefc);
-  s.cls = reinterpret_cast<int*>(take(nefc));
-  s.live = reinterpret_cast<int*>(take(nefc));
-  s.act = reinterpret_cast<int*>(take(nefc));
-  s.scale = take(nv); s.grad = take(nv); s.dx = take(nv); s.t1 = take(nv);
-  s.t2 = take(nv); s.xm = take(nv); s.x = take(nv); s.work = take(nv);
-  s.xt = take(nv); s.asm_ = take(nv);
-  const int lane = s.lane;
-
-  // ---------- the env's rows, mass matrix and vectors ----------
-  for (int r = lane; r < nefc; r += 32) {
-    s.Dd[r] = IN(a.D, r);
-    s.arefd[r] = IN(a.aref, r);
-    s.fl[r] = IN(a.fl, r);
-    s.cls[r] = a.cls[r];
-  }
-  __syncwarp();
-  s.nlive = compact(s, nefc, nullptr, s.live, [&](int row) {
-    return s.Dd[row] != 0.f && s.cls[row] <= kOneSided;
-  });
-  for (int n = 0; n < s.nlive; ++n) {
-    const int row = s.live[n];
-    for (int i = lane; i < nv; i += 32) s.J[row * nv + i] = IN(a.Jt, i * nefc + row);
-  }
-  // M (nv, nv, E) row-major into the column-major s.M
-  for (int r = lane; r < nv * nv; r += 32) {
-    const int i = r / nv, j = r - i * nv;
-    s.M[j * nv + i] = IN(a.M, r);
-  }
-  for (int i = lane; i < nv; i += 32) {
-    s.asm_[i] = IN(a.asm_, i);
-    s.xt[i] = IN(a.ws, i);
-  }
-  __syncwarp();
-
-  // ---------- initial point: the cheaper of warmstart and a_smooth ----------
-  jar_into(s, s.xt);
-  const float c_ws = smooth_cost(s, s.xt, 0.f, nullptr) + cost_rows(s, 0.f, nullptr);
-  jar_into(s, s.asm_);
-  const float c_sm = smooth_cost(s, s.asm_, 0.f, nullptr) + cost_rows(s, 0.f, nullptr);
-  const bool take_ws = c_ws < c_sm;
-  for (int i = lane; i < nv; i += 32) s.x[i] = take_ws ? s.xt[i] : s.asm_[i];
-  __syncwarp();
-  if (take_ws) jar_into(s, s.x);
-  float cost_x = take_ws ? c_ws : c_sm;
-
-  const float tol2 = (a.tolerance * nv) * (a.tolerance * nv);
-  int it = 0;
-  bool done = false;
-  for (; it < a.iterations && !done; ++it) {
-    // gradient: M (x - a_smooth) - J^T f
-    for (int i = lane; i < nv; i += 32) s.xm[i] = s.x[i] - s.asm_[i];
-    __syncwarp();
-    mat_vec(s, s.M, s.xm, s.t1);
-    jt_forces(s, s.work);
-    float gp = 0.f;
-    for (int i = lane; i < nv; i += 32) {
-      const float g = s.t1[i] - s.work[i];
-      s.grad[i] = g;
-      gp = gp + g * g;
-    }
-    const float gnorm2 = warp_sum(gp);
-
-    // Hessian H = M + J^T diag(D q) J (lower triangle, column-major)
-    s.nact = compact(s, s.nlive, s.live, s.act, [&](int row) {
-      return row_quad(s.cls[row], s.Dd[row], s.fl[row], s.jar_d[row]);
-    });
-    for (int j = 0; j < nv; ++j)
-      for (int i = j + lane; i < nv; i += 32) {
-        float acc = 0.f;
-        for (int n = 0; n < s.nact; ++n) {
-          const float* Jr = s.J + s.act[n] * nv;
-          acc = acc + (Jr[j] * s.Dd[s.act[n]]) * Jr[i];
-        }
-        s.L[j * nv + i] = acc + s.M[j * nv + i];
-      }
-    __syncwarp();
-    newton_direction(s);
-
-    // search direction in row space
-    for (int n = lane; n < s.nlive; n += 32) s.v_d[s.live[n]] = row_dot(s, s.live[n], s.dx);
-    __syncwarp();
-    float q1, q2;
-    smooth_quadratic(s, q1, q2);
-
-    // slope (and curvature) of the cost along dx at step al
-    auto dphi = [&](float al, bool need_h, float* d2out) {
-      float sl = 0.f, hl = 0.f;
-      for (int n = lane; n < s.nlive; n += 32) {
-        const int row = s.live[n];
-        const int c = s.cls[row];
-        const float v = s.v_d[row], D = s.Dd[row], fl = s.fl[row];
-        const float j = s.jar_d[row] + al * v;
-        sl = sl + v * row_force(c, D, fl, j);
-        if (need_h && row_quad(c, D, fl, j)) hl = hl + D * v * v;
-      }
-      const float ssum = warp_sum(sl);
-      if (need_h) *d2out = q2 + warp_sum(hl);
-      return q1 + al * q2 - ssum;
-    };
-    const float step = line_search(dphi, a.ls_iterations);
-
-    // accept when the cost drops (ok), else stop
-    const float cost_new = smooth_cost(s, s.x, step, s.dx) + cost_rows(s, step, s.v_d);
-    const bool ok = isfinite(cost_new) && cost_new < cost_x;
-    if (ok) {
-      for (int i = lane; i < nv; i += 32) s.x[i] = s.x[i] + step * s.dx[i];
-      for (int n = lane; n < s.nlive; n += 32) {
-        const int row = s.live[n];
-        s.jar_d[row] = s.jar_d[row] + step * s.v_d[row];
-      }
-      __syncwarp();
-      cost_x = cost_new;
-    }
-    done = gnorm2 < tol2 || !ok;
-  }
-  if (lane == 0) IN(a.iters, 0) = it;
-
-  // ---------- outputs: qacc and every row's force ----------
-  for (int i = lane; i < nv; i += 32) IN(a.x, i) = s.x[i];
-  for (int r = lane; r < nefc; r += 32) IN(a.force, r) = 0.f;
-  __syncwarp();
-  for (int n = lane; n < s.nlive; n += 32) {
-    const int row = s.live[n];
-    IN(a.force, row) = row_force(s.cls[row], s.Dd[row], s.fl[row], s.jar_d[row]);
-  }
+  DenseRows rows;
+  solve_env(sm, a, rows);
 }
 
 }  // namespace
 
-extern "C" const char* mjt_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-extern "C" int newton_solve_dense_smem_bytes(int nv, int nefc) {
-  return static_cast<int>(sizeof(float)) * dense_smem_floats(nv, nefc);
-}
-
+// launch shape: kThreads threads and one env per block, smem_bytes of
+// shared memory per env for at most ncap live rows
+// (phys/solver_dense_kernels.py dense_launch_shape); a shape that is not
+// this kernel's returns kShapeMismatch, nothing launched
 extern "C" int newton_solve_dense_launch(
-    const float* Jt, const float* D, const float* aref, const float* fl,
-    const float* M, const float* asm_, const float* ws, const int* cls, float* x,
-    float* force, int* iters, int nv, int nefc, int iterations, int ls_iterations,
-    float tolerance, int E, cudaStream_t stream) {
-  DenseArgs a;
-  a.Jt = Jt; a.D = D; a.aref = aref; a.fl = fl; a.M = M; a.asm_ = asm_; a.ws = ws;
-  a.cls = cls; a.x = x; a.force = force; a.iters = iters;
-  a.nv = nv; a.nefc = nefc; a.iterations = iterations;
-  a.ls_iterations = ls_iterations; a.E = E; a.tolerance = tolerance;
-  const size_t smem = sizeof(float) * (size_t)dense_smem_floats(nv, nefc);
+    const float* Jt, const float* D, const float* aref, const float* fl, const float* M,
+    const float* asm_, const float* ws, const int* cls, float* x, float* force, int* iters,
+    int nv, int nefc, int ncap, int iterations, int ls_iterations, float tolerance, int E,
+    int threads, int envs_per_block, int smem_bytes, cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(float)) * dense_env_floats(nv, nefc, ncap);
+  if (threads != kThreads || envs_per_block != 1 || smem_bytes != smem || nv > kMaxNv ||
+      ncap > nefc)
+    return kShapeMismatch;
+  SolveArgs a = {};
+  a.Jt = Jt; a.Dr = D; a.arefr = aref; a.flr = fl; a.Mc = M; a.asm_in = asm_; a.ws = ws;
+  a.cls = cls; a.x = x; a.fr = force; a.iters = iters;
+  a.nv = nv; a.nefc = nefc; a.ncap = ncap; a.iterations = iterations;
+  a.ls_iterations = ls_iterations; a.tolerance = tolerance; a.E = E;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        newton_solve_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        newton_solve_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  newton_solve_dense_kernel<<<E, 32, smem, stream>>>(a);
+  if (E <= 0) return 0;
+  newton_solve_dense_kernel<<<E, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// envs (blocks) of the kernel one SM holds at smem_bytes per env
+extern "C" int newton_solve_dense_blocks_per_sm(int smem_bytes) {
+  int n = 0;
+  if (smem_bytes > 48 * 1024)
+    cudaFuncSetAttribute(newton_solve_dense_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, newton_solve_dense_kernel, kThreads, smem_bytes);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }

@@ -23,7 +23,11 @@
 // adds sum_r J_k[r, i] G_k[r, j] to the tile it holds in registers, one
 // barrier per contact, with no per-slot block array. 30.5 KB of shared
 // memory per env for the YAM lift-cube model, five envs (640 threads) per
-// SM at <= 96 registers.
+// SM at <= 96 registers. At that cap the shared panel Cholesky
+// (newton_block.cuh block_chol) spills a few bytes in some templates (R 6,
+// the YAM's: 4 bytes; R 4: 12). On the card that measured faster than a
+// column-by-column factor without spills (one barrier per column) and
+// than four envs per SM at 128 registers (PERF.md).
 //
 // The cone (lm/solver.py _ell_*): a contact's rows are the frame
 // components [n, t1, t2, torsion, roll1, roll2][:R]; its cost is the
@@ -48,6 +52,7 @@ struct Cone {
 
 template <int R>
 struct EllCone {
+  static constexpr bool kImplicitRows = true;  // dof friction and limits
   float* mut;  // (K) whitened cone coefficient
   int* hflag;  // (K) the contact has a cone block (bottom or middle zone)
   float* G;    // two (R, nv) buffers of B_k J_k

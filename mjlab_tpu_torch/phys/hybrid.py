@@ -9,7 +9,7 @@ lean step:
     kin_com (kernel)            qpos, mocap -> geom frames, com, cdof, cinert
     collision_lm, constraint    narrowphase + top-K + row data (eager torch)
     vel_smooth (kernel)         qfrc_smooth, actuator force, Mh diagonal
-    crb_packed (kernel)         mass matrix pairs -> dense (nv*nv, E)
+    crb_dense (kernel)          dense mass matrix (nv*nv, E), + Mh diagonal
     newton_assemble_solve       contact rows + Newton solve + implicit update
     integrate_envlast           positions/velocities, divergence reset
 
@@ -47,8 +47,8 @@ from mjlab_tpu_torch.phys.model import (
     device_array, limit_rows_static,
 )
 from mjlab_tpu_torch.phys.smooth_kernels import (
-    collision_geoms, crb_packed, implicit_flags, integrate_envlast, kin_com,
-    qm_dense_cm, vel_smooth,
+    collision_geoms, crb_dense, implicit_flags, integrate_envlast, kin_com,
+    vel_smooth,
 )
 from mjlab_tpu_torch.phys.solver_dense_kernels import newton_solve_dense
 from mjlab_tpu_torch.phys.solver_kernels import newton_assemble_solve
@@ -257,14 +257,7 @@ def forward_solve(m: Model, d: Data, iters: torch.Tensor | None = None,
         m, qT, vT, ctrlT, cdof, cinA, cinc, (subcom, xipos, xfrcT, qfaT)
     )
     mark("vel_smooth")
-    qM_cm = qm_dense_cm(m, crb_packed(m, cdof, cinA, cinc))
-    Mh_cm = None
-    if has_implicit(m):
-        diag_rows = device_array(
-            m, "diag_rows", lambda: np.arange(nv) * (nv + 1), torch.long
-        )
-        Mh_cm = qM_cm.clone()
-        Mh_cm[diag_rows] += mh_diag
+    qM_cm, Mh_cm = crb_dense(m, cdof, cinA, cinc, mh_diag if has_implicit(m) else None)
     mark("crb")
     sol = _solve_core(
         m, k, qM_cm, qfs, d.qacc_warmstart.T, vT, cdof.reshape(nv * 6, E),

@@ -2,20 +2,23 @@
 mass matrix, and the velocity stages.
 
 PyTorch counterpart of mjlab_tpu/phys/smooth_pallas.py. Each of the three
-kernels has a CUDA implementation, table-driven (csrc/kin_com.cu and
-csrc/vel_smooth.cu: many threads per env on the tree schedule of
-tree_schedule and csrc/smooth_tree.cuh; csrc/crb_packed.cu: one thread
-per env), and a plain PyTorch version built on phys/lm/stages.py, with the
-same inputs and outputs. The wrapper runs the plain version for tensors on
-the CPU and launches the kernel for CUDA tensors; ``<wrapper>.launches``
-counts kernel launches.
+kernels has a CUDA implementation, table-driven, many threads per env on
+the tree schedule of tree_schedule and csrc/smooth_tree.cuh
+(csrc/kin_com.cu, csrc/crb_packed.cu, csrc/vel_smooth.cu), and a plain
+PyTorch version built on phys/lm/stages.py, with the same inputs and
+outputs. The wrapper runs the plain version for tensors on the CPU and
+launches the kernel for CUDA tensors; ``<wrapper>.launches`` counts kernel
+launches.
 
     kin_com     qpos -> collision-geom frames, subtree com, cdof, cinert
-    crb_packed  cdof + cinert -> ancestor-pair mass-matrix values
+    crb_dense   cdof + cinert -> dense mass matrix qM and qM + the
+                implicit diagonal (the TPU kernel crb_packed, fused with
+                qm_dense_cm and the diagonal add)
     vel_smooth  qvel + ctrl -> qfrc_smooth, actuator force, Mh diagonal
 
-collision_geoms, _crb_pairs, qm_dense_cm and integrate_envlast are plain
-PyTorch here, as the JAX package computes them in XLA.
+crb_packed_plain keeps the TPU kernel's own contract (packed ancestor
+pairs); collision_geoms, _crb_pairs, qm_dense_cm and integrate_envlast are
+plain PyTorch here, as the JAX package computes them in XLA.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from mjlab_tpu_torch.phys.model import (
 SYM6 = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
 _JOINT_DOFS = {JNT_FREE: 6, JNT_BALL: 3}  # 1 for hinge and slide
 _MAX_BODY = 128  # MJT_MAX_BODY in csrc/smooth_common.cuh
+SMOOTH_ENVS = 16  # envs per block of the tree kernels (csrc/smooth_tree.cuh)
 
 
 def collision_geoms(m: Model) -> tuple[int, ...]:
@@ -387,7 +391,7 @@ kin_com.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# kernel 2: CRB mass matrix (packed ancestor pairs)
+# kernel 2: CRB mass matrix (dense, with the implicit diagonal)
 # ---------------------------------------------------------------------------
 
 
@@ -403,7 +407,10 @@ def _cinert_blocks(m: Model, P: Params, cinA, cinc):
 
 
 def crb_packed_plain(m: Model, cdof, cinA, cinc):
-    """Plain PyTorch crb_packed (stages.crb_lm), same output."""
+    """The TPU kernel crb_packed's contract in plain PyTorch
+    (stages.crb_lm): -> qM_pairs (npairs, E), the ancestor-pair values of
+    the CRB mass matrix in _crb_pairs(m) order, armature on the
+    diagonal."""
     E = cdof.shape[-1]
     P = Params(m, E)
     k = {
@@ -412,39 +419,6 @@ def crb_packed_plain(m: Model, cdof, cinA, cinc):
     }
     k = stages.crb_lm(m, P, k)
     return _stack([k["qM"][ij] for ij in _crb_pairs(m)], E, cdof)
-
-
-def crb_packed(m: Model, cdof, cinA, cinc):
-    """-> qM_pairs (npairs, E): ancestor-pair values of the CRB mass matrix
-    in _crb_pairs(m) order, armature on the diagonal."""
-    if cdof.device.type == "cpu":
-        return crb_packed_plain(m, cdof, cinA, cinc)
-    E = cdof.shape[-1]
-    nb, nv = m.nbody, m.nv
-    _check_cuda("cdof", cdof, (nv, 6, E))
-    _check_cuda("cinA", cinA, (nb, 6, E))
-    _check_cuda("cinc", cinc, (nb, 3, E))
-    t = device_tables(m)
-    out = _empty((t.npair, E), cdof)
-    compA = _empty((nb, 6, E), cdof)
-    comph = _empty((nb, 3, E), cdof)
-    compm = _empty((nb, E), cdof)
-    f = _empty((nv, 6, E), cdof)
-    launch = cuda_build.launcher(
-        "crb_packed", "crb_packed_launch", (_TABLES,) + (_P,) * 8 + (_I, _P)
-    )
-    rc = launch(
-        ctypes.byref(t.struct), cuda_build.ptr(cdof), cuda_build.ptr(cinA),
-        cuda_build.ptr(cinc), cuda_build.ptr(out), cuda_build.ptr(compA),
-        cuda_build.ptr(comph), cuda_build.ptr(compm), cuda_build.ptr(f),
-        ctypes.c_int(E), cuda_build.stream(),
-    )
-    cuda_build.check(cuda_build.library("crb_packed"), rc, "crb_packed")
-    crb_packed.launches += 1
-    return out
-
-
-crb_packed.launches = 0
 
 
 def qm_dense_cm(m: Model, qM_pairs: torch.Tensor) -> torch.Tensor:
@@ -467,6 +441,66 @@ def qm_dense_cm(m: Model, qM_pairs: torch.Tensor) -> torch.Tensor:
     dense = qM_pairs.new_zeros(nv * nv, E)
     dense[rows] = qM_pairs[vals_idx]
     return dense
+
+
+def _diag_rows(m: Model) -> torch.Tensor:
+    """Rows of the diagonal in an (nv*nv, E) dense matrix."""
+    return device_array(m, "diag_rows", lambda: np.arange(m.nv) * (m.nv + 1), torch.long)
+
+
+def crb_dense_plain(m: Model, cdof, cinA, cinc, mh_diag=None):
+    """Plain PyTorch crb_dense: the eager code the kernel fuses,
+    qm_dense_cm of crb_packed_plain and the implicit diagonal added to a
+    copy (mjlab_tpu/phys/hybrid.py:536-545)."""
+    qM_cm = qm_dense_cm(m, crb_packed_plain(m, cdof, cinA, cinc))
+    if mh_diag is None:
+        return qM_cm, None
+    Mh_cm = qM_cm.clone()
+    Mh_cm[_diag_rows(m)] += mh_diag
+    return qM_cm, Mh_cm
+
+
+def crb_smem_bytes(m: Model) -> int:
+    """Shared memory of one block of crb_dense's kernel (SMOOTH_ENVS envs):
+    10 floats per body, 12 per dof per env (csrc/crb_packed.cu
+    crb_smem_floats)."""
+    return 4 * (10 * m.nbody + 12 * m.nv) * SMOOTH_ENVS
+
+
+def crb_dense(m: Model, cdof, cinA, cinc, mh_diag=None):
+    """cdof (nv, 6, E), cinA (nbody, 6, E), cinc (nbody, 3, E) and, for an
+    implicit integrator, mh_diag (nv, E) -> (qM_cm (nv*nv, E), Mh_cm
+    (nv*nv, E) or None): the CRB mass matrix, dense and column-major
+    (symmetric, so row-major too), armature on the diagonal, and qM_cm plus
+    mh_diag on the diagonal when mh_diag is given. On the card one launch
+    of csrc/crb_packed.cu writes both."""
+    if cdof.device.type == "cpu":
+        return crb_dense_plain(m, cdof, cinA, cinc, mh_diag)
+    E = cdof.shape[-1]
+    nb, nv = m.nbody, m.nv
+    _check_cuda("cdof", cdof, (nv, 6, E))
+    _check_cuda("cinA", cinA, (nb, 6, E))
+    _check_cuda("cinc", cinc, (nb, 3, E))
+    if mh_diag is not None:
+        _check_cuda("mh_diag", mh_diag, (nv, E))
+    t = device_tables(m)
+    qM_cm = _empty((nv * nv, E), cdof)
+    Mh_cm = None if mh_diag is None else _empty((nv * nv, E), cdof)
+    launch = cuda_build.launcher(
+        "crb_packed", "crb_packed_launch", (_TABLES, _TREE) + (_P,) * 6 + (_I, _P)
+    )
+    opt = lambda x: None if x is None else cuda_build.ptr(x)  # noqa: E731
+    rc = launch(
+        ctypes.byref(t.struct), ctypes.byref(t.tree), cuda_build.ptr(cdof),
+        cuda_build.ptr(cinA), cuda_build.ptr(cinc), opt(mh_diag),
+        cuda_build.ptr(qM_cm), opt(Mh_cm), ctypes.c_int(E), cuda_build.stream(),
+    )
+    cuda_build.check(cuda_build.library("crb_packed"), rc, "crb_dense")
+    crb_dense.launches += 1
+    return qM_cm, Mh_cm
+
+
+crb_dense.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -3,10 +3,12 @@
 PyTorch counterpart of mjlab_tpu/phys/solver_pallas.py
 (``newton_solve_pallas_envlast``): the solve of Simulation.forward(), whose
 constraint rows (phys/lm/constraint.py with assemble_j) are written out
-whole. The CUDA kernel csrc/newton_solve_dense.cu (one warp per env) and
-the plain PyTorch version below share inputs, outputs and arithmetic; the
-wrapper runs the plain version for CPU tensors and launches the kernel for
-CUDA tensors, and ``newton_solve_dense.launches`` counts kernel launches.
+whole. The CUDA kernel csrc/newton_solve_dense.cu (one env per block of
+128 threads, on csrc/newton_block.cuh) and the plain PyTorch version below
+share inputs, outputs and arithmetic; the wrapper runs the plain version
+for CPU tensors and launches the kernel for CUDA tensors, in the shape
+dense_launch_shape gives, and ``newton_solve_dense.launches`` counts kernel
+launches.
 
 Every row is dense and carries a class: equality (two-sided quadratic),
 dof friction (quadratic inside |f| <= frictionloss, linear outside) or
@@ -29,7 +31,10 @@ import torch
 
 from mjlab_tpu_torch import cuda_build
 from mjlab_tpu_torch.phys.linalg import _EPS, _default_ridge
-from mjlab_tpu_torch.phys.solver_kernels import _SMEM_OPTIN, _chol_solve
+from mjlab_tpu_torch.phys.solver_kernels import (
+    _DOF_VECS_DENSE, _MAX_NV, _ROW_VECS, _SMALL_FLOATS, _SMEM_OPTIN, _THREADS_PER_ENV,
+    LaunchShape, _chol_solve,
+)
 
 # row classes (the kernel's encoding): equality, dof friction, one-sided,
 # and a row of no class, which takes no force
@@ -153,13 +158,37 @@ def _class_table(classes: tuple, device: str) -> torch.Tensor:
     return torch.as_tensor(classes, dtype=torch.int32, device=device)
 
 
-def dense_smem_bytes(nv: int, nefc: int) -> int:
-    """Shared memory one env (one block) of the kernel takes."""
-    f = cuda_build.launcher(
-        "newton_solve_dense", "newton_solve_dense_smem_bytes",
-        (ctypes.c_int,) * 2,
+_MIN_BLOCKS_PER_SM_DENSE = 6  # kMinBlocks of csrc/newton_solve_dense.cu
+
+
+def dense_launch_shape(nv: int, nefc: int, ncap: int) -> LaunchShape:
+    """The dense kernel's launch shape for at most ncap live rows per env:
+    one env per block of 128 threads, and the shared memory of its layout
+    (csrc/newton_solve_dense.cu dense_env_floats, which the launcher
+    checks this against: it refuses another shape). J holds ncap rows, and
+    first every row's D and class (2 nefc floats)."""
+    if nv > _MAX_NV:
+        raise ValueError(f"the solve kernels take at most {_MAX_NV} dofs, got {nv}")
+    floats = (
+        max(ncap * nv, 2 * nefc) + 2 * nv * nv + (_ROW_VECS + 1) * ncap
+        + _DOF_VECS_DENSE * nv + _SMALL_FLOATS + 2 * ncap + nefc
     )
-    return int(f(nv, nefc))
+    return LaunchShape(_THREADS_PER_ENV, 1, 4 * floats, _MIN_BLOCKS_PER_SM_DENSE)
+
+
+def dense_blocks_per_sm(smem_bytes: int) -> int:
+    """Envs (blocks) of the dense kernel one SM holds at smem_bytes per env:
+    the CUDA occupancy calculator, registers included."""
+    f = cuda_build.launcher("newton_solve_dense", "newton_solve_dense_blocks_per_sm",
+                            (ctypes.c_int,))
+    return int(f(smem_bytes))
+
+
+def live_rows(D, cls) -> torch.Tensor:
+    """(E,) count of each env's live rows, from D (nefc, E) and the rows'
+    class codes cls (nefc,): D != 0 and a class (the rows the kernel loads
+    and carries)."""
+    return ((D != 0) & (cls != ROW_NONE)[:, None]).sum(0)
 
 
 def newton_solve_dense(
@@ -176,8 +205,9 @@ def newton_solve_dense(
     int32 tensor that receives each env's Newton iteration count.
 
     Returns (qacc (nv, E), efc_force (nefc, E)). On the card it launches
-    csrc/newton_solve_dense.cu; ``newton_solve_dense.launches`` counts
-    those launches."""
+    csrc/newton_solve_dense.cu with shared memory for the batch's largest
+    live-row count, which costs one read from the device to the host per
+    call; ``newton_solve_dense.launches`` counts those launches."""
     kw = dict(nv=nv, nefc=nefc, os_mask=os_mask, fr_mask=fr_mask,
               eq_mask=eq_mask, iterations=iterations,
               ls_iterations=ls_iterations, tolerance=tolerance, iters=iters)
@@ -200,13 +230,15 @@ def newton_solve_dense(
                               or iters.device != Jt.device):
         raise ValueError(f"iters: expected an int32 ({E},) tensor on {Jt.device}")
     dev = Jt.device
-    smem = dense_smem_bytes(nv, nefc)
+    cls = _class_table(classes, str(dev))
+    ncap = int(live_rows(D, cls).max()) if E else 0
+    shape = dense_launch_shape(nv, nefc, ncap)
     limit = getattr(torch.cuda.get_device_properties(dev),
                     "shared_memory_per_block_optin", _SMEM_OPTIN)
-    if smem > limit:
+    if shape.smem_bytes_per_env > limit:
         raise ValueError(
-            f"one env of this model needs {smem} bytes of shared memory, "
-            f"more than a block can have ({limit})"
+            f"one env of this batch needs {shape.smem_bytes_per_env} bytes of shared "
+            f"memory ({ncap} live rows), more than a block can have ({limit})"
         )
     x = torch.empty((nv, E), dtype=torch.float32, device=dev)
     force = torch.empty((nefc, E), dtype=torch.float32, device=dev)
@@ -215,13 +247,14 @@ def newton_solve_dense(
     P = cuda_build.ptr
     launch = cuda_build.launcher(
         "newton_solve_dense", "newton_solve_dense_launch",
-        (vp,) * 11 + (ci,) * 4 + (ctypes.c_float, ci, vp),
+        (vp,) * 11 + (ci,) * 5 + (ctypes.c_float,) + (ci,) * 4 + (vp,),
     )
     rc = launch(
         P(Jt), P(D), P(aref), P(fl), P(M), P(a_smooth), P(x_ws),
-        P(_class_table(classes, str(dev))), P(x), P(force), P(it_out),
-        ci(nv), ci(nefc), ci(iterations), ci(ls_iterations),
-        ctypes.c_float(tolerance), ci(E), cuda_build.stream(),
+        P(cls), P(x), P(force), P(it_out),
+        ci(nv), ci(nefc), ci(ncap), ci(iterations), ci(ls_iterations),
+        ctypes.c_float(tolerance), ci(E), ci(shape.threads_per_env),
+        ci(shape.envs_per_block), ci(shape.smem_bytes_per_env), cuda_build.stream(),
     )
     cuda_build.check(cuda_build.library("newton_solve_dense"), rc, "newton_solve_dense")
     newton_solve_dense.launches += 1

@@ -403,11 +403,13 @@ class LaunchShape(NamedTuple):
     min_blocks_per_sm: int
 
 
-# csrc/newton_block.cuh: kThreads, kNumDofVecs, kNumLimVecs, kNumRowVecs,
-# warp 0's kNumBcast results and 4 counts, kMaxNv; kMinBlocks of
-# csrc/newton_solve.cu and csrc/newton_solve_elliptic.cu
+# csrc/newton_block.cuh: kThreads, kNumDofVecs (the dense kernel's layout
+# ends at kYb), kNumLimVecs, kNumRowVecs, warp 0's kNumBcast results and 4
+# counts, kMaxNv; kMinBlocks of csrc/newton_solve.cu and
+# csrc/newton_solve_elliptic.cu
 _THREADS_PER_ENV = 128
 _DOF_VECS, _LIM_VECS, _ROW_VECS = 15, 5, 5
+_DOF_VECS_DENSE = 10
 _SMALL_FLOATS = 4 + 4
 _MIN_BLOCKS_PER_SM = (6, 5)
 _MAX_NV = 45

@@ -9,8 +9,13 @@ vel_smooth at 4096 envs on the G1 and the YAM models, at a seeded state
 (the model's keyframe or initial state plus numpy noise; the kernels' work
 does not depend on the state). Each kernel is held against its plain
 version (chip_smoke.py's tolerances) and timed by the profiler's kernel
-records over N launches (chip_smoke.kernel_ms of this checkout). The last
-line is one JSON object with the times, the card's name and power limit.
+records over N launches (chip_smoke.kernel_ms of this checkout). The crb
+phase of a step (crb_dense: the dense qM and qM + the implicit diagonal
+from cdof and cinert) is also timed as the sum of every kernel record per
+call ("crb_phase", with its kernels per call). DIR must hold crb_dense;
+for an older tree, measure from a copy given the same entry point.
+The last line is one JSON object with the times, the card's name and
+power limit.
 
 Two trees compare on one card in one call, in turns:
 
@@ -76,6 +81,24 @@ def inputs(path: str, device):
     return m, qT, vT, ctrlT, mcT, mcqT, xfrcT, qfaT
 
 
+def device_ms_per_call(fn, reps: int) -> tuple[float, float]:
+    """(device ms per call of fn, CUDA kernels per call): every kernel
+    record of reps calls under the profiler, summed, after a warm call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return sum(times) / reps / 1e3, len(times) / reps
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE))
@@ -97,20 +120,23 @@ def main() -> int:
 
     assert Path(sk.__file__).resolve().is_relative_to(root), sk.__file__
     cuda_build.build_all()
-    regs = {name: cuda_build.ptxas_report(name) for name in ("kin_com", "vel_smooth")}
+    regs = {name: cuda_build.ptxas_report(name)
+            for name in ("kin_com", "crb_packed", "vel_smooth")}
     out = {"label": args.label or str(root), "root": str(root), "registers": regs}
     for path in ("g1", "yam"):
         m, qT, vT, ctrlT, mcT, mcqT, xfrcT, qfaT = inputs(path, "cuda")
         kin = sk.kin_com_plain(m, qT, mcT, mcqT)
         _, _, subcom, cdof, cinA, cinc, xipos, _, _ = kin
         xq = (subcom, xipos, xfrcT, qfaT)
+        vs_plain = sk.vel_smooth_plain(m, qT, vT, ctrlT, cdof, cinA, cinc, xq)
+        mh = vs_plain[3]
+        crb_fn = lambda: sk.crb_dense(m, cdof, cinA, cinc, mh)  # noqa: E731
+        crb_plain = sk.crb_dense_plain(m, cdof, cinA, cinc, mh)
         runs = {
             "kin_com": (lambda: sk.kin_com(m, qT, mcT, mcqT), kin, cs.TOL_FRAMES),
-            "crb_packed": (lambda: sk.crb_packed(m, cdof, cinA, cinc),
-                           sk.crb_packed_plain(m, cdof, cinA, cinc), cs.TOL_SMOOTH),
+            "crb_packed": (crb_fn, crb_plain, cs.TOL_SMOOTH),
             "vel_smooth": (lambda: sk.vel_smooth(m, qT, vT, ctrlT, cdof, cinA, cinc, xq),
-                           sk.vel_smooth_plain(m, qT, vT, ctrlT, cdof, cinA, cinc, xq),
-                           cs.TOL_SMOOTH),
+                           vs_plain, cs.TOL_SMOOTH),
         }
         for name, (fn, plain, tol) in runs.items():
             got = fn()
@@ -124,7 +150,13 @@ def main() -> int:
             print(f"[time] {out['label']} {path} {name}: {ms:.4f} ms per launch "
                   f"(device, profiler, {args.reps} launches), rel err {err:.2e}",
                   flush=True)
-        del m, qT, vT, ctrlT, kin, runs
+            if name == "crb_packed":
+                phase_ms, kernels = device_ms_per_call(fn, args.reps)
+                out[f"{path}.crb_phase"] = {"ms": phase_ms, "kernels_per_call": kernels}
+                print(f"[time] {out['label']} {path} crb phase: {phase_ms:.4f} ms per call "
+                      f"(device, the sum of its kernel records), {kernels:.1f} CUDA "
+                      "kernels per call", flush=True)
+        del m, qT, vT, ctrlT, kin, runs, vs_plain, crb_plain
         torch.cuda.empty_cache()
     out["device"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

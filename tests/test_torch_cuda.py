@@ -6,9 +6,10 @@ torch.cuda.is_available() is false, and run on the card with
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
 Tolerances (float32, TF32 matmuls off) are those of the CPU parity tests:
-2e-6 on kin_com's frames, 5e-6 on crb_packed and vel_smooth, 2e-3 on the
-solve's accelerations and 6e-3 on its per-row forces, relative to
-max(1, |plain|max). chip_smoke.py runs the same comparisons at 4096 envs.
+2e-6 on kin_com's frames, 5e-6 on the crb kernel's qM and Mh and on
+vel_smooth, 2e-3 on the solve's accelerations and 6e-3 on its per-row
+forces, relative to max(1, |plain|max). chip_smoke.py runs the same
+comparisons at 4096 envs.
 
 The models are the G1 flat-velocity model (pyramidal cone: kernel 4, and
 kernel 6 under Simulation.forward()), the YAM lift-cube model (elliptic
@@ -21,6 +22,7 @@ package. E = 300 is not a multiple of the smooth kernels' 16 envs per block
 (csrc/smooth_tree.cuh), so their ragged edge runs too.
 """
 
+import ctypes
 from pathlib import Path
 
 import numpy as np
@@ -36,6 +38,7 @@ from mjlab_tpu_torch.phys.hybrid import (
     solve_dense_inputs,
 )
 from mjlab_tpu_torch.phys import model as pm
+from mjlab_tpu_torch.phys.lm import stages
 from mjlab_tpu_torch.phys.lm.base import Params
 from mjlab_tpu_torch.sim.sim import MujocoCfg, Simulation, SimulationCfg
 from mjlab_tpu_torch.tasks.manipulation.config.yam import physics as yam
@@ -95,23 +98,20 @@ def _check_kernels(m, d, cuda, seed=1, dead_envs=(), stable_only=False):
         assert rel_err(p, k) < 2e-6
     _, _, subcom, cdof, cinA, cinc, xipos, _, _ = kin_p
 
-    qm_k = sk.crb_packed(m, cdof, cinA, cinc)
-    qm_p = sk.crb_packed_plain(m, cdof, cinA, cinc)
-    assert rel_err(qm_p, qm_k) < 5e-6
-
     xq = (subcom, xipos, xfrcT, qfaT)
     vs_k = sk.vel_smooth(m, qT, vT, ctrlT, cdof, cinA, cinc, xq)
     vs_p = sk.vel_smooth_plain(m, qT, vT, ctrlT, cdof, cinA, cinc, xq)
     for p, k in zip(vs_p, vs_k):
         assert rel_err(p, k) < 5e-6
 
+    assert has_implicit(m)
+    crb_k = sk.crb_dense(m, cdof, cinA, cinc, vs_p[3])
+    qM_cm, Mh_cm = sk.crb_dense_plain(m, cdof, cinA, cinc, vs_p[3])
+    assert rel_err(qM_cm, crb_k[0]) < 5e-6 and rel_err(Mh_cm, crb_k[1]) < 5e-6
+
     nv = m.nv
     k = contact_stack(m, Params(m, E), qT, vT, kin_p[0], kin_p[1], subcom)
     assert bool(k["con_sel_active"].any())
-    qM_cm = sk.qm_dense_cm(m, qm_p)
-    Mh_cm = qM_cm.clone()
-    assert has_implicit(m)
-    Mh_cm[torch.arange(nv, device=cuda) * (nv + 1)] += vs_p[3]
     args, kw = solve_args(m, k, qM_cm, vs_p[0], d.qacc_warmstart.T, vT,
                           cdof.reshape(nv * 6, E), Mh_cm)
     on = args[20].clone()
@@ -255,6 +255,54 @@ def test_smooth_kernels_on_every_joint_type(E, cuda):
     assert bool((vs_p[3][hinge] != h_damping).all())
 
 
+_CRB_MODELS = ("g1", "yam", *_TOYS, "joint_toy")
+
+
+def _crb_model(name, device):
+    if name == "g1":
+        return physics.load_saved_model(device=device)[0]
+    if name == "yam":
+        return yam.load_saved_model(device=device)[0]
+    return pm.load_model(Path(__file__).parent / "models" / f"{name}.npz", device=device)[0]
+
+
+@pytest.mark.parametrize("E", [256, 300])
+@pytest.mark.parametrize("name", _CRB_MODELS)
+def test_crb_kernel_matches_plain_version(name, E, cuda):
+    """The crb kernel (the dense qM and qM + the implicit diagonal in one
+    launch) against its plain version, the eager code it replaces, on each
+    model at a seeded state; with and without the implicit diagonal. Its
+    shared memory is the one smooth_kernels.crb_smem_bytes mirrors."""
+    from mjlab_tpu_torch import cuda_build
+
+    m = _crb_model(name, cuda)
+    rng = np.random.default_rng(E)
+    f = lambda x: torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32,  # noqa: E731
+                                  device=cuda)
+    qT = f(m.qpos0.cpu().numpy()[:, None] + 0.3 * rng.standard_normal((m.nq, E)))
+    mocap = [b for b in range(m.nbody) if int(m.body_mocapid[b]) >= 0]
+    mcT = f(np.repeat(m.body_pos.cpu().numpy()[mocap][:, :, None], E, axis=2))
+    mcqT = f(np.repeat(m.body_quat.cpu().numpy()[mocap][:, :, None], E, axis=2))
+    _, _, _, cdof, cinA, cinc, _, _, _ = sk.kin_com_plain(m, qT, mcT, mcqT)
+    mh = f(0.1 * rng.standard_normal((m.nv, E)))
+    _, _, U = stages.crb_static(m)
+    pairs = (U + U.T + np.eye(m.nv)) != 0
+    off_pairs = torch.as_tensor(~pairs.reshape(-1), device=cuda)
+    launches = sk.crb_dense.launches
+    for diag in (mh, None):
+        qM_k, Mh_k = sk.crb_dense(m, cdof, cinA, cinc, diag)
+        qM_p, Mh_p = sk.crb_dense_plain(m, cdof, cinA, cinc, diag)
+        torch.cuda.synchronize()
+        assert rel_err(qM_p, qM_k) < 5e-6
+        assert (Mh_k is None) == (diag is None)
+        if diag is not None:
+            assert rel_err(Mh_p, Mh_k) < 5e-6
+        assert not bool(qM_k[off_pairs].any())  # the kernel writes the zeros itself
+    assert sk.crb_dense.launches == launches + 2
+    f_smem = cuda_build.launcher("crb_packed", "crb_packed_smem_bytes", (ctypes.c_int,) * 2)
+    assert f_smem(m.nbody, m.nv) == sk.crb_smem_bytes(m)
+
+
 def _yam_state(sim, seed=0):
     """Half the envs at the task's reset state, half pinching the cube
     (yam.task_states)."""
@@ -339,13 +387,12 @@ def _settled_g1(E, device, seed=0):
     return sim
 
 
-@pytest.mark.parametrize("E", [256, 300])
-def test_dense_kernel_matches_plain_version(E, cuda):
-    """Kernel 6 (the dense-Jacobian solve of forward()) against its plain
-    version on the dense inputs of a settled G1 state's forward pass."""
-    sim = _settled_g1(E, cuda)
-    d, k, _ = forward_stages(sim.model, sim.data)
-    args, kw = solve_dense_inputs(sim.model, k, d)
+def _check_dense(args, kw, cuda):
+    """Kernel 6 against its plain version on (args, kw): qacc at
+    SOLVE_TOL, the row forces at FORCE_TOL, qfrc_constraint under the
+    iteration-count rule; returns (the plain forces, the plain iteration
+    counts)."""
+    E = args[0].shape[-1]
     it_k = torch.zeros(E, dtype=torch.int32, device=cuda)
     it_p = torch.zeros(E, dtype=torch.int32, device=cuda)
     launches = sd.newton_solve_dense.launches
@@ -360,8 +407,38 @@ def test_dense_kernel_matches_plain_version(E, cuda):
     q_p = torch.einsum("vre,re->ve", Jt, f_p)
     for label, (err, tol) in sv.qfrc_errors(q_p, q_k, it_p, it_k).items():
         assert err < tol, label
+    return f_p, it_p
+
+
+@pytest.mark.parametrize("E", [256, 300])
+def test_dense_kernel_matches_plain_version(E, cuda):
+    """Kernel 6 (the dense-Jacobian solve of forward()) against its plain
+    version on the dense inputs of a settled G1 state's forward pass, with
+    env 5 given no live row; then from a cold start (zero warmstart), where
+    envs run to the 10-iteration cap."""
+    sim = _settled_g1(E, cuda)
+    d, k, _ = forward_stages(sim.model, sim.data)
+    args, kw = solve_dense_inputs(sim.model, k, d)
+    D = args[1].clone()
+    D[:, 5] = 0.0  # env 5: no live row
+    f_p, it_p = _check_dense(args[:1] + (D,) + args[2:], kw, cuda)
     first_contact_row = sim.model.nv + sim.model.nlimit
     assert int(it_p.max()) > 1 and bool((f_p[first_contact_row:] != 0).any())
+    assert not bool(f_p[:, 5].any())
+    _, it_p = _check_dense(args[:6] + (torch.zeros_like(args[6]),), kw, cuda)
+    assert int(it_p.max()) == kw["iterations"]
+
+
+def test_dense_kernel_on_equality_rows(cuda):
+    """Kernel 6 on eq_toy's forward pass: a joint-equality row (two-sided)
+    that carries a force, beside the dof-friction, limit and contact rows."""
+    sim = _toy_sim("eq_toy", 256, cuda)
+    d, k, _ = forward_stages(sim.model, sim.data)
+    args, kw = solve_dense_inputs(sim.model, k, d)
+    assert any(kw["eq_mask"])
+    f_p, _ = _check_dense(args, kw, cuda)
+    eq_rows = torch.as_tensor(kw["eq_mask"], device=cuda)
+    assert bool((f_p[eq_rows] != 0).any())
 
 
 def test_forward_on_card_matches_cpu(cuda):
@@ -400,14 +477,23 @@ def test_wrappers_reject_bad_inputs(cuda, monkeypatch):
         sk.kin_com(m, torch.zeros(m.nq, 8, dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError, match="shape"):
         sk.kin_com(m, torch.zeros(m.nq + 1, 8, device=cuda))
-    # the solve's launcher refuses a launch shape that is not its kernel's
-    args, kw = _solve_inputs(_toy_sim("eq_toy", 8, cuda))
+    # the solves' launchers refuse a launch shape that is not their kernel's
+    sim = _toy_sim("eq_toy", 8, cuda)
+    args, kw = _solve_inputs(sim)
+    d, k, _ = forward_stages(sim.model, sim.data)
+    dargs, dkw = solve_dense_inputs(sim.model, k, d)
     sv.newton_assemble_solve(*args, **kw)
+    sd.newton_solve_dense(*dargs, **dkw)
     shape = sv.newton_launch_shape
     monkeypatch.setattr(sv, "newton_launch_shape",
                         lambda *a: shape(*a)._replace(smem_bytes_per_env=4))
     with pytest.raises(RuntimeError, match="launch shape"):
         sv.newton_assemble_solve(*args, **kw)
+    dshape = sd.dense_launch_shape
+    monkeypatch.setattr(sd, "dense_launch_shape",
+                        lambda *a: dshape(*a)._replace(smem_bytes_per_env=4))
+    with pytest.raises(RuntimeError, match="launch shape"):
+        sd.newton_solve_dense(*dargs, **dkw)
 
 
 def _solve_inputs(sim):
@@ -421,8 +507,6 @@ def _solve_inputs(sim):
     zeros = lambda *s: torch.zeros(*s, E, device=qT.device)  # noqa: E731
     qfs, _, _, mh = sk.vel_smooth_plain(m, qT, vT, ctrlT, cdof, cinA, cinc,
                                         (subcom, xipos, zeros(m.nbody, 6), zeros(nv)))
-    qM = sk.qm_dense_cm(m, sk.crb_packed_plain(m, cdof, cinA, cinc))
-    Mh = qM.clone()
-    Mh[torch.arange(nv, device=qT.device) * (nv + 1)] += mh
+    qM, Mh = sk.crb_dense_plain(m, cdof, cinA, cinc, mh)
     k = contact_stack(m, Params(m, E), qT, vT, gxpos, gxmat, subcom)
     return solve_args(m, k, qM, qfs, d.qacc_warmstart.T, vT, cdof.reshape(nv * 6, E), Mh)

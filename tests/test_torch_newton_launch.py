@@ -1,13 +1,18 @@
-"""The launch shape of the two solve kernels, the batched doubling probes
-of their line search, and the toy models the card tests run them on.
+"""The launch shape of the solve kernels and of the crb kernel, the
+batched doubling probes of the solves' line search, and the toy models the
+card tests run them on.
 
-CPU only: newton_launch_shape (phys/solver_kernels.py) is the one place the
-launch shape lives; the kernels' launchers check it against their own
-layout on the card (tests/test_torch_cuda.py). Here it is held against an
-H100's budgets (65,536 registers and 232,448 bytes of shared memory per SM
-less 1 KB per block) at the shapes of the G1, the YAM and the toys, and
-against the resident-thread target: four times what one warp per env
-held (G1 192, YAM 160 threads per SM).
+CPU only: newton_launch_shape (phys/solver_kernels.py) and
+dense_launch_shape (phys/solver_dense_kernels.py) are the one place each
+solve's launch shape lives; the kernels' launchers check it against their
+own layout on the card (tests/test_torch_cuda.py). Here they are held
+against an H100's budgets (65,536 registers and 232,448 bytes of shared
+memory per SM less 1 KB per block) at the shapes of the G1, the YAM and the
+toys, and against the resident-thread target: four times what one warp per
+env held (step solves: G1 192, YAM 160 threads per SM; the dense solve:
+4 envs, 128 threads per SM on the G1). The crb kernel's block
+(smooth_kernels.crb_smem_bytes, 16 envs) is held against the same
+shared-memory budget.
 """
 
 import dataclasses
@@ -17,6 +22,8 @@ import pytest
 import torch
 
 from mjlab_tpu_torch.phys import model as pm
+from mjlab_tpu_torch.phys import smooth_kernels as sk
+from mjlab_tpu_torch.phys import solver_dense_kernels as sd
 from mjlab_tpu_torch.phys import solver_kernels as sv
 from mjlab_tpu_torch.sim.sim import check_supported
 
@@ -61,9 +68,52 @@ def test_launch_shape_fits_the_budgets(name):
     assert resident >= TARGET.get(name, min(TARGET.values())), resident
 
 
+def _fits(s, target):
+    """The register and shared-memory budgets of shape s, and its resident
+    threads per SM against target."""
+    threads = s.threads_per_env * s.envs_per_block
+    assert threads % 32 == 0 and threads <= 1024
+    cap = REGISTERS_PER_SM // (threads * s.min_blocks_per_sm) // 8 * 8
+    assert threads * cap * s.min_blocks_per_sm <= REGISTERS_PER_SM
+    per_block = s.smem_bytes_per_env * s.envs_per_block + SMEM_RESERVED_PER_BLOCK
+    assert s.smem_bytes_per_env <= 232448  # what one block may opt in to
+    resident = threads * min(s.min_blocks_per_sm, SMEM_PER_SM // per_block)
+    assert resident >= target, resident
+    return resident
+
+
+@pytest.mark.parametrize("name", ["g1", "yam", *toys.NAMES])
+def test_dense_launch_shape_fits_the_budgets(name):
+    """Kernel 6 with every row live (the most shared memory a batch can
+    ask), and with half of them: the budgets, and at least four times the
+    one-warp design's 128 resident threads per SM."""
+    m = _model(name)
+    full = sd.dense_launch_shape(m.nv, m.nefc, m.nefc)
+    half = sd.dense_launch_shape(m.nv, m.nefc, m.nefc // 2)
+    assert full.threads_per_env == 128 and full.envs_per_block == 1
+    assert half.smem_bytes_per_env < full.smem_bytes_per_env
+    assert _fits(half, 4 * 128) >= _fits(full, 4 * 128)
+    # the rows' D and class fit the J region before the live rows are known
+    assert sd.dense_launch_shape(m.nv, m.nefc, 0).smem_bytes_per_env > 8 * m.nefc
+
+
+@pytest.mark.parametrize("name", ["g1", "yam", *toys.ALL])
+def test_crb_block_fits_the_budgets(name):
+    """The crb kernel's block of 16 envs x 16 workers: its shared memory
+    (10 floats per body, 12 per dof per env) fits a block, and at least
+    two blocks (32 envs) fit an SM."""
+    m = _model(name)
+    smem = sk.crb_smem_bytes(m)
+    assert smem == 4 * 16 * (10 * m.nbody + 12 * m.nv)
+    assert smem <= 232448
+    assert SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK) >= 2
+
+
 def test_launch_shape_refuses_more_dofs_than_the_kernels_take():
     with pytest.raises(ValueError, match="dofs"):
         sv.newton_launch_shape(0, 46, 4, 4, 0, 0)
+    with pytest.raises(ValueError, match="dofs"):
+        sd.dense_launch_shape(46, 10, 10)
 
 
 def _serial_hi(slopes):

@@ -1,13 +1,16 @@
 """The tree schedule of the many-threads-per-env smooth kernels
 (smooth_kernels.tree_schedule, csrc/smooth_tree.cuh), on the CPU.
 
-kin_com.cu and vel_smooth.cu walk the body tree level by level: root to
-leaves for the frames and velocities, leaves to root for the subtree sums,
-where each parent sums its own children in descending index. Here the
-tables are held against the model's tree on the G1, the YAM and the toys,
-and a small Python model of the leaves-to-root pass is held bitwise
-against the serial pass of the one-thread-per-env kernels
-(``for b = nbody-1..1: x[parent(b)] += x[b]``) on random float32 data.
+kin_com.cu, crb_packed.cu and vel_smooth.cu walk the body tree level by
+level: root to leaves for the frames and velocities, leaves to root for
+the subtree sums, where each parent sums its own children in descending
+index. Here the tables are held against the model's tree on the G1, the
+YAM and the toys, and a small Python model of the leaves-to-root pass is
+held bitwise against the serial pass of the one-thread-per-env kernels
+(``for b = nbody-1..1: x[parent(b)] += x[b]``) on random float32 data. A
+Python model of the whole crb kernel (its composite inertias on that
+schedule, f per dof, the lower triangle by its index map) is held against
+the serial composite sums bitwise and against crb_dense_plain.
 """
 
 import re
@@ -15,6 +18,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from mjlab_tpu_torch.phys import smooth_kernels as sk
 from mjlab_tpu_torch.phys.lm import stages
@@ -135,6 +139,84 @@ def test_parent_owned_sum_on_wide_random_trees():
         ])
         ascending_differs |= not np.array_equal(scheduled_backward(flipped, x), want)
     assert ascending_differs
+
+
+def lower_rc(k):
+    """csrc/crb_packed.cu lower_rc in float32: entry k of a lower triangle
+    packed row by row -> (i, j), j <= i."""
+    r = int((np.sqrt(np.float32(8 * k + 1)) - np.float32(1)) * np.float32(0.5))
+    if (r + 1) * (r + 2) // 2 <= k:
+        r += 1
+    if r * (r + 1) // 2 > k:
+        r -= 1
+    return r, k - r * (r + 1) // 2
+
+
+def test_lower_triangle_index_map_covers_each_entry_once():
+    for nv in (1, 2, 14, 35, 45, 128):
+        got = [lower_rc(k) for k in range(nv * (nv + 1) // 2)]
+        assert got == [(i, j) for i in range(nv) for j in range(i + 1)]
+
+
+def crb_model(m, sched, cdof, cinA, cinc, mh):
+    """csrc/crb_packed.cu for one env in float32: cdof (nv, 6), cinA
+    (nbody, 6), cinc (nbody, 3), mh (nv,) -> (the composite inertias
+    (nbody, 10), qM (nv, nv), Mh (nv, nv))."""
+    f32 = np.float32
+    mass = np.asarray(m.body_mass, f32)
+    comp = np.concatenate([cinA, cinc * mass[:, None], mass[:, None]], axis=1)
+    comp = scheduled_backward(sched, comp, skip_world=True)
+    _, dof_body, _ = stages.crb_static(m)
+    f = np.zeros((m.nv, 6), f32)
+    for j in range(m.nv):
+        A, h, mb = comp[dof_body[j], :6], comp[dof_body[j], 6:9], comp[dof_body[j], 9]
+        w, v = cdof[j, :3], cdof[j, 3:]
+        ang = np.array([A[0] * w[0] + A[1] * w[1] + A[2] * w[2],
+                        A[1] * w[0] + A[3] * w[1] + A[4] * w[2],
+                        A[2] * w[0] + A[4] * w[1] + A[5] * w[2]], f32)
+        f[j, :3] = ang + np.cross(h, v)
+        f[j, 3:] = v * mb - np.cross(h, w)
+    anc = stages.ancestor_dof_mask(m)
+    arm = np.asarray(m.dof_armature, f32)
+    qM = np.zeros((m.nv, m.nv), f32)
+    Mh = np.zeros((m.nv, m.nv), f32)
+    for k in range(m.nv * (m.nv + 1) // 2):
+        i, j = lower_rc(k)
+        v = f32(0)
+        if anc[dof_body[i], j]:
+            v = cdof[j, 0] * f[i, 0]
+            for c in range(1, 6):
+                v = v + cdof[j, c] * f[i, c]
+            if i == j:
+                v = v + arm[i]
+        qM[i, j] = qM[j, i] = v
+        Mh[i, j] = Mh[j, i] = v + mh[i] if i == j else v
+    return comp, qM, Mh
+
+
+def test_crb_kernel_model_matches_the_serial_crb(model):
+    """The crb kernel's composite inertias (10 columns: A, h = m c, m) are
+    the serial pass's bitwise; its dense qM and Mh match crb_dense_plain
+    within 5e-6 (the plain version, as the TPU kernel's trace, sums the
+    composite masses of the model constants in float64) with the same
+    zeros."""
+    m, s = model
+    rng = np.random.default_rng(m.nv)
+    E = 3
+    f32 = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
+    cdof, cinA, cinc, mh = f32(m.nv, 6, E), f32(m.nbody, 6, E), f32(m.nbody, 3, E), f32(m.nv, E)
+    t = torch.as_tensor
+    qM_p, Mh_p = (x.numpy().reshape(m.nv, m.nv, E)
+                  for x in sk.crb_dense_plain(m, t(cdof), t(cinA), t(cinc), t(mh)))
+    parent = np.asarray(m.body_parentid)
+    mass = np.asarray(m.body_mass, np.float32)
+    for e in range(E):
+        comp, qM, Mh = crb_model(m, s, cdof[..., e], cinA[..., e], cinc[..., e], mh[:, e])
+        own = np.concatenate([cinA[..., e], cinc[..., e] * mass[:, None], mass[:, None]], 1)
+        np.testing.assert_array_equal(comp[1:], serial_backward(parent, own)[1:])
+        for got, ref in ((qM, qM_p[..., e]), (Mh, Mh_p[..., e])):
+            assert np.abs(got - ref).max() <= 5e-6 * max(1.0, np.abs(ref).max())
+            np.testing.assert_array_equal(got == 0, ref == 0)
 
 
 def _struct_fields(header: str, name: str) -> list[str]:

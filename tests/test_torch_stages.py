@@ -10,13 +10,18 @@ mjlab_tpu_torch.phys.smooth_kernels run their plain versions on CPU tensors
 - at f32, the vmapped stages (phys/kinematics.py, phys/smooth.py), with the
   tolerances of tests/test_smooth_pallas.py: 2e-6 on frames, com, cdof and
   cinert, 5e-6 on the mass matrix and the velocity-stage outputs (the same
-  formulas in another association order: a few f32 ulps of the scale).
+  formulas in another association order: a few f32 ulps of the scale);
+- crb_dense's plain version (the dense qM and qM + the implicit diagonal,
+  which the crb kernel writes) against the JAX step's own composition,
+  qm_dense_cm of the Pallas crb_packed in interpret mode plus the diagonal
+  add (mjlab_tpu/phys/hybrid.py:536-545), at f32 within 5e-6.
 
 Scale of every relative error: max(1, |reference|max).
 """
 
 import jax
 import jax.numpy as jnp
+import mujoco
 import numpy as np
 import pytest
 import torch
@@ -31,8 +36,8 @@ from mjlab_tpu.sim.sim import model_in_axes
 from mjlab_tpu_torch.phys import smooth_kernels as sk
 
 from torch_port_common import (
-    G1_NCONMAX, TOY_NCONMAX, g1_mj, model_pair, rel_err, state_np, tnp,
-    toy_mj,
+    G1_NCONMAX, TOY_NCONMAX, YAM_NCONMAX, eq_mj, ell_mj, g1_mj, model_pair,
+    rel_err, state_np, tnp, toy_mj, yam_mj,
 )
 
 CASES = {
@@ -122,7 +127,7 @@ def _port_smooth(m, q, v, c, xfrc, qfa):
     names = ("gxpos", "gxmat", "subcom", "cdof", "cinA", "cinc", "xipos",
              "xpos", "xquat")
     kin = dict(zip(names, outs))
-    qM_pairs = sk.crb_packed(m, kin["cdof"], kin["cinA"], kin["cinc"])
+    qM_pairs = sk.crb_packed_plain(m, kin["cdof"], kin["cinA"], kin["cinc"])
     xq = (kin["subcom"], kin["xipos"], t(np.moveaxis(xfrc, 0, -1)), t(qfa.T))
     qfs, afrc, avel, diag = sk.vel_smooth(
         m, qT, t(v.T), t(c.T), kin["cdof"], kin["cinA"], kin["cinc"], xq
@@ -234,6 +239,49 @@ def test_crb_pairs_and_dense_layout_match_jax():
         np.asarray(qm_dense_cm(jm, jnp.asarray(pairs))),
         sk.qm_dense_cm(m, torch.as_tensor(pairs)).numpy(),
     )
+
+
+def _joint_toy_mj():
+    import torch_toy_models as toys
+
+    return mujoco.MjModel.from_xml_string(toys.xml("joint_toy"))
+
+
+CRB_CASES = {
+    "toy": (toy_mj, TOY_NCONMAX), "g1": (g1_mj, G1_NCONMAX),
+    "yam": (yam_mj, YAM_NCONMAX), "eq_toy": (eq_mj, TOY_NCONMAX),
+    "ell_toy": (ell_mj, TOY_NCONMAX), "joint_toy": (_joint_toy_mj, TOY_NCONMAX),
+}
+
+
+@pytest.mark.parametrize("name", list(CRB_CASES))
+def test_crb_dense_plain_matches_jax_step(name):
+    """crb_dense_plain (what the fused crb kernel writes) against the JAX
+    step's qm_dense_cm(crb_packed(..., interpret=True)) and its implicit
+    diagonal add, on seeded f32 inputs (the function is linear algebra of
+    its inputs: any cdof and cinert do)."""
+    from mjlab_tpu.phys.smooth_pallas import crb_packed, qm_dense_cm
+
+    make, nconmax = CRB_CASES[name]
+    jm, m = model_pair(make(), nconmax, np.float32)
+    E = 128  # one env tile of the Pallas kernel
+    rng = np.random.default_rng(7)
+    f32 = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
+    cdof, cinA, cinc = f32(m.nv, 6, E), f32(m.nbody, 6, E), f32(m.nbody, 3, E)
+    mh = f32(m.nv, E)
+    qM_j = qm_dense_cm(jm, crb_packed(jm, jnp.asarray(cdof), jnp.asarray(cinA),
+                                      jnp.asarray(cinc), interpret=True))
+    diag = np.arange(m.nv) * (m.nv + 1)
+    Mh_j = qM_j.at[jnp.asarray(diag)].add(jnp.asarray(mh))
+    t = torch.as_tensor
+    qM, Mh = sk.crb_dense_plain(m, t(cdof), t(cinA), t(cinc), t(mh))
+    assert rel_err(np.asarray(qM_j), tnp(qM)) < 5e-6
+    assert rel_err(np.asarray(Mh_j), tnp(Mh)) < 5e-6
+    qM_only, none = sk.crb_dense(m, t(cdof), t(cinA), t(cinc))
+    assert none is None and torch.equal(qM_only, qM)
+    # zero off the ancestor pairs, symmetric
+    dense = tnp(qM).reshape(m.nv, m.nv, E)
+    assert np.array_equal(dense, dense.transpose(1, 0, 2))
 
 
 def test_integrate_envlast_matches_jax():
