@@ -3,8 +3,21 @@
 
     python3 chip_smoke.py
 
-Three main paths, each a Simulation of 4096 envs driven through its public
-entry points, and the six kernels they run:
+Five main paths, each a Simulation of 4096 envs driven through its public
+entry points, and the six kernels they run. The two captured control steps
+are this slice's main paths:
+
+- g1_capture: the G1 control step as the env runs it
+  (tasks/velocity/config/g1/physics.py control_step): 4 substeps of the
+  robot's actuator controls from its joint targets, the physics step and
+  the sensors' update (contact air time), then the refresh, with the feet's
+  friction per env (the task's startup event) and the task's scene (entity,
+  two contact sensors, the XML's four builtin sensors); captured as one
+  CUDA graph (sim.ControlStep): kin_com, crb_packed, vel_smooth and
+  newton_assemble_solve cone 0 inside the graph;
+- yam_capture: the YAM physics control step (4 substeps and the refresh,
+  fingertip friction per env, the task's own traffic) captured the same
+  way: the elliptic kernel inside the graph;
 
 - g1: Mjlab-Velocity-Flat-Unitree-G1 physics (nconmax 35, pyramidal cone),
   reset, step and refresh: kin_com, crb_packed (the kernel of crb_dense:
@@ -57,6 +70,22 @@ kernel) with a per-phase breakdown (position, contact, velocity, solve,
 writeback), and checks forward() of 64 envs on the card against the CPU
 field by field.
 
+Each captured path (after the three above) builds two twins on one seeded
+state, sets the launch counts to 0 and captures the second twin's control
+step (two eager warm-up steps first, the last with host synchronisation an
+error; the counts must show each kernel of the step once per control step
+for the three steps the wrappers ran), then: 3 control steps, eager
+against replays, within the step tolerances (E2E_TOL) with the same active
+contact slots in every env; a masked reset and a per-env friction write
+between replays, which the next replay must read (the reset envs restart,
+the slots' friction is the mix of the new values); eager and captured
+env-steps/s, each the median of CAPTURE_REPEATS x CAPTURE_STEPS control
+steps (CUDA events, commands written between steps); one eager and one
+captured control step under the profiler (CUDA kernels, device busy ms,
+idle share; every kernel of the step must show in the replay). The G1
+path then holds the scene's sensors on the card, after 3 replays of 64
+envs, against the CPU port's on the same Data (SENSOR_TOL).
+
 The line before the last is the card's name and power limit (nvidia-smi);
 the lines before hold the kernels (JSON), the substep breakdowns and the
 physics throughputs. The last line is {"ok": true, "device": {...}}. Exits
@@ -108,6 +137,19 @@ E2E_TOL = {
 # iteration counts may differ by a step)
 FORWARD_CALLS = 10
 FORWARD_TOL = 5e-5
+
+# the captured control steps: warm-up control steps before capture, the
+# control steps held captured against eager, and the timed repeats
+CAPTURE_WARMUP = 2
+CAPTURE_CHECK_STEPS = 3
+CAPTURE_REPEATS = 3
+CAPTURE_STEPS = 10
+# the G1 sensors on the card against the CPU port on the same Data, float32
+SENSOR_TOL = 1e-5
+# torch.profiler sessions: how many before a refused one fails, and the wait
+# for the last kernel records before a session stops
+PROFILE_TRIES = 3
+PROFILE_DRAIN_S = 0.02
 
 # the TPU kernels the rows replace
 REPLACES = {
@@ -168,27 +210,54 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profiled(run, accept, prepare=None, tries: int = PROFILE_TRIES) -> tuple[list, str | None]:
+    """The CUDA kernel records of one call of run() under torch.profiler, and
+    None, or the last session's records and why accept refused them. The
+    profiler drops a record now and then, on a rare run every record of a
+    short session: a session whose records accept refuses (it returns the
+    reason, else None) is made again, up to ``tries`` sessions, each after
+    prepare(). The session waits PROFILE_DRAIN_S after the last kernel has
+    ended before it stops, for the last records to come in."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    why = None
+    for i in range(tries):
+        if prepare is not None:
+            prepare()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_DRAIN_S)
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        why = accept(kernels)
+        if why is None:
+            return kernels, None
+        log(f"[profiler] session {i + 1} of {tries}: {why}")
+    return kernels, why
+
+
 def kernel_ms(fn, kernel: str, reps: int, warm: int = 1) -> float:
     """Mean device time per launch of the CUDA kernel whose name contains
     ``kernel`` over reps calls of fn, from the profiler's kernel records
     (the kernel's own execution, without the gaps between launches). The
-    profiler may drop a record now and then: the mean is over the records
-    it kept. Raises when it kept fewer than half."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    mean is over the records the profiler kept. Raises when no session kept
+    half of them."""
+    def launches(kernels):
+        return [e.time_range.elapsed_us() for e in kernels if kernel in e.name]
+
+    def accept(kernels):
+        n = len(launches(kernels))
+        return None if 2 * n >= reps else (
+            f"recorded {n} launches of {kernel}, expected {reps}")
 
     for _ in range(warm):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name]
-    if not 2 * len(times) >= reps:
-        raise RuntimeError(f"the profiler recorded {len(times)} launches of {kernel}, "
-                           f"expected {reps}")
+    kernels, why = profiled(lambda: [fn() for _ in range(reps)], accept)
+    if why is not None:
+        raise RuntimeError(f"the profiler {why}")
+    times = launches(kernels)
     return sum(times) / len(times) / 1e3
 
 
@@ -196,18 +265,12 @@ def cuda_kernels_per_call(fn, reps: int = 10) -> tuple[float, set]:
     """(CUDA kernel records per call, the set of their names, shortened to
     the KERNEL_NAMES entry they contain where there is one) over reps calls
     of fn under the profiler, which may drop a record now and then."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not names:
-        raise RuntimeError("the profiler recorded no CUDA kernel")
+    kernels, why = profiled(lambda: [fn() for _ in range(reps)],
+                            lambda ks: None if ks else "recorded no CUDA kernel")
+    if why is not None:
+        raise RuntimeError(f"the profiler {why}")
+    names = [e.name for e in kernels]
     short = {next((k for k in KERNEL_NAMES.values() if k in n), n) for n in names}
     return len(names) / reps, short
 
@@ -613,16 +676,8 @@ def traffic(sim, path: str, state: dict, ctrl0, seed: int):
 def timed_launches(calls) -> dict:
     """Run the callables in ``calls`` timed with CUDA events, every kernel
     wrapper's launch count set to 0 just before and read just after."""
-    from mjlab_tpu_torch.phys import smooth_kernels as sk
-    from mjlab_tpu_torch.phys import solver_dense_kernels as sd
-    from mjlab_tpu_torch.phys import solver_kernels as sv
-
     torch.cuda.synchronize()
-    wrappers = (sk.kin_com, sk.crb_dense, sk.vel_smooth, sv.newton_assemble_solve,
-                sd.newton_solve_dense)
-    for w in wrappers:
-        w.launches = 0
-    sv.newton_assemble_solve.launches_by_cone = [0, 0]
+    zero_launches()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -632,15 +687,32 @@ def timed_launches(calls) -> dict:
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    by_cone = list(sv.newton_assemble_solve.launches_by_cone)
-    launches = {
-        "kin_com": sk.kin_com.launches, "crb_packed": sk.crb_dense.launches,
-        "vel_smooth": sk.vel_smooth.launches,
-        "newton_assemble_solve": by_cone[0],
-        "newton_assemble_solve_elliptic": by_cone[1],
-        "newton_solve_dense": sd.newton_solve_dense.launches,
-    }
-    return dict(launches=launches, dev_ms=start.elapsed_time(end), wall=wall)
+    return dict(launches=read_launches(), dev_ms=start.elapsed_time(end), wall=wall)
+
+
+def zero_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from mjlab_tpu_torch.phys import smooth_kernels as sk
+    from mjlab_tpu_torch.phys import solver_dense_kernels as sd
+    from mjlab_tpu_torch.phys import solver_kernels as sv
+
+    for w in (sk.kin_com, sk.crb_dense, sk.vel_smooth, sv.newton_assemble_solve,
+              sd.newton_solve_dense):
+        w.launches = 0
+    sv.newton_assemble_solve.launches_by_cone = [0, 0]
+
+
+def read_launches() -> dict:
+    """Every kernel wrapper's launch count, by kernel row."""
+    from mjlab_tpu_torch.phys import smooth_kernels as sk
+    from mjlab_tpu_torch.phys import solver_dense_kernels as sd
+    from mjlab_tpu_torch.phys import solver_kernels as sv
+
+    by_cone = sv.newton_assemble_solve.launches_by_cone
+    return {"kin_com": sk.kin_com.launches, "crb_packed": sk.crb_dense.launches,
+            "vel_smooth": sk.vel_smooth.launches, "newton_assemble_solve": by_cone[0],
+            "newton_assemble_solve_elliptic": by_cone[1],
+            "newton_solve_dense": sd.newton_solve_dense.launches}
 
 
 def main_path(sim, random_ctrl) -> dict:
@@ -652,21 +724,28 @@ def main_path(sim, random_ctrl) -> dict:
     return dict(run, random_ctrl=random_ctrl)
 
 
-def device_profile(step) -> dict:
-    """One call of ``step`` under torch.profiler: CUDA kernels launched,
-    their summed device time, and the device's idle share between the
-    first kernel's start and the last one's end (the profiler slows the
-    host, so this idle share is an upper bound)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def device_profile(step, prepare=None, accept=None) -> dict:
+    """One call of ``step`` under torch.profiler (after prepare(), outside
+    the session): CUDA kernels launched, their summed device time, and the
+    device's idle share between the first kernel's start and the last one's
+    end (the profiler slows the host, so this idle share is an upper
+    bound). ``accept(profile)`` returns why a profile is refused, else None;
+    a refused or empty session is made again (``profiled``). {"kernels": 0,
+    "refused": why} when no session passed."""
+    profile = {}
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        return {"kernels": 0}
+    def check(kernels):
+        if not kernels:
+            return "recorded no CUDA kernel"
+        profile.clear()
+        profile.update(summarise(kernels))
+        return accept(profile) if accept is not None else None
+
+    _, why = profiled(step, check, prepare)
+    return profile if why is None else {"kernels": 0, "refused": why}
+
+
+def summarise(kernels) -> dict:
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     span = (max(e.time_range.end for e in kernels)
             - min(e.time_range.start for e in kernels)) / 1e3
@@ -675,8 +754,15 @@ def device_profile(step) -> dict:
         times = [e.time_range.elapsed_us() / 1e3 for e in kernels if name in e.name]
         if times:
             ours[row] = {"launches": len(times), "ms_per_launch": sum(times) / len(times)}
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        t = by_name.setdefault(e.name, [0, 0.0])
+        t[0] += 1
+        t[1] += e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     return {"kernels": len(kernels), "busy_ms": busy, "span_ms": span,
-            "idle_share": 1.0 - busy / span, "by_kernel": ours}
+            "idle_share": 1.0 - busy / span, "by_kernel": ours,
+            "top": [{"name": n[:80], "launches": c, "ms": ms} for n, (c, ms) in top]}
 
 
 def breakdown(sim, steps: int) -> dict:
@@ -822,6 +908,313 @@ def run_path(path: str) -> tuple[dict, dict, dict]:
                dev_ms / CONTROL_STEPS, "ms_per_substep": sub,
                "breakdown_ms_per_substep": parts, "profile": prof}
     return kernels, launches, summary
+
+
+# ---------------------------------------------------------------------------
+# the captured control steps (sim.ControlStep): one CUDA graph per step
+# ---------------------------------------------------------------------------
+
+
+def joint_targets(robot, ctrl: torch.Tensor) -> torch.Tensor:
+    """The robot's joint position targets (joint order) whose position
+    actuators write ``ctrl`` (actuator order)."""
+    joints = [j for a in robot.actuators for j in a.joint_ids]
+    target = torch.zeros(ctrl.shape[0], robot.num_joints, device=ctrl.device)
+    target[:, joints] = ctrl[:, robot.indexing.ctrl_ids].float()
+    return target
+
+
+def capture_twins(path: str, num_envs: int, seed: int, count: int = 2) -> list[dict]:
+    """``count`` Simulations of the path on one seeded state (twins: the
+    first to run its control step eagerly, the second captured): the G1's
+    env-side step
+    (the task's scene: the robot's actuators from joint targets, the
+    sensors' update) with the feet's friction per env, as the task's
+    startup event leaves it; the YAM's physics step with the fingertips'
+    friction per env (lift_cube_env_cfg.py's three startup events) on the
+    task's own traffic (every env at its reset state, random actions). Each
+    twin: {sim, scene, step, inputs}, inputs(c) writing the control step's
+    command c (G1: joint targets; YAM: ctrl)."""
+    from mjlab_tpu_torch.sim.sim import ControlStep
+
+    twins = []
+    for _ in range(count):
+        sim, state = make_sim(path, num_envs, "cuda")
+        ctrl0 = seed_state(sim, path, state, seed)
+        sim.expand_model_fields(["geom_friction"])
+        gf = sim.model.geom_friction
+        names = sim.model.geom_names
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        if path == "g1":
+            from mjlab_tpu_torch.tasks.velocity.config.g1 import physics
+
+            geoms = [i for i, n in enumerate(names) if "_foot" in n and n.startswith("robot/")]
+            draw = 0.3 + 0.9 * torch.rand(num_envs, len(geoms), generator=gen, device="cuda")
+            gf[:, geoms, 0] = draw
+            scene = physics.make_scene(sim)
+            robot = scene["robot"]
+            robot.data.set_joint_position_target(joint_targets(robot, ctrl0))
+            step = physics.control_step(sim, scene)
+            inputs = robot.data.set_joint_position_target
+        else:
+            # the task's own traffic, as the yam path's (bench.py): every
+            # env at the task's reset state
+            from mjlab_tpu_torch.tasks.manipulation.config.yam import physics
+
+            sim.reset()
+            batch = physics.reset_states(sim.model, state, num_envs, seed)
+            sim.data = sim.data.replace(**{k: torch.as_tensor(v, dtype=sim.dtype, device="cuda")
+                                           for k, v in batch.items()})
+            ctrl0 = sim.data.ctrl.clone()
+            geoms = [i for i, n in enumerate(names) if n.startswith("robot/")]
+            gf[:, geoms, 0] = 0.3 + 1.2 * torch.rand(num_envs, len(geoms), generator=gen,
+                                                     device="cuda")
+            scene = None
+            step = ControlStep(sim, DECIMATION)
+            inputs = lambda c, sim=sim: setattr(sim, "data", sim.data.replace(ctrl=c))  # noqa: E731
+        twins.append(dict(sim=sim, scene=scene, step=step, inputs=inputs, ctrl0=ctrl0,
+                          geoms=geoms))
+    return twins
+
+
+def capture_commands(path: str, twin: dict, steps: int, seed: int) -> list:
+    """Seeded commands for ``steps`` control steps: G1 joint targets at the
+    keyframe + 0.3 N(0, 1); YAM ctrl at the task's home targets + 0.5 N(0,
+    1) times its action scale (the eager paths' traffic)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c0 = twin["ctrl0"]
+    if path == "g1":
+        robot = twin["scene"]["robot"]
+        base = joint_targets(robot, c0)
+        return [base + 0.3 * torch.randn(base.shape, generator=gen, device="cuda")
+                for _ in range(steps)]
+    from mjlab_tpu_torch.tasks.manipulation.config.yam import physics
+
+    scale = 0.5 * physics.action_scale(twin["sim"].model)
+    return [c0 + scale * torch.randn(c0.shape, generator=gen, device="cuda")
+            for _ in range(steps)]
+
+
+def assert_twins_agree(path: str, label: str, de, dc) -> dict:
+    """The captured twin's Data against the eager one's: the step
+    tolerances (E2E_TOL) and the same active contact slots in every env."""
+    errs = {}
+    for f, tol in E2E_TOL[path]:
+        errs[f] = err = rel_err(getattr(de, f), getattr(dc, f))
+        log(f"[capture] {path} {label}: {f} rel err {err:.3e} (tol {tol:.0e})")
+        if not err < tol:
+            raise AssertionError(f"{path} captured vs eager {label} {f}: {err:.3e} >= {tol:.0e}")
+    differ = [e for e in range(de.qpos.shape[0])
+              if not torch.equal(de.con_sel[e][de.con_sel_active[e]].sort().values,
+                                 dc.con_sel[e][dc.con_sel_active[e]].sort().values)]
+    log(f"[capture] {path} {label}: envs with the same active contact slots "
+        f"{de.qpos.shape[0] - len(differ)} of {de.qpos.shape[0]}")
+    if differ:
+        raise AssertionError(f"{path} captured vs eager {label}: envs {differ[:10]} "
+                             "select other active slots")
+    if int(dc.ncheck_reset.sum()) or not bool(torch.isfinite(dc.qpos).all()):
+        raise AssertionError(f"{path} captured {label}: diverged or non-finite state")
+    return errs
+
+
+def timed_control_steps(run, commands) -> float:
+    """Milliseconds (CUDA events) of one control step per command, each
+    command written just before its step."""
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for c in commands:
+        run(c)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / len(commands)
+
+
+def sensors_on_card_match_cpu(seed: int) -> dict:
+    """The G1 scene's sensors on the card after 3 captured control steps of
+    64 envs against the CPU port's sensors on the same Data and state (the
+    plain PyTorch path): builtin sensors within SENSOR_TOL relative, the
+    contact sensors' found counts and air times equal, the net foot
+    forces within SENSOR_TOL."""
+    from mjlab_tpu_torch.phys.data import data_from_numpy, tensor_fields
+    from mjlab_tpu_torch.tasks.velocity.config.g1 import physics
+
+    twin = capture_twins("g1", 64, seed, count=1)[0]
+    sim, scene = twin["sim"], twin["scene"]
+    twin["step"].capture(warmup=CAPTURE_WARMUP)
+    for c in capture_commands("g1", twin, 3, seed):
+        twin["inputs"](c)
+        twin["step"].replay()
+    torch.cuda.synchronize()
+    cpu_sim, _ = make_sim("g1", 64, "cpu")
+    cpu_sim.expand_model_fields(["geom_friction"])
+    cpu_sim.model.geom_friction.copy_(sim.model.geom_friction.cpu())
+    d = sim.data
+    cpu_sim.data = data_from_numpy({n: (d.contact.packed if n == "contact" else getattr(d, n))
+                                    .cpu().numpy() for n in tensor_fields()}, device="cpu")
+    cpu_scene = physics.make_scene(cpu_sim)
+    for a, b in zip(cpu_scene.state_tensors(), scene.state_tensors()):
+        a.copy_(b.cpu())
+    errs = {}
+    for name, s in scene.sensors.items():
+        got, ref = s.data, cpu_scene[name].data
+        if isinstance(got, torch.Tensor):
+            errs[name] = rel_err(ref, got.cpu())
+            ok = errs[name] < SENSOR_TOL
+        else:
+            fields = [f for f in ("found", "force", "current_air_time", "last_air_time")
+                      if getattr(ref, f) is not None]
+            errs[name] = max(rel_err(getattr(ref, f), getattr(got, f).cpu()) for f in fields)
+            ok = errs[name] < SENSOR_TOL and all(
+                torch.equal(getattr(ref, f), getattr(got, f).cpu())
+                for f in fields if f != "force")
+        log(f"[capture] g1 sensor {name} on the card vs the CPU port, 64 envs: rel err "
+            f"{errs[name]:.3e} (tol {SENSOR_TOL:.0e})")
+        if not ok:
+            raise AssertionError(f"g1 sensor {name}: card and CPU disagree ({errs[name]:.3e})")
+    return errs
+
+
+def run_capture_path(path: str) -> tuple[dict, dict]:
+    """The path's control step captured as one CUDA graph at NUM_ENVS envs:
+    (launches, summary). The kernel launch counts are set to 0 just
+    before the twins are built and read after the capture: the capture
+    records each kernel once per control step (the warm-up steps launch
+    them too); replays do not pass through the wrappers, and the profile of
+    one replay shows the graph launching them."""
+    zero_launches()
+    eager, cap = capture_twins(path, NUM_ENVS, SEED)
+    t0 = time.perf_counter()
+    cap["step"].capture(warmup=CAPTURE_WARMUP)
+    capture_s = time.perf_counter() - t0
+    launches = read_launches()
+    per_step = {k: v / (CAPTURE_WARMUP + 1) for k, v in launches.items()}
+    elliptic = path == "yam"
+    expected = {
+        "kin_com": DECIMATION + 1, "crb_packed": DECIMATION, "vel_smooth": DECIMATION,
+        "newton_assemble_solve": 0 if elliptic else DECIMATION,
+        "newton_assemble_solve_elliptic": DECIMATION if elliptic else 0,
+        "newton_solve_dense": 0,
+    }
+    log(f"[capture] {path}: captured in {capture_s:.2f} s ({CAPTURE_WARMUP} warm-up "
+        f"control steps, the last with host synchronisation an error); launches "
+        f"{launches}, per control step {per_step}, expected {expected}")
+    if per_step != expected:
+        raise AssertionError(f"{path} captured launches per control step {per_step} "
+                             f"!= {expected}")
+
+    # captured against eager after CAPTURE_CHECK_STEPS control steps
+    commands = capture_commands(path, eager, CAPTURE_CHECK_STEPS + 2 * CAPTURE_STEPS
+                                * CAPTURE_REPEATS, SEED + 1)
+    check, timed = commands[:CAPTURE_CHECK_STEPS], commands[CAPTURE_CHECK_STEPS:]
+    for c in check:
+        for t, run in ((eager, eager["step"].eager), (cap, cap["step"].replay)):
+            t["inputs"](c)
+            run()
+    torch.cuda.synchronize()
+    errs = assert_twins_agree(path, f"{CAPTURE_CHECK_STEPS} control steps",
+                              eager["sim"].data, cap["sim"].data)
+
+    # a masked reset and a friction write between replays: the graph reads
+    # the buffers they wrote
+    mask = torch.zeros(NUM_ENVS, dtype=torch.bool, device="cuda")
+    mask[::3] = True
+    draw = torch.linspace(0.35, 1.15, NUM_ENVS, device="cuda")[:, None]
+    for t in (eager, cap):
+        t["sim"].reset(mask)
+        if t["scene"] is not None:
+            t["scene"].reset(mask)
+        t["sim"].model.geom_friction[:, t["geoms"], 0] = draw
+        t["inputs"](check[-1])
+    eager["step"].eager()
+    cap["step"].replay()
+    torch.cuda.synchronize()
+    assert_twins_agree(path, "after a masked reset and a friction write",
+                       eager["sim"].data, cap["sim"].data)
+    d = cap["sim"].data
+    dt = cap["sim"].cfg.mujoco.timestep
+    if not torch.allclose(d.time[mask], torch.full_like(d.time[mask], DECIMATION * dt)):
+        raise AssertionError(f"{path}: the replay did not restart the reset envs")
+    # the slots' friction is what the per-env mixing makes of the new
+    # values (slot_params, evaluated now, outside the graph)
+    from mjlab_tpu_torch.phys.lm.base import Params
+    from mjlab_tpu_torch.phys.lm.collision import slot_params
+
+    m = cap["sim"].model
+    f5 = slot_params(m, Params(m, NUM_ENVS), d.qpos.dtype)[0][:, 0]  # (S, E)
+    sel = d.con_sel.long().T  # (K, E)
+    want = torch.gather(f5.expand(-1, NUM_ENVS), 0, sel).T
+    pt = m.pairs
+    geoms = np.asarray(cap["geoms"])
+    on_geom = torch.as_tensor(np.isin(pt.con_geom1, geoms) | np.isin(pt.con_geom2, geoms),
+                              device="cuda")[d.con_sel.long()] & d.con_sel_active
+    act = d.con_sel_active
+    ok = torch.equal(d.con_packed_c[..., 5][act], want[act])
+    log(f"[capture] {path}: after the reset, {int(mask.sum())} reset envs at time "
+        f"{DECIMATION * dt:.3f} s; the friction of all {int(act.sum())} active slots "
+        f"({int(on_geom.sum())} on the written geoms) is the mix of the new values: {ok}")
+    if not (ok and bool(on_geom.any())):
+        raise AssertionError(f"{path}: the replay did not read the friction write")
+
+    # throughput: eager and captured control steps, CAPTURE_REPEATS repeats
+    # of CAPTURE_STEPS each, in turns
+    def runner(t, fn):
+        def run(c):
+            t["inputs"](c)
+            fn()
+        return run
+
+    ms = {"eager": [], "captured": []}
+    for r in range(CAPTURE_REPEATS):
+        chunk = timed[2 * r * CAPTURE_STEPS:(2 * r + 2) * CAPTURE_STEPS]
+        ms["eager"].append(timed_control_steps(runner(eager, eager["step"].eager),
+                                               chunk[:CAPTURE_STEPS]))
+        ms["captured"].append(timed_control_steps(runner(cap, cap["step"].replay),
+                                                  chunk[CAPTURE_STEPS:]))
+    rates = {k: [NUM_ENVS / (v / 1e3) for v in vals] for k, vals in ms.items()}
+    med = {k: float(np.median(v)) for k, v in rates.items()}
+    for k in ("eager", "captured"):
+        log(f"[capture] {path} {k}: env-steps/s at {NUM_ENVS} envs, median of "
+            f"{CAPTURE_REPEATS} x {CAPTURE_STEPS} control steps: {med[k]:.1f} (repeats "
+            + ", ".join(f"{x:.1f}" for x in rates[k]) + "); ms per control step "
+            + ", ".join(f"{x:.3f}" for x in ms[k]))
+    c = timed[-1]
+    want = {n: v for n, v in expected.items() if v}
+
+    def replay_launched(prof):
+        # the profiler may drop a record now and then: every kernel of the
+        # step must show, at most as often as the capture recorded it
+        seen = {n: v["launches"] for n, v in prof["by_kernel"].items()}
+        if set(seen) != set(want) or any(seen[n] > want[n] for n in seen):
+            return f"one replay launched {seen}, expected {want}"
+        return None
+
+    profiles = {}
+    for k, t, fn in (("eager", eager, eager["step"].eager), ("captured", cap, cap["step"].replay)):
+        prof = device_profile(fn, prepare=lambda t=t: t["inputs"](c),
+                              accept=replay_launched if k == "captured" else None)
+        if not prof["kernels"]:
+            raise AssertionError(f"{path} {k}: the profiler {prof['refused']}")
+        profiles[k] = prof
+        log(f"[capture] {path} {k} control step under the profiler: {prof['kernels']} CUDA "
+            f"kernels, device busy {prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms "
+            f"span, idle share {prof['idle_share']:.3f}; " + ", ".join(
+                f"{n} {v['launches']} x {v['ms_per_launch']:.4f} ms"
+                for n, v in prof["by_kernel"].items()))
+        log(f"[capture] {path} {k}: the CUDA kernels with the most device time: " + "; ".join(
+            f"{t['name'][:60]} {t['launches']} x, {t['ms']:.3f} ms" for t in prof["top"]))
+    del eager, cap, d
+    torch.cuda.empty_cache()
+    summary = {"env_steps_per_s": med, "env_steps_per_s_repeats": rates,
+               "ms_per_control_step": {k: float(np.median(v)) for k, v in ms.items()},
+               "device_ms_per_control_step": {k: p["busy_ms"] for k, p in profiles.items()},
+               "idle_share": {k: p["idle_share"] for k, p in profiles.items()},
+               "cuda_kernels_per_control_step": {k: p["kernels"] for k, p in profiles.items()},
+               "capture_s": capture_s, "launches_per_control_step": per_step,
+               "check_rel_err": errs}
+    if path == "g1":
+        summary["sensor_rel_err_card_vs_cpu"] = sensors_on_card_match_cpu(SEED + 2)
+    return launches, summary
 
 
 # ---------------------------------------------------------------------------
@@ -1082,33 +1475,44 @@ def run_forward_path() -> tuple[dict, dict, dict]:
     return kernels, launches, summary
 
 
-def kernel_rows(per_path: dict, launches: dict) -> list[dict]:
-    """One row per kernel. The smooth kernels run on both paths: their row
-    holds the YAM path's numbers (this slice's main path) and every
-    path's under "per_path"; the solve kernel of each cone is a row of its
-    own, from the path that runs it."""
+# the kernel rows' numbers: the kernel checks of the path that runs the
+# kernel (the G1 physics for kernels 1-4, the YAM for 5, g1_forward for 6),
+# and the launches of this slice's main paths, the captured control steps
+# (g1_capture, yam_capture; kernel 6: g1_forward)
+CHECK_PATH = {"kin_com": "g1", "crb_packed": "g1", "vel_smooth": "g1",
+              "newton_assemble_solve": "g1", "newton_assemble_solve_elliptic": "yam",
+              "newton_solve_dense": "g1_forward"}
+LAUNCH_PATH = {"kin_com": "g1_capture", "crb_packed": "g1_capture",
+               "vel_smooth": "g1_capture", "newton_assemble_solve": "g1_capture",
+               "newton_assemble_solve_elliptic": "yam_capture",
+               "newton_solve_dense": "g1_forward"}
+
+
+def kernel_rows(per_path: dict, launches: dict, capture: dict) -> list[dict]:
+    """One row per kernel: its check's numbers (CHECK_PATH), its launches
+    on this slice's main path (LAUNCH_PATH, with the launches per control
+    step the capture recorded), and every path's numbers under
+    "per_path"."""
     rows = []
     for name in REPLACES:
         runs = {p: per_path[p][name] for p in per_path if name in per_path[p]}
-        top = "yam" if "yam" in runs else next(iter(runs))
+        top, lp = CHECK_PATH[name], LAUNCH_PATH[name]
         r = runs[top]
         row = dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=launches[top][name], max_abs_err=r["max_abs_err"],
+            launches=launches[lp][name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], wrapper_ms=r["wrapper_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=None, path=top,
-            **({"launches_per_forward": launches[top][name] / FORWARD_CALLS}
-               if top == "g1_forward" else
-               {"launches_per_control_step": launches[top][name] / CONTROL_STEPS}),
+            bound_by=r["bound_by"], library_ms=None, path=top, launch_path=lp,
+            **({"launches_per_forward": launches[lp][name] / FORWARD_CALLS}
+               if lp == "g1_forward" else
+               {"launches_per_control_step":
+                capture[lp.split("_")[0]]["launches_per_control_step"][name]}),
             max_rel_err=r["max_rel_err"], bytes=r["bytes"], flops=r["flops"],
         )
         if "iteration_counts_differ" in r:
             row["iteration_counts_differ"] = r["iteration_counts_differ"]
-        if len(runs) > 1:
-            row["per_path"] = {
-                p: dict(runs[p], launches=launches[p][name]) for p in runs
-            }
+        row["per_path"] = {p: dict(runs[p], launches=launches[p][name]) for p in runs}
         rows.append(row)
     return rows
 
@@ -1138,12 +1542,16 @@ def main() -> int:
         per_path[path], launches[path], summary[path] = run_path(path)
     path = "g1_forward"
     per_path[path], launches[path], summary[path] = run_forward_path()
+    capture = {}
+    for path in PATHS:
+        launches[f"{path}_capture"], capture[path] = run_capture_path(path)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    log(json.dumps({"kernels": kernel_rows(per_path, launches)}))
+    log(json.dumps({"kernels": kernel_rows(per_path, launches, capture)}))
+    log(json.dumps({"capture": capture, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"paths": summary, "num_envs": NUM_ENVS,
                     "control_steps": CONTROL_STEPS,
                     "seconds": time.perf_counter() - t_start}))

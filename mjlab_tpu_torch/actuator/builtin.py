@@ -1,21 +1,26 @@
-"""MuJoCo builtin position actuator: the spec edit.
+"""MuJoCo builtin position actuator: the spec edit and the runtime.
 
-PyTorch-package counterpart of the spec side of
-mjlab_tpu/actuator/builtin.py (``BuiltinPositionActuatorCfg``) and of
+PyTorch-package counterpart of mjlab_tpu/actuator/builtin.py
+(``BuiltinPositionActuatorCfg`` and ``BuiltinPositionActuator``) and of
 mjlab_tpu/utils/spec.py:create_position_actuator. The PD law is an affine
 gain/bias that the physics step evaluates, and the implicitfast integrator
-treats its damping term implicitly.
+treats its damping term implicitly; at run time the actuator passes the
+joint position target through to ctrl.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import TYPE_CHECKING
 
-import mujoco
+from mjlab_tpu_torch.actuator.actuator import Actuator, ActuatorCmd
+
+if TYPE_CHECKING:
+    import mujoco
 
 
 def create_position_actuator(
-    spec: mujoco.MjSpec,
+    spec: "mujoco.MjSpec",
     joint_name: str,
     *,
     stiffness: float,
@@ -23,9 +28,11 @@ def create_position_actuator(
     effort_limit: float | None = None,
     armature: float = 0.0,
     frictionloss: float = 0.0,
-) -> mujoco.MjsActuator:
+) -> "mujoco.MjsActuator":
     """Affine PD <position> actuator on a joint (gainprm kp; biasprm -kp,
     -kd), ctrl unlimited; sets the joint's armature and frictionloss."""
+    import mujoco
+
     a = spec.add_actuator(name=joint_name, target=joint_name)
     a.trntype = mujoco.mjtTrn.mjTRN_JOINT
     a.dyntype = mujoco.mjtDyn.mjDYN_NONE
@@ -55,7 +62,10 @@ class BuiltinPositionActuatorCfg:
     armature: float = 0.0
     frictionloss: float = 0.0
 
-    def edit_spec(self, spec: mujoco.MjSpec, joint_names) -> None:
+    def build(self, joint_ids, joint_names) -> "BuiltinPositionActuator":
+        return BuiltinPositionActuator(self, joint_ids, joint_names)
+
+    def edit_spec(self, spec: "mujoco.MjSpec", joint_names) -> None:
         """Add one position actuator per joint, in the given order."""
         for name in joint_names:
             create_position_actuator(
@@ -67,3 +77,13 @@ class BuiltinPositionActuatorCfg:
                 armature=self.armature,
                 frictionloss=self.frictionloss,
             )
+
+
+class BuiltinPositionActuator(Actuator):
+    """ctrl = the joint position target (the physics computes the force)."""
+
+    is_passthrough = True
+    target = "position"
+
+    def compute(self, state, cmd: ActuatorCmd):
+        return cmd.position_target

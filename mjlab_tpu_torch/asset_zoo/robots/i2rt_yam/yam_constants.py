@@ -23,7 +23,7 @@ from pathlib import Path
 import mujoco
 
 from mjlab_tpu_torch.actuator.builtin import BuiltinPositionActuatorCfg
-from mjlab_tpu_torch.scene.scene import EntityCfg, InitialStateCfg
+from mjlab_tpu_torch.entity.entity import EntityCfg, InitialStateCfg
 from mjlab_tpu_torch.utils.actuator import (
     ElectricActuator, reflect_rotary_to_linear,
 )

@@ -15,12 +15,14 @@ from __future__ import annotations
 
 import os
 from pathlib import Path
-
-import mujoco
+from typing import TYPE_CHECKING
 
 from mjlab_tpu_torch.actuator.builtin import BuiltinPositionActuatorCfg
-from mjlab_tpu_torch.scene.scene import EntityCfg, InitialStateCfg
+from mjlab_tpu_torch.entity.entity import EntityCfg, InitialStateCfg
 from mjlab_tpu_torch.utils.spec_config import CollisionCfg
+
+if TYPE_CHECKING:
+    import mujoco
 
 G1_XML: Path = (
     Path(__file__).resolve().parents[4]
@@ -33,7 +35,9 @@ def get_assets() -> dict[str, bytes]:
     return {os.path.join("assets", f): (d / f).read_bytes() for f in os.listdir(d)}
 
 
-def get_spec() -> mujoco.MjSpec:
+def get_spec() -> "mujoco.MjSpec":
+    import mujoco
+
     spec = mujoco.MjSpec.from_file(str(G1_XML))
     spec.assets = get_assets()
     return spec
@@ -167,10 +171,12 @@ FULL_COLLISION = CollisionCfg(
 
 def get_g1_robot_cfg() -> EntityCfg:
     """The G1 as the velocity task builds it: knees-bent keyframe, full
-    collision, the six actuator classes."""
+    collision, the six actuator classes, soft joint limits at 0.9 of the
+    range."""
     return EntityCfg(
         spec_fn=get_spec,
         init_state=KNEES_BENT_KEYFRAME,
         collisions=(FULL_COLLISION,),
         actuators=G1_ACTUATORS,
+        soft_joint_pos_limit_factor=0.9,
     )

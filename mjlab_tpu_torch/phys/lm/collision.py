@@ -10,7 +10,10 @@ first on ties, and box-box picks its separating axis as argmax does
 (first axis on ties). Pair groups run as
 (P, E) tensors, pairs on the first axis and envs on the last. Per-slot
 contact parameters (friction, solref, solimp, margin - gap) are mixed on
-the host in numpy: no geom parameter is per-env in this package.
+the host in numpy once per Model while every env shares the geom
+parameters, and on the device inside every step once a domain
+randomisation event has given one of them a leading env axis
+(Simulation.expand_model_fields).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 from mjlab_tpu_torch.phys.lm.base import Params
 from mjlab_tpu_torch.phys.model import (
     GEOM_BOX, GEOM_CAPSULE, GEOM_PLANE, GEOM_SPHERE, Model, cached,
-    host_array,
+    device_array, host_array,
 )
 
 # (type1, type2) narrowphase families carried by collision_lm
@@ -91,9 +94,29 @@ def _np_pair_params(m: Model):
     return friction5, solref, solimp, margin, gap
 
 
+# the geom parameters the slot mixing reads, with their shared ndim; a
+# field with one axis more carries a value per env (E, ngeom, ...)
+PARAM_FIELDS = {
+    "geom_friction": 2, "geom_solref": 2, "geom_solimp": 2,
+    "geom_solmix": 1, "geom_margin": 1, "geom_gap": 1,
+}
+
+
+def per_env_params(m: Model) -> frozenset[str]:
+    """The slot-parameter fields of m that carry a value per env."""
+    return frozenset(
+        n for n, nd in PARAM_FIELDS.items() if getattr(m, n).dim() > nd
+    )
+
+
 def slot_params(m: Model, P: Params, dtype):
-    """Per contact-SLOT parameters: friction5 (S, 5, 1), solref (S, 2, 1),
-    solimp (S, 5, 1), includemargin (S, 1), shared by every env."""
+    """Per contact-SLOT parameters: friction5 (S, 5, Eb), solref (S, 2, Eb),
+    solimp (S, 5, Eb), includemargin (S, Eb); Eb is 1 when every env
+    shares the geom parameters (mixed once on the host and cached) and E
+    when one of them is per env (mixed on the device on every call, so a
+    domain randomisation write to the field is read by the next step)."""
+    if per_env_params(m):
+        return _device_slot_params(m, dtype)
 
     def make():
         cp = m.pairs.con_pairid
@@ -108,6 +131,71 @@ def slot_params(m: Model, P: Params, dtype):
         )
 
     return cached(m, ("slot_params", dtype), make)
+
+
+def _device_slot_params(m: Model, dtype):
+    """slot_params with per-env geom parameters: MuJoCo's priority and
+    solmix rules on (npair, k, Eb) tensors, as the JAX package's traced
+    DR path (mjlab_tpu/phys/lm/collision.py:98-149)."""
+    pt = m.pairs
+    dev = m.device
+    index = lambda key, x: device_array(m, key, lambda: x, torch.long)  # noqa: E731
+    g1, g2 = index("pair_geom1", pt.geom1), index("pair_geom2", pt.geom2)
+    batched = per_env_params(m)
+
+    def gf(name, g):
+        v = getattr(m, name).to(dtype)
+        if name in batched:
+            v = torch.movedim(v, 0, -1)  # (ngeom, ..., E)
+        else:
+            v = v[..., None]
+        v = v[g]
+        return v if v.dim() == 3 else v[:, None]  # (npair, k, Eb)
+
+    f1, f2 = gf("geom_friction", g1), gf("geom_friction", g2)
+    sr1, sr2 = gf("geom_solref", g1), gf("geom_solref", g2)
+    si1, si2 = gf("geom_solimp", g1), gf("geom_solimp", g2)
+    mix1, mix2 = gf("geom_solmix", g1), gf("geom_solmix", g2)
+    pri = lambda g: torch.as_tensor(m.geom_priority[g], device=dev)[:, None, None]  # noqa: E731
+    pri1, pri2 = cached(m, "pair_priority", lambda: (pri(pt.geom1), pri(pt.geom2)))
+
+    denom = mix1 + mix2
+    w = torch.where(denom > 1e-12, mix1 / torch.where(denom > 1e-12, denom, 1.0), 0.5)
+    w = torch.where((mix1 < 1e-12) & (mix2 < 1e-12), 0.5, w)
+    w = torch.where((mix1 < 1e-12) & (mix2 >= 1e-12), 0.0, w)
+    w = torch.where((mix2 < 1e-12) & (mix1 >= 1e-12), 1.0, w)
+
+    solref_mix = w * sr1 + (1 - w) * sr2
+    direct = (sr1[:, 0:1] <= 0) | (sr2[:, 0:1] <= 0)
+    solref = torch.where(direct, torch.minimum(sr1, sr2), solref_mix)
+    solimp = w * si1 + (1 - w) * si2
+    friction = torch.maximum(f1, f2)
+
+    p1_gt, p2_gt = pri1 > pri2, pri2 > pri1
+    friction = torch.where(p1_gt, f1, torch.where(p2_gt, f2, friction))
+    solref = torch.where(p1_gt, sr1, torch.where(p2_gt, sr2, solref))
+    solimp = torch.where(p1_gt, si1, torch.where(p2_gt, si2, solimp))
+    margin = torch.maximum(gf("geom_margin", g1), gf("geom_margin", g2))[:, 0]
+    gap = torch.maximum(gf("geom_gap", g1), gf("geom_gap", g2))[:, 0]
+
+    friction5 = torch.stack(
+        [friction[:, 0], friction[:, 0], friction[:, 1], friction[:, 2],
+         friction[:, 2]],
+        dim=1,
+    )
+    if pt.ex_mask.any():
+        def ex(name, x, rows):
+            v = device_array(m, ("pair_" + name, dtype), lambda: getattr(pt, name), dtype)
+            return torch.where(rows, v[..., None], x)
+
+        exm = device_array(m, "pair_ex_mask", lambda: pt.ex_mask, torch.bool)
+        friction5 = ex("ex_friction5", friction5, exm[:, None, None])
+        solref = ex("ex_solref", solref, exm[:, None, None])
+        solimp = ex("ex_solimp", solimp, exm[:, None, None])
+        margin = ex("ex_margin", margin, exm[:, None])
+        gap = ex("ex_gap", gap, exm[:, None])
+    cp = index("slot_pair", pt.con_pairid)
+    return friction5[cp], solref[cp], solimp[cp], (margin - gap)[cp]
 
 
 # 3-vectors are (P, 3, E) tensors (pairs, component, envs) and frames
@@ -180,15 +268,13 @@ def _rot_t(R, v):
             + Rm[:, 2] * v[..., 2:3, :])
 
 
-_CORNER_SIGNS = tuple(
-    (sx, sy, sz) for sx in (-1.0, 1.0) for sy in (-1.0, 1.0) for sz in (-1.0, 1.0)
-)
-
-
 def _corners(xp, xm, size):
     """The 8 corners (8, P, 3, E) of boxes at xp (P, 3, E), frames xm
-    (P, 9, E), half-sizes size (P, 3), in the order of _CORNER_SIGNS."""
-    signs = torch.tensor(_CORNER_SIGNS, dtype=size.dtype, device=size.device)
+    (P, 9, E), half-sizes size (P, 3): corner c has the signs of the bits
+    of c (x the highest), -1 for 0, the JAX package's corner order."""
+    # made on the device: no host copy inside a captured step
+    i = torch.arange(8, device=size.device)
+    signs = (2 * torch.stack([(i >> 2) & 1, (i >> 1) & 1, i & 1], 1) - 1).to(size.dtype)
     local = (signs[:, None] * size[None])[..., None]  # (8, P, 3, 1)
     return xp + _rot(xm, local)
 

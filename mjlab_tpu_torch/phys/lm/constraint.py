@@ -276,10 +276,13 @@ def make_constraint_lm(m: Model, P: Params, k: dict, q, qvel, dtype,
         pos_k = featk[:, 1:4]  # (K, 3, E)
         frame_k = featk[:, 4:13]  # (K, 9, E) rows [n, t1, t2]
 
-        ptab = torch.cat(
-            [f5[..., 0], sr_s[..., 0], si_s[..., 0], inclm], dim=1
-        )  # (S, 13)
-        pk = ptab[sel].permute(0, 2, 1)  # (K, 13, E)
+        parts = (f5, sr_s, si_s, inclm[:, None])
+        Eb = max(x.shape[-1] for x in parts)
+        ptab = torch.cat([x.expand(-1, -1, Eb) for x in parts], dim=1)  # (S, 13, Eb)
+        if ptab.shape[-1] == 1:  # every env shares the slot parameters
+            pk = ptab[:, :, 0][sel].permute(0, 2, 1)  # (K, 13, E)
+        else:
+            pk = torch.gather(ptab, 0, sel[:, None, :].expand(K, 13, E))
         mu_k = pk[:, 0:5]
         solref_k = pk[:, 5:7]
         solimp_k = pk[:, 7:12]

@@ -1,12 +1,17 @@
-"""Scene: MjSpec composition of a terrain plane and entities, compiled once.
+"""Scene: MjSpec composition of a terrain plane and entities, and the
+runtime fan-out to the composed entities and sensors.
 
-PyTorch-package counterpart of the host side of mjlab_tpu/scene/scene.py
-(``Scene.__init__`` and ``compile``), of the spec edits of
-mjlab_tpu/entity/entity.py (``Entity.__init__``: a fixed base wrapped in a
-mocap body, a free object without a keyframe) and of the plane branch of
-mjlab_tpu/terrains/importer.py. Entities attach under a "{name}/" prefix and
-the terrain under "terrain/". The runtime side (entity state, sensors,
-managers) belongs to a later slice.
+PyTorch-package counterpart of mjlab_tpu/scene/scene.py. The host side
+(``Scene.spec`` and ``compile``, with the spec edits of
+mjlab_tpu/entity/entity.py ``Entity.__init__`` and the plane branch of
+mjlab_tpu/terrains/importer.py) needs MuJoCo; entities attach under a
+"{name}/" prefix and the terrain under "terrain/". The runtime side
+(``initialize``, ``reset``, ``update``, ``write_data_to_sim``,
+``env_origins``) needs only the port's Model, so it runs on a machine
+without MuJoCo from a saved model file: entities resolve their indices
+from the Model's names, and the sensors the entity XMLs declare come as
+XmlSensor rows (``xml_sensors`` of a compiled MjModel, or the rows a model
+file keeps).
 
 ``g1_velocity_flat_model()`` compiles the scene of the
 Mjlab-Velocity-Flat-Unitree-G1 task (a ground plane and the G1 robot),
@@ -16,13 +21,21 @@ YAM arm and the cube).
 
 from __future__ import annotations
 
-import re
 from dataclasses import dataclass, field
-from typing import Callable, Sequence
+from typing import TYPE_CHECKING
 
-import mujoco
+import numpy as np
+import torch
 
-from mjlab_tpu_torch.utils.spec import auto_wrap_fixed_base_mocap
+from mjlab_tpu_torch.entity.entity import Entity, EntityCfg
+from mjlab_tpu_torch.utils.string import (
+    resolve_matching_names, resolve_matching_names_values,
+)
+
+if TYPE_CHECKING:
+    import mujoco
+
+    from mjlab_tpu_torch.sim.sim import Simulation
 
 _SCENE_VISUAL_XML = """
 <mujoco>
@@ -40,70 +53,27 @@ PLANE_FRICTION = (1.0, 0.005, 0.0001)
 
 
 @dataclass
-class InitialStateCfg:
-    """Root pose (a floating base's free joint, or a fixed base's mocap
-    frame) and joint positions by regex; joint_pos None adds no keyframe."""
-
-    pos: tuple = (0.0, 0.0, 0.0)
-    rot: tuple = (1.0, 0.0, 0.0, 0.0)
-    joint_pos: dict[str, float] | None = field(
-        default_factory=lambda: {".*": 0.0}
-    )
-
-
-@dataclass
-class EntityCfg:
-    """An entity's spec and the editors applied to it before attach."""
-
-    spec_fn: Callable[[], mujoco.MjSpec]
-    init_state: InitialStateCfg = field(default_factory=InitialStateCfg)
-    collisions: tuple = ()
-    actuators: tuple = ()
-
-
-@dataclass
 class SceneCfg:
+    """Entities by name, the terrain plane, the sensors (configs with a
+    ``build(scene)``) and the spacing of the env origins' grid."""
+
     entities: dict[str, EntityCfg] = field(default_factory=dict)
     plane_terrain: bool = True
     plane_friction: tuple = PLANE_FRICTION
+    sensors: tuple = ()
+    env_spacing: float = 2.0
 
 
-def _matching(keys: Sequence[str], names: Sequence[str]) -> list[str]:
-    """Names (in ``names`` order) matched by any regex of keys; every key
-    must match at least one name."""
-    compiled = [re.compile(k) for k in keys]
-    used = [False] * len(keys)
-    out = []
-    for n in names:
-        for ki, c in enumerate(compiled):
-            if c.fullmatch(n):
-                out.append(n)
-                used[ki] = True
-                break
-    if not all(used):
-        unused = [k for k, u in zip(keys, used) if not u]
-        raise ValueError(f"no names matched for expressions {unused}")
-    return out
-
-
-def _matching_values(data: dict[str, float], names: Sequence[str]) -> dict:
-    """{name: value} for the names matched by exactly one regex of data."""
-    out = {}
-    for n in names:
-        hits = [k for k in data if re.fullmatch(k, n)]
-        if len(hits) > 1:
-            raise ValueError(f"name {n!r} matched by {hits}")
-        if hits:
-            out[n] = float(data[hits[0]])
-    return out
-
-
-def build_entity_spec(cfg: EntityCfg) -> mujoco.MjSpec:
+def build_entity_spec(cfg: EntityCfg) -> "mujoco.MjSpec":
     """The entity's spec with its editors applied: a fixed base wrapped in
     a mocap body, unnamed geoms and sites named, collision presets, one
     actuator per claimed joint, and an "init_state" keyframe from
     cfg.init_state (none when its joint_pos is None: a free object keeps
     the model's qpos0)."""
+    import mujoco
+
+    from mjlab_tpu_torch.utils.spec import auto_wrap_fixed_base_mocap
+
     spec = auto_wrap_fixed_base_mocap(cfg.spec_fn)()
     joints = list(spec.joints)
     floating = bool(joints) and joints[0].type == mujoco.mjtJoint.mjJNT_FREE
@@ -121,7 +91,7 @@ def build_entity_spec(cfg: EntityCfg) -> mujoco.MjSpec:
     joint_names = [j.name for j in joints]
     claimed: set[str] = set()
     for acfg in cfg.actuators:
-        names = _matching(acfg.joint_names_expr, joint_names)
+        _, names = resolve_matching_names(list(acfg.joint_names_expr), joint_names)
         overlap = claimed & set(names)
         if overlap:
             raise ValueError(f"joints claimed twice: {sorted(overlap)}")
@@ -133,7 +103,8 @@ def build_entity_spec(cfg: EntityCfg) -> mujoco.MjSpec:
         if spec.keys:
             spec.keys[0].name = "init_state"
         return spec
-    by_name = _matching_values(ist.joint_pos, joint_names)
+    _, matched, values = resolve_matching_names_values(ist.joint_pos, joint_names)
+    by_name = {n: float(v) for n, v in zip(matched, values)}
     qpos = list(ist.pos) + list(ist.rot) if floating else []
     qpos += [by_name.get(n, 0.0) for n in joint_names]
     ctrl = []
@@ -144,41 +115,235 @@ def build_entity_spec(cfg: EntityCfg) -> mujoco.MjSpec:
     return spec
 
 
+@dataclass(frozen=True)
+class XmlSensor:
+    """A sensor an entity XML declares (an auto-wrapped builtin sensor of
+    mjlab_tpu/scene/scene.py:111-121): its prefixed name, the port's type
+    name (builtin_sensor.SPEC_SENSOR_TYPES), the kind and prefixed name of
+    its object and of its reference frame ("" for none), and its cutoff."""
+
+    name: str
+    type: str
+    objtype: str
+    objname: str
+    reftype: str = ""
+    refname: str = ""
+    cutoff: float = 0.0
+
+
+_XML_SENSOR_KEYS = ("name", "type", "objtype", "objname", "reftype", "refname")
+
+
+def xml_sensors(mj: "mujoco.MjModel") -> tuple[XmlSensor, ...]:
+    """The sensors of a compiled MjModel whose type the builtin sensor
+    surface names (others, e.g. contact sensors, are skipped as the JAX
+    scene's auto-wrap skips them)."""
+    import mujoco
+
+    from mjlab_tpu_torch.sensor.builtin_sensor import SPEC_SENSOR_TYPES
+
+    obj = mujoco.mjtObj
+    kinds = {
+        obj.mjOBJ_BODY: "body", obj.mjOBJ_XBODY: "xbody", obj.mjOBJ_GEOM: "geom",
+        obj.mjOBJ_SITE: "site", obj.mjOBJ_JOINT: "joint",
+        obj.mjOBJ_ACTUATOR: "actuator", obj.mjOBJ_TENDON: "tendon",
+    }
+    out = []
+    for i in range(mj.nsensor):
+        entry = SPEC_SENSOR_TYPES.get(mujoco.mjtSensor(int(mj.sensor_type[i])).name)
+        if entry is None:
+            continue
+        stype, kind = entry
+        ot, oid = int(mj.sensor_objtype[i]), int(mj.sensor_objid[i])
+        rt, rid = int(mj.sensor_reftype[i]), int(mj.sensor_refid[i])
+        objname = mujoco.mj_id2name(mj, ot, oid) or "" if oid >= 0 else ""
+        refname = mujoco.mj_id2name(mj, rt, rid) or "" if rid >= 0 else ""
+        out.append(XmlSensor(
+            name=mujoco.mj_id2name(mj, obj.mjOBJ_SENSOR, i) or "",
+            type=stype, objtype=kind or kinds.get(ot, "site"), objname=objname,
+            reftype=kinds.get(rt, "site") if refname else "", refname=refname,
+            cutoff=float(mj.sensor_cutoff[i]),
+        ))
+    return tuple(out)
+
+
+def xml_sensor_arrays(sensors: tuple[XmlSensor, ...]) -> dict[str, np.ndarray]:
+    """The rows as arrays a model file keeps (phys/model.py save_model
+    extras, no pickling)."""
+    out = {f"sensor_{k}": np.asarray([getattr(s, k) for s in sensors], dtype=np.str_)
+           for k in _XML_SENSOR_KEYS}
+    out["sensor_cutoff"] = np.asarray([s.cutoff for s in sensors], np.float64)
+    return out
+
+
+def xml_sensors_from_arrays(extra: dict[str, np.ndarray]) -> tuple[XmlSensor, ...]:
+    """The rows xml_sensor_arrays wrote."""
+    n = len(extra["sensor_cutoff"])
+    return tuple(
+        XmlSensor(**{k: str(extra[f"sensor_{k}"][i]) for k in _XML_SENSOR_KEYS},
+                  cutoff=float(extra["sensor_cutoff"][i]))
+        for i in range(n)
+    )
+
+
+class SimContext:
+    """The runtime state the composed scene reads and writes: the
+    Simulation's Model and Data (``data`` writes go through the
+    Simulation, in place once it is static) and the per-env state tensors
+    of the entities and sensors, by name."""
+
+    def __init__(self, sim: "Simulation"):
+        self.sim = sim
+        self.entity_states: dict[str, object] = {}
+        self.sensor_states: dict[str, object] = {}
+
+    @property
+    def model(self):
+        return self.sim.model
+
+    @property
+    def data(self):
+        return self.sim.data
+
+    @data.setter
+    def data(self, d) -> None:
+        self.sim.data = d
+
+
 class Scene:
-    """Composes the root spec; ``compile()`` returns the MjModel."""
+    """Composes the root spec (``spec``, ``compile()``) and fans the
+    runtime calls out to its entities and sensors."""
 
     def __init__(self, cfg: SceneCfg):
         self.cfg = cfg
-        self.spec = mujoco.MjSpec.from_string(_SCENE_VISUAL_XML)
-        if cfg.plane_terrain:
-            terrain = mujoco.MjSpec()
-            body = terrain.worldbody.add_body(name="terrain")
-            g = body.add_geom(name="terrain")
-            g.type = mujoco.mjtGeom.mjGEOM_PLANE
-            g.size = [0.0, 0.0, 1.0]
-            g.friction[:] = cfg.plane_friction
-            frame = self.spec.worldbody.add_frame()
-            self.spec.attach(terrain, frame=frame, prefix="terrain/")
-        for name, ecfg in cfg.entities.items():
-            frame = self.spec.worldbody.add_frame()
-            self.spec.attach(build_entity_spec(ecfg), frame=frame, prefix=f"{name}/")
+        self.entities: dict[str, Entity] = {
+            name: Entity(ecfg, name) for name, ecfg in cfg.entities.items()
+        }
+        self.sensors: dict[str, object] = {}
+        for scfg in cfg.sensors:
+            sensor = scfg.build(self)
+            self.sensors[sensor.name] = sensor
+        self._spec = None
+        self.ctx: SimContext | None = None
 
-    def compile(self) -> mujoco.MjModel:
+    def __getitem__(self, key: str):
+        if key in self.entities:
+            return self.entities[key]
+        if key in self.sensors:
+            return self.sensors[key]
+        raise KeyError(
+            f"'{key}' not in scene; entities={list(self.entities)}, "
+            f"sensors={list(self.sensors)}"
+        )
+
+    @property
+    def spec(self) -> "mujoco.MjSpec":
+        """The merged spec (built with MuJoCo on first use)."""
+        if self._spec is None:
+            import mujoco
+
+            spec = mujoco.MjSpec.from_string(_SCENE_VISUAL_XML)
+            if self.cfg.plane_terrain:
+                terrain = mujoco.MjSpec()
+                body = terrain.worldbody.add_body(name="terrain")
+                g = body.add_geom(name="terrain")
+                g.type = mujoco.mjtGeom.mjGEOM_PLANE
+                g.size = [0.0, 0.0, 1.0]
+                g.friction[:] = self.cfg.plane_friction
+                frame = spec.worldbody.add_frame()
+                spec.attach(terrain, frame=frame, prefix="terrain/")
+            for name, ecfg in self.cfg.entities.items():
+                frame = spec.worldbody.add_frame()
+                spec.attach(build_entity_spec(ecfg), frame=frame, prefix=f"{name}/")
+            self._spec = spec
+        return self._spec
+
+    def compile(self) -> "mujoco.MjModel":
         return self.spec.compile()
 
+    # -- runtime --
 
-def g1_velocity_flat_model() -> mujoco.MjModel:
-    """The compiled scene of Mjlab-Velocity-Flat-Unitree-G1: a ground plane
-    and the G1 as "robot/" (options as compiled; Simulation applies the
-    task's MujocoCfg)."""
+    def initialize(self, sim: "Simulation",
+                   sensors: tuple[XmlSensor, ...] = ()) -> SimContext:
+        """Resolve every entity and sensor against sim's Model and give
+        them their per-env state; ``sensors`` are the XML-declared
+        sensors, wrapped as builtin sensors under their prefixed names."""
+        from mjlab_tpu_torch.sensor.builtin_sensor import BuiltinSensor
+
+        self.ctx = ctx = SimContext(sim)
+        for entity in self.entities.values():
+            entity.initialize(ctx)
+        for row in sensors:
+            if row.name not in self.sensors:
+                self.sensors[row.name] = BuiltinSensor.from_xml_sensor(self, row)
+        for sensor in self.sensors.values():
+            sensor.initialize(ctx)
+        n = sim.num_envs
+        side = int(np.ceil(np.sqrt(n)))
+        idx = np.arange(n)
+        origins = np.zeros((n, 3))
+        origins[:, 0] = (idx // side - (side - 1) / 2) * self.cfg.env_spacing
+        origins[:, 1] = (idx % side - (side - 1) / 2) * self.cfg.env_spacing
+        self._env_origins = torch.as_tensor(origins, dtype=sim.dtype, device=sim.device)
+        return ctx
+
+    @property
+    def env_origins(self) -> torch.Tensor:
+        """(num_envs, 3) world origin of each env: a grid of env_spacing
+        about the world origin (the plane terrain's,
+        mjlab_tpu/terrains/importer.py:69-78)."""
+        return self._env_origins
+
+    def reset(self, mask: torch.Tensor) -> None:
+        """Reset the masked envs' entity and sensor state, in place."""
+        for entity in self.entities.values():
+            entity.data.clear_state(mask)
+            entity.reset(mask)
+        for sensor in self.sensors.values():
+            sensor.reset(self.ctx, mask)
+
+    def update(self, dt: float) -> None:
+        """Per-physics-substep sensor state (contact air time)."""
+        for sensor in self.sensors.values():
+            sensor.update(self.ctx, dt)
+
+    def write_data_to_sim(self) -> None:
+        """Every entity's actuator controls into data.ctrl."""
+        for entity in self.entities.values():
+            entity.apply_actuator_controls()
+
+    def state_tensors(self) -> list[torch.Tensor]:
+        """Every per-env state tensor of the entities and sensors (the
+        buffers a captured control step reads and writes besides the
+        Data)."""
+        out = []
+        for entity in self.entities.values():
+            out += entity.state_tensors()
+        for sensor in self.sensors.values():
+            out += sensor.state_tensors(self.ctx)
+        return out
+
+
+def g1_velocity_flat_scene_cfg() -> SceneCfg:
+    """The scene of Mjlab-Velocity-Flat-Unitree-G1: a ground plane, the G1
+    as "robot/", and the task's two contact sensors."""
     from mjlab_tpu_torch.asset_zoo.robots.unitree_g1.g1_constants import (
         get_g1_robot_cfg,
     )
+    from mjlab_tpu_torch.tasks.velocity.config.g1.physics import contact_sensor_cfgs
 
-    return Scene(SceneCfg(entities={"robot": get_g1_robot_cfg()})).compile()
+    return SceneCfg(entities={"robot": get_g1_robot_cfg()},
+                    sensors=contact_sensor_cfgs())
 
 
-def yam_lift_cube_model() -> mujoco.MjModel:
+def g1_velocity_flat_model() -> "mujoco.MjModel":
+    """The compiled scene of Mjlab-Velocity-Flat-Unitree-G1: a ground plane
+    and the G1 as "robot/" (options as compiled; Simulation applies the
+    task's MujocoCfg)."""
+    return Scene(g1_velocity_flat_scene_cfg()).compile()
+
+
+def yam_lift_cube_model() -> "mujoco.MjModel":
     """The compiled scene of Mjlab-Lift-Cube-Yam: a ground plane, the YAM
     arm as "robot/" (fixed base, wrapped in a mocap body) and a free cube
     as "cube/" (options as compiled; Simulation applies the task's

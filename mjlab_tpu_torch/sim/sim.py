@@ -8,21 +8,28 @@ every kernel runs its plain PyTorch version.
 
 The model is a compiled mujoco.MjModel, or a Model already converted (for
 instance one read by phys.model.load_model on a machine without MuJoCo).
+
+The control step (ControlStep) plays the role ``jax.jit`` of the vmapped
+step plays in the JAX package (mjlab_tpu/sim/sim.py:1-12): decimation
+physics substeps, each between the caller's pre- and post-substep calls,
+then the kinematic refresh, captured on the card as one CUDA graph over the
+Simulation's static Data buffers.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Literal
-
 import dataclasses
+from dataclasses import dataclass, field
+from typing import Callable, Literal
 
 import numpy as np
 import torch
 
-from mjlab_tpu_torch.phys.data import Data, make_data, reset_data
+from mjlab_tpu_torch.phys.data import (
+    Contact, Data, make_data, reset_data, tensor_fields,
+)
 from mjlab_tpu_torch.phys.hybrid import forward_hybrid, refresh_envlast, step_envlast
-from mjlab_tpu_torch.phys.lm.collision import PAIR_FAMILIES, pair_families
+from mjlab_tpu_torch.phys.lm.collision import PAIR_FAMILIES, PARAM_FIELDS, pair_families
 from mjlab_tpu_torch.phys.model import (
     CONE_ELLIPTIC, CONE_PYRAMIDAL, INT_EULER, INT_IMPLICITFAST,
     SMOOTH_HOST_FIELDS, TRN_JOINT, Model, model_from_numpy, model_to_numpy,
@@ -49,6 +56,10 @@ class MujocoCfg:
     ls_iterations: int = 50
     ls_tolerance: float = 0.01
     gravity: tuple[float, float, float] = (0, 0, -9.81)
+    # accepted as the JAX package's MujocoCfg accepts them, and unused: the
+    # port's constraint rows are dense, and it has no convex-convex CCD
+    jacobian: Literal["auto", "dense", "sparse"] = "auto"
+    ccd_iterations: int = 50
 
     def apply(self, model: "mujoco.MjModel") -> None:
         model.opt.cone = _CONE_MAP[self.cone]
@@ -83,13 +94,23 @@ class MujocoCfg:
 
 @dataclass(kw_only=True)
 class SimulationCfg:
-    """Simulation configuration. nconmax bounds the compacted contact-slot
-    count K per env (constraint rows are laid out statically, so there is
-    no njmax)."""
+    """Simulation configuration, with the fields of the JAX package's
+    SimulationCfg. nconmax bounds the compacted contact-slot count K per
+    env. Used by the port: nconmax, mujoco, dtype, and
+    contact_sensor_maxmatch (the most contact slots one contact-sensor
+    row may match; sensor/contact_sensor.py checks it). Accepted and
+    unused, as in the JAX package: njmax (constraint rows are laid out
+    statically) and ls_parallel (every env is a batch lane). nan_guard is
+    carried for the env, which reads it (the NaN guard is not ported
+    yet)."""
 
     nconmax: int | None = None
+    njmax: int | None = None
+    ls_parallel: bool = True
+    contact_sensor_maxmatch: int = 64
     mujoco: MujocoCfg = field(default_factory=MujocoCfg)
     dtype: str = "float32"
+    nan_guard: object | None = None
 
 
 def check_supported(m: Model) -> None:
@@ -132,10 +153,14 @@ _VECTOR_FIELDS = frozenset({
 
 class Simulation:
     """Holds the batched (Model, Data) pair: step(), forward(), reset(mask),
-    refresh().
+    refresh(), and per-env model fields (expand_model_fields).
 
-    Per-env (domain-randomised) model fields are not carried yet; every
-    env shares the one Model."""
+    ``data`` is rebound by every call until ``make_static()``; from then on
+    (a ControlStep calls it) the Data's tensors are fixed buffers, and
+    every write to ``data`` (a step, a reset, ``sim.data = d.replace(...)``)
+    copies into them in place, so that a captured graph, which reads and
+    writes fixed addresses, sees it. A Data read from ``sim.data`` before a
+    write is then the same buffers, not a snapshot."""
 
     def __init__(
         self,
@@ -170,7 +195,69 @@ class Simulation:
                 device=self.device,
             )
         check_supported(self.model)
-        self.data: Data = make_data(self.model, num_envs)
+        self._data: Data = make_data(self.model, num_envs)
+        self._static = False
+        self._default_fields: dict[str, torch.Tensor] = {}
+        self._captured = False
+
+    # -- Data: rebound, or fixed buffers written in place --
+
+    @property
+    def data(self) -> Data:
+        return self._data
+
+    @data.setter
+    def data(self, new: Data) -> None:
+        if self._static:
+            copy_data_(self._data, new)
+        else:
+            self._data = new
+
+    def make_static(self) -> None:
+        """Give every Data field buffers of its own (no broadcast views)
+        and write every later Data in place into them."""
+        if not self._static:
+            self._data = materialize(self._data)
+            self._static = True
+
+    # -- per-env model fields (domain randomisation) --
+
+    def expand_model_fields(self, field_names: list[str]) -> None:
+        """Give the named Model fields a leading num_envs axis, each env
+        starting from the shared value (mjlab_tpu/sim/sim.py:145-162). A
+        domain randomisation event then writes the (num_envs, ...) tensor
+        in place; the next step reads it. The slot parameters of the
+        contacts (phys/lm/collision.py PARAM_FIELDS) are the fields the
+        port carries per env; the others are not ported yet. Expand before
+        a control step is captured: the graph holds the Model it saw."""
+        if self._captured:
+            raise RuntimeError(
+                "expand model fields before a control step is captured"
+            )
+        updates = {}
+        for name in field_names:
+            if name not in PARAM_FIELDS:
+                raise NotImplementedError(
+                    f"per-env model field {name} is not ported yet (the "
+                    f"port carries {sorted(PARAM_FIELDS)} per env)"
+                )
+            if name in self._default_fields:
+                continue
+            val = getattr(self.model, name)
+            self._default_fields[name] = val
+            updates[name] = val.expand((self.num_envs,) + tuple(val.shape)).clone()
+        if updates:
+            self.model = dataclasses.replace(self.model, **updates)
+
+    def get_default_field(self, name: str) -> torch.Tensor:
+        """The shared value of a model field before expand_model_fields
+        (mjlab_tpu/sim/sim.py:164-171): DR events draw around it, so that
+        values do not accumulate across resets."""
+        if name in self._default_fields:
+            return self._default_fields[name]
+        return getattr(self.model, name)
+
+    # -- the physics --
 
     def step(self) -> None:
         """One physics step of every env."""
@@ -196,3 +283,104 @@ class Simulation:
             mask = torch.ones(self.num_envs, dtype=torch.bool)
         mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
         self.data = reset_data(self.model, self.data, mask)
+
+
+def materialize(d: Data) -> Data:
+    """d with every field a contiguous tensor of its own."""
+    kw = {name: _field(d, name).contiguous().clone() for name in tensor_fields()}
+    kw["contact"] = Contact(packed=kw["contact"])
+    return Data(**kw)
+
+
+def copy_data_(dst: Data, src: Data) -> None:
+    """Copy every field of src that is not already dst's own tensor into
+    dst's buffers, in place."""
+    for name in tensor_fields():
+        a, b = _field(dst, name), _field(src, name)
+        if a is not b:
+            a.copy_(b)
+
+
+def _field(d: Data, name: str) -> torch.Tensor:
+    return d.contact.packed if name == "contact" else getattr(d, name)
+
+
+class ControlStep:
+    """One control step of every env: ``decimation`` times
+    ``pre_substep()``, a physics step and ``post_substep()``, then the
+    kinematic refresh (the env's decimation loop and refresh,
+    mjlab_tpu/envs/manager_based_rl_env.py:424-444 and 392-397). The
+    callables read and write the Simulation's Data (``sim.data``) and
+    tensors of their own, in place.
+
+    ``eager()`` runs it op by op. ``capture()`` records it on the card as
+    one torch.cuda.CUDAGraph, and ``replay()`` then runs that graph. The
+    graph reads and writes fixed buffers: the Simulation's Data (made
+    static here) and the tensors ``state()`` lists (entity and sensor
+    state); a reset, a domain randomisation write or a new joint target
+    written into them between replays is what the next replay reads.
+    There is no fallback: a capture or replay failure raises."""
+
+    def __init__(
+        self,
+        sim: Simulation,
+        decimation: int,
+        pre_substep: Callable[[], None] | None = None,
+        post_substep: Callable[[], None] | None = None,
+        state: Callable[[], list[torch.Tensor]] | None = None,
+    ):
+        sim.make_static()
+        self.sim = sim
+        self.decimation = decimation
+        self.pre_substep = pre_substep or (lambda: None)
+        self.post_substep = post_substep or (lambda: None)
+        self.state = state or (lambda: [])
+        self.graph: torch.cuda.CUDAGraph | None = None
+
+    def eager(self) -> None:
+        """The control step, op by op."""
+        for _ in range(self.decimation):
+            self.pre_substep()
+            self.sim.step()
+            self.post_substep()
+        self.sim.refresh()
+
+    def capture(self, warmup: int = 2) -> None:
+        """Record the control step as one CUDA graph. ``warmup`` eager
+        control steps run first on a side stream (they fill every lazy
+        table and build the kernels), the last of them with host
+        synchronisation an error; the state they advance is put back
+        before capture, so the next replay starts where the caller left
+        off."""
+        sim = self.sim
+        if sim.device.type != "cuda":
+            raise RuntimeError("a control step is captured on a CUDA device")
+        saved = [t.clone() for t in self._buffers()]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for i in range(warmup):
+                if i == warmup - 1:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    self.eager()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            for t, s in zip(self._buffers(), saved):
+                t.copy_(s)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        sim._captured = True
+        with torch.cuda.graph(graph):
+            self.eager()
+        self.graph = graph
+
+    def replay(self) -> None:
+        """One control step: a replay of the captured graph."""
+        if self.graph is None:
+            raise RuntimeError("capture() the control step before replay()")
+        self.graph.replay()
+
+    def _buffers(self) -> list[torch.Tensor]:
+        d = self.sim.data
+        return [_field(d, n) for n in tensor_fields()] + list(self.state())

@@ -62,7 +62,7 @@ def get_cube_spec(cube_size: float = 0.02, mass: float = 0.05) -> "mujoco.MjSpec
 
 def cube_entity_cfg() -> "EntityCfg":
     """The cube entity: not articulated, no keyframe of its own."""
-    from mjlab_tpu_torch.scene.scene import EntityCfg, InitialStateCfg
+    from mjlab_tpu_torch.entity.entity import EntityCfg, InitialStateCfg
 
     return EntityCfg(
         spec_fn=get_cube_spec,
@@ -74,6 +74,7 @@ def sim_cfg() -> SimulationCfg:
     """The lift-cube task's simulation options."""
     return SimulationCfg(
         nconmax=55,
+        njmax=600,
         mujoco=MujocoCfg(
             timestep=0.005, iterations=10, ls_iterations=20, impratio=10,
             cone="elliptic",

@@ -9,10 +9,12 @@ from __future__ import annotations
 
 import re
 from dataclasses import dataclass
-from typing import Sequence
+from typing import TYPE_CHECKING, Sequence
 
-import mujoco
 import numpy as np
+
+if TYPE_CHECKING:
+    import mujoco
 
 
 def _match(expr_tuple: Sequence[str], name: str) -> bool:
@@ -45,7 +47,7 @@ class CollisionCfg:
     solimp: tuple | dict[str, tuple] | None = None
     disable_other_geoms: bool = True
 
-    def edit_spec(self, spec: mujoco.MjSpec) -> None:
+    def edit_spec(self, spec: "mujoco.MjSpec") -> None:
         for g in spec.geoms:
             name = g.name or ""
             if not _match(self.geom_names_expr, name):

@@ -12,7 +12,8 @@ forces, relative to max(1, |plain|max). chip_smoke.py runs the same
 comparisons at 4096 envs.
 
 The models are the G1 flat-velocity model (pyramidal cone: kernel 4, and
-kernel 6 under Simulation.forward()), the YAM lift-cube model (elliptic
+kernel 6 under Simulation.forward(); and its env-side control step,
+captured as one CUDA graph), the YAM lift-cube model (elliptic
 cone, a joint equality and a mocap base: kernel 5 and kin_com's mocap
 inputs) and four toys (tests/torch_toy_models.py: a joint equality under
 the pyramidal cone, each cone without joint limits, and joint_toy, with
@@ -40,7 +41,7 @@ from mjlab_tpu_torch.phys.hybrid import (
 from mjlab_tpu_torch.phys import model as pm
 from mjlab_tpu_torch.phys.lm import stages
 from mjlab_tpu_torch.phys.lm.base import Params
-from mjlab_tpu_torch.sim.sim import MujocoCfg, Simulation, SimulationCfg
+from mjlab_tpu_torch.sim.sim import ControlStep, MujocoCfg, Simulation, SimulationCfg
 from mjlab_tpu_torch.tasks.manipulation.config.yam import physics as yam
 from mjlab_tpu_torch.tasks.velocity.config.g1 import physics
 
@@ -510,3 +511,121 @@ def _solve_inputs(sim):
     qM, Mh = sk.crb_dense_plain(m, cdof, cinA, cinc, mh)
     k = contact_stack(m, Params(m, E), qT, vT, gxpos, gxmat, subcom)
     return solve_args(m, k, qM, qfs, d.qacc_warmstart.T, vT, cdof.reshape(nv * 6, E), Mh)
+
+
+# ---------------------------------------------------------------------------
+# the captured control step (sim/sim.py ControlStep): one CUDA graph
+# ---------------------------------------------------------------------------
+
+# the step tolerances (tests/test_torch_step.py; the YAM's elliptic
+# multistep ones, tests/test_pallas2_solver.py)
+_STEP_TOL = {"g1": (("qpos", 1e-4), ("qvel", 1e-3), ("qacc", 5e-3)),
+             "yam": (("qpos", 2e-4), ("qvel", 2e-2), ("qacc", 5e-3))}
+
+
+def _g1_env_pair(cuda, E=256):
+    """Two G1 Simulations on the card on one seeded state, each with the
+    task's scene and env-side control step, the robot's joint targets at
+    the keyframe plus noise."""
+    m, key_qpos, key_ctrl = physics.load_saved_model(device=cuda)
+    q, v, c = _state(key_qpos, key_ctrl, E, seed=3)
+    q[:, 2] += 0.05
+    out = []
+    for _ in range(2):
+        sim = Simulation(E, physics.sim_cfg(), m, device=cuda)
+        t = lambda x: torch.as_tensor(x, device=cuda)  # noqa: E731
+        sim.data = sim.data.replace(qpos=t(q), qvel=t(v), ctrl=t(c))
+        scene = physics.make_scene(sim)
+        scene["robot"].data.set_joint_position_target(t(c))
+        out.append((sim, scene, physics.control_step(sim, scene)))
+    return out
+
+
+def _assert_steps_agree(a, b, path):
+    for f, tol in _STEP_TOL[path]:
+        err = rel_err(getattr(a, f), getattr(b, f))
+        assert err < tol, f"{f}: {err:.2e}"
+    for e in range(a.qpos.shape[0]):
+        sa = a.con_sel[e][a.con_sel_active[e]].sort().values
+        sb = b.con_sel[e][b.con_sel_active[e]].sort().values
+        assert torch.equal(sa, sb), e
+    assert int(b.ncheck_reset.sum()) == 0
+
+
+def test_captured_g1_control_step_matches_eager(cuda):
+    """The G1's env-side control step captured as one graph, 3 replays
+    against 3 eager control steps; the capture records every kernel of the
+    step (kernels 1-4) and the replays launch them."""
+    (sim_e, sc_e, eager), (sim_c, sc_c, cap) = _g1_env_pair(cuda)
+    wrappers = (sk.kin_com, sk.crb_dense, sk.vel_smooth, sv.newton_assemble_solve)
+    cap.capture(warmup=2)
+    before = [w.launches for w in wrappers]
+    cap.capture(warmup=0)  # a second capture: the launches of one control step
+    per_step = [w.launches - b for w, b in zip(wrappers, before)]
+    assert per_step == [5, 4, 4, 4]
+    for _ in range(3):
+        eager.eager()
+        cap.replay()
+    torch.cuda.synchronize()
+    _assert_steps_agree(sim_e.data, sim_c.data, "g1")
+    for a, b in zip(sc_e.state_tensors(), sc_c.state_tensors()):
+        assert rel_err(a, b) < 1e-5
+    for name in ("robot/imu_lin_acc", "robot/imu_ang_vel"):
+        assert rel_err(sc_e[name].data, sc_c[name].data) < 5e-3, name
+
+
+def test_captured_yam_control_step_matches_eager(cuda):
+    m, _ = yam.load_saved_model(device=cuda)
+    sims = [Simulation(256, yam.sim_cfg(), m, device=cuda) for _ in range(2)]
+    for s in sims:
+        _yam_state(s, seed=2)
+    eager, cap = ControlStep(sims[0], 4), ControlStep(sims[1], 4)
+    cap.capture()
+    for _ in range(3):
+        eager.eager()
+        cap.replay()
+    torch.cuda.synchronize()
+    _assert_steps_agree(sims[0].data, sims[1].data, "yam")
+
+
+def test_replay_sees_reset_and_friction_writes(cuda):
+    """A masked reset and a per-env friction write between replays land in
+    the buffers the graph reads: the replays follow the eager twin, and
+    the reset envs restart from qpos0."""
+    pair = _g1_env_pair(cuda, E=128)
+    for sim, _, _ in pair:
+        sim.expand_model_fields(["geom_friction"])
+    (sim_e, sc_e, eager), (sim_c, sc_c, cap) = pair
+    cap.capture()
+    eager.eager()
+    cap.replay()
+    mask = torch.zeros(128, dtype=torch.bool, device=cuda)
+    mask[::3] = True
+    feet = [i for i, n in enumerate(sim_c.model.geom_names) if "_foot" in n]
+    draw = torch.linspace(0.3, 1.2, 128, device=cuda)[:, None]
+    for sim, scene in ((sim_e, sc_e), (sim_c, sc_c)):
+        sim.reset(mask)
+        scene.reset(mask)
+        sim.model.geom_friction[:, feet, 0] = draw
+    eager.eager()
+    cap.replay()
+    torch.cuda.synchronize()
+    _assert_steps_agree(sim_e.data, sim_c.data, "g1")
+    dt = physics.sim_cfg().mujoco.timestep
+    t = sim_c.data.time
+    assert torch.allclose(t[mask], torch.full_like(t[mask], 4 * dt))
+    assert torch.allclose(t[~mask], torch.full_like(t[~mask], 8 * dt))
+    # the foot slots' sliding friction is the env's draw (a foot geom's
+    # priority beats the plane's)
+    pt = sim_c.model.pairs
+    foot_slot = torch.as_tensor(np.isin(pt.con_geom1, feet) | np.isin(pt.con_geom2, feet),
+                                device=cuda)
+    on_foot = sim_c.data.con_sel_active & foot_slot[sim_c.data.con_sel.long()]
+    mu = sim_c.data.con_packed_c[..., 5]
+    assert bool(on_foot.any())
+    assert torch.allclose(mu[on_foot], draw.expand_as(mu)[on_foot])
+    # the graph holds the Model it captured: a new per-env field after
+    # capture is refused
+    with pytest.raises(RuntimeError, match="captured"):
+        sim_c.expand_model_fields(["geom_solref"])
+

@@ -17,14 +17,13 @@ import torch
 
 from mjlab_tpu.phys.data import make_data as jax_make_data
 from mjlab_tpu.phys.model import limit_rows_static as jax_limit_rows_static
-from mjlab_tpu.phys.model import put_model as jax_put_model
 from mjlab_tpu_torch.phys import data as pdata
 from mjlab_tpu_torch.phys import model as pm
 from mjlab_tpu_torch.scene.scene import g1_velocity_flat_model
 from mjlab_tpu_torch.sim.sim import Simulation, SimulationCfg, check_supported
 
 from torch_port_common import (
-    G1_NCONMAX, TOY_NCONMAX, g1_mj, port_model_from_jax, toy_mj,
+    G1_NCONMAX, TOY_NCONMAX, g1_mj, jax_put_model, port_model_from_jax, toy_mj,
 )
 
 

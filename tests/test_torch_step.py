@@ -22,7 +22,6 @@ import torch
 from mjlab_tpu.phys.data import make_data as jax_make_data
 from mjlab_tpu.phys.hybrid import step_hybrid
 from mjlab_tpu.phys.kinematics import com_pos, kinematics
-from mjlab_tpu.phys.model import put_model as jax_put_model
 from mjlab_tpu.phys.smooth import com_vel
 from mjlab_tpu.sim.sim import model_in_axes
 from mjlab_tpu_torch.phys.data import make_data, tensor_fields
@@ -31,7 +30,8 @@ from mjlab_tpu_torch.phys.model import put_model
 from mjlab_tpu_torch.sim.sim import MujocoCfg, Simulation, SimulationCfg
 
 from torch_port_common import (
-    G1_NCONMAX, TOY_NCONMAX, g1_mj, rel_err, state_np, tnp, toy_mj,
+    G1_NCONMAX, REFRESH_XML, TOY_NCONMAX, g1_mj, jax_put_model, rel_err, state_np,
+    tnp, toy_mj,
 )
 
 # the toy's own solver options (test_hybrid_parity.TOY_XML)
@@ -85,34 +85,6 @@ def test_simulation_steps_match_step_hybrid_f32():
     assert int(d.ncheck_reset.sum()) == 0
     assert d.con_sel_active.any()
 
-
-# free + ball + hinge + slide joints, a site, a multi-geom body: every
-# cdof_dot accumulation case of mj_comVel (tests/test_refresh_envlast.py
-# without its mocap body)
-REFRESH_XML = """
-<mujoco>
-  <option timestep="0.002"/>
-  <worldbody>
-    <geom type="plane" size="5 5 0.1"/>
-    <body name="base" pos="0 0 0.5">
-      <freejoint/>
-      <geom type="sphere" size="0.08" pos="0.02 0.01 0"/>
-      <geom type="capsule" size="0.03" fromto="-0.05 0 0.03 0.02 0.01 0.05"/>
-      <site name="imu" pos="0.01 0.02 0.03" quat="0.9 0.1 0.3 0.2"/>
-      <body name="arm" pos="0.1 0 0">
-        <joint name="shoulder" type="ball" damping="0.1"/>
-        <geom type="capsule" size="0.03" fromto="0 0 0 0.2 0 0"/>
-        <body name="wrist" pos="0.2 0 0">
-          <joint name="flex" type="hinge" axis="0 1 0" damping="0.05"/>
-          <joint name="ext" type="slide" axis="1 0 0" damping="0.05"/>
-          <geom type="sphere" size="0.03"/>
-          <site name="tip" pos="0.03 0 0"/>
-        </body>
-      </body>
-    </body>
-  </worldbody>
-</mujoco>
-"""
 
 REFRESH_FIELDS = (
     "xpos", "xquat", "xmat", "xipos", "ximat", "geom_xpos", "geom_xmat",

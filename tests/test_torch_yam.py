@@ -20,7 +20,6 @@ import torch
 
 from mjlab_tpu.phys.data import make_data as jax_make_data
 from mjlab_tpu.phys.lm import stages as jst
-from mjlab_tpu.phys.model import put_model as jax_put_model
 from mjlab_tpu.phys.smooth_pallas import SYM6, HostParams
 from mjlab_tpu_torch.phys import model as pm
 from mjlab_tpu_torch.phys import smooth_kernels as sk
@@ -38,7 +37,7 @@ from test_torch_contact import _run_both, check_contact_stack
 from test_torch_model import _assert_static_equal, assert_models_equal
 from test_torch_step import _assert_refresh_equal, _vmapped_refresh
 from torch_port_common import (
-    YAM_NCONMAX, model_pair, rel_err, tnp, yam_mj, yam_states,
+    YAM_NCONMAX, jax_put_model, model_pair, rel_err, tnp, yam_mj, yam_states,
 )
 
 

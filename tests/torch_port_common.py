@@ -8,13 +8,16 @@ package's Model leaves become the port's Model through model_from_numpy.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import jax.numpy as jnp
 import mujoco
 import numpy as np
 import torch
 
-from mjlab_tpu.phys.model import put_model as jax_put_model
+from mjlab_tpu.phys import constraint as _jax_constraint
+from mjlab_tpu.phys import smooth as _jax_smooth
+from mjlab_tpu.phys.model import put_model as _jax_put_model
 from mjlab_tpu_torch.phys import model as pm
 from mjlab_tpu_torch.scene.scene import (
     g1_velocity_flat_model, yam_lift_cube_model,
@@ -38,6 +41,34 @@ TOY_CAPSULE_XML = TOY_XML.replace(
 # the elliptic toy (box foot, condim 3 and 6 contacts, a joint equality)
 # under the pyramidal cone
 EQ_XML = ELL_XML.replace('cone="elliptic" impratio="10" ', "")
+
+# free + ball + hinge + slide joints, a site, a multi-geom body: every
+# cdof_dot accumulation case of mj_comVel (tests/test_refresh_envlast.py
+# without its mocap body); the refresh model of tests/test_torch_step.py
+REFRESH_XML = """
+<mujoco>
+  <option timestep="0.002"/>
+  <worldbody>
+    <geom type="plane" size="5 5 0.1"/>
+    <body name="base" pos="0 0 0.5">
+      <freejoint/>
+      <geom type="sphere" size="0.08" pos="0.02 0.01 0"/>
+      <geom type="capsule" size="0.03" fromto="-0.05 0 0.03 0.02 0.01 0.05"/>
+      <site name="imu" pos="0.01 0.02 0.03" quat="0.9 0.1 0.3 0.2"/>
+      <body name="arm" pos="0.1 0 0">
+        <joint name="shoulder" type="ball" damping="0.1"/>
+        <geom type="capsule" size="0.03" fromto="0 0 0 0.2 0 0"/>
+        <body name="wrist" pos="0.2 0 0">
+          <joint name="flex" type="hinge" axis="0 1 0" damping="0.05"/>
+          <joint name="ext" type="slide" axis="1 0 0" damping="0.05"/>
+          <geom type="sphere" size="0.03"/>
+          <site name="tip" pos="0.03 0 0"/>
+        </body>
+      </body>
+    </body>
+  </worldbody>
+</mujoco>
+"""
 
 # the G1 flat-velocity and YAM lift-cube tasks' contact capacities
 # (velocity_env_cfg.py, lift_cube_env_cfg.py)
@@ -103,6 +134,37 @@ def yam_states(m, E: int, seed: int = 0, dtype=np.float64):
         "qpos", "qvel", "ctrl", "mocap_pos", "mocap_quat"))
 
 
+# The JAX package memoises host tables by the id() of a Model member:
+# phys/smooth.py _ancestor_mask_cache and _crb_static_cache by
+# id(m.body_parentid), phys/constraint.py _contact_static_cache by
+# id(m.pairs). Once that member is freed, CPython may give the same id to a
+# member of the next Model, and the table of the freed model then comes
+# back for it: an IndexError in smooth_pallas._crb_pairs where the sizes
+# differ, a wrong table where they agree. Which model was freed before
+# depends on which test files ran earlier in the same process. So every
+# JAX Model these tests build drops those tables when it is made and when
+# its keyed members are freed.
+_JAX_ID_CACHES = (
+    _jax_smooth._ancestor_mask_cache, _jax_smooth._crb_static_cache,
+    _jax_constraint._contact_static_cache,
+)
+
+
+def _drop_jax_id_caches() -> None:
+    for cache in _JAX_ID_CACHES:
+        cache.clear()
+
+
+def jax_put_model(mj, **kw):
+    """mjlab_tpu.phys.model.put_model, with the JAX package's id-keyed
+    tables dropped before and when the Model's keyed members are freed."""
+    _drop_jax_id_caches()
+    jm = _jax_put_model(mj, **kw)
+    for member in (jm.body_parentid, jm.pairs):
+        weakref.finalize(member, _drop_jax_id_caches)
+    return jm
+
+
 def model_pair(mj, nconmax, dtype):
     """(JAX Model, port Model) of one MjModel; the port's is built from
     the JAX leaves with model_from_numpy. dtype is a numpy dtype."""
@@ -143,3 +205,57 @@ def state_np(mj, E: int, seed: int = 0, dtype=np.float64, keyframe=False,
     if keyframe:
         ctrl += mj.key_ctrl[0]
     return qpos.astype(dtype), qvel.astype(dtype), ctrl.astype(dtype)
+
+
+def jax_data_from_port(d):
+    """The JAX package's Data holding the port Data d's values (numpy
+    copies of every field; float64 needs jax.enable_x64)."""
+    from mjlab_tpu.phys.data import Contact as JaxContact
+    from mjlab_tpu.phys.data import Data as JaxData
+    from mjlab_tpu_torch.phys.data import tensor_fields
+
+    kw = {n: jnp.asarray(tnp(getattr(d, n)) if getattr(d, n).is_floating_point()
+                         else getattr(d, n).numpy())
+          for n in tensor_fields() if n != "contact"}
+    return JaxData(contact=JaxContact(packed=jnp.asarray(tnp(d.contact.packed))), **kw)
+
+
+def g1_scenes(E: int, steps: int = 2, seed: int = 0):
+    """The G1 velocity task's scene in both packages on one float64 state:
+    (JAX scene, JAX SimContext, port Simulation, port Scene). The JAX
+    scene is the task's own (terrain plane, robot, its two contact
+    sensors, the XML's builtin sensors); the port's Simulation runs on the
+    MjModel that scene compiles. The state is the keyframe plus seeded
+    noise after ``steps`` port steps and a refresh, so that the feet touch
+    the ground; the JAX context holds the same Data (call under
+    jax.enable_x64)."""
+    import jax
+
+    import mjlab_tpu.tasks  # noqa: F401  (registers the tasks)
+    from mjlab_tpu.scene.scene import Scene as JaxScene
+    from mjlab_tpu.scene.scene import SimContext as JaxSimContext
+    from mjlab_tpu.tasks.registry import load_env_cfg
+    from mjlab_tpu_torch.scene.scene import xml_sensors
+    from mjlab_tpu_torch.sim.sim import Simulation
+
+    cfg = load_env_cfg("Mjlab-Velocity-Flat-Unitree-G1")
+    cfg.scene.num_envs = E
+    jscene = JaxScene(cfg.scene)
+    mj = jscene.compile()
+    sim_cfg().mujoco.apply(mj)
+    port_cfg = sim_cfg()
+    port_cfg.dtype = "float64"
+    sim = Simulation(E, port_cfg, mj, device="cpu")
+    q, v, c = state_np(mj, E, seed=seed, keyframe=True)
+    sim.data = sim.data.replace(qpos=torch.as_tensor(q), qvel=torch.as_tensor(v),
+                                ctrl=torch.as_tensor(c))
+    for _ in range(steps):
+        sim.step()
+    sim.refresh()
+    from mjlab_tpu_torch.tasks.velocity.config.g1.physics import make_scene
+
+    scene = make_scene(sim, xml_sensors(mj))
+    jm = jax_put_model(mj, dtype=jnp.float64, nconmax=G1_NCONMAX)
+    ctx = JaxSimContext(jm, jax_data_from_port(sim.data))
+    jscene.initialize(mj, ctx, jax.random.PRNGKey(0))
+    return jscene, ctx, sim, scene

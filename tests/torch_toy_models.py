@@ -12,7 +12,8 @@ kernels run on (NAMES):
 
 The smooth kernels (kin_com, vel_smooth) also run on (SMOOTH_NAMES):
 
-- joint_toy: the refresh model of tests/test_torch_step.py (REFRESH_XML:
+- joint_toy: the refresh model of tests/test_torch_step.py (REFRESH_XML
+  of tests/torch_port_common.py:
   free, ball, hinge and slide joints, a two-joint body, a multi-geom
   body) with a spring on every joint, a position actuator on the hinge, a
   force-limited motor on the slide and the implicitfast integrator, so
@@ -54,7 +55,7 @@ _JOINT_TOY = (
 
 
 def xml(name: str) -> str:
-    from torch_port_common import ELL_XML, EQ_XML, TOY_XML
+    from torch_port_common import ELL_XML, EQ_XML, REFRESH_XML, TOY_XML
 
     def strip(text, pairs):
         for old, new in pairs:
@@ -69,8 +70,6 @@ def xml(name: str) -> str:
     if name == "nolimit_ell_toy":
         return strip(ELL_XML, _NO_LIMITS)
     if name == "joint_toy":
-        from test_torch_step import REFRESH_XML
-
         return strip(REFRESH_XML, _JOINT_TOY)
     raise KeyError(name)
 
