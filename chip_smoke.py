@@ -3,9 +3,18 @@
 
     python3 chip_smoke.py
 
-Five main paths, each a Simulation of 4096 envs driven through its public
-entry points, and the six kernels they run. The two captured control steps
-are this slice's main paths:
+Six main paths, each driven at 4096 envs through its public entry points,
+and the six kernels they run. This slice's main path is the env's:
+
+- g1_env: the Mjlab-Velocity-Flat-Unitree-G1 env (envs/
+  manager_based_rl_env.py), built from the port's registry, its whole step
+  (the action, 4 x (actuators, physics, sensors), terminations, rewards,
+  masked resets, the refresh, the command, the push event, observations)
+  captured as one CUDA graph by its first step(), on bench.py's traffic (a
+  fresh action 0.5 N(0, 1) per control step): kin_com, crb_packed,
+  vel_smooth and newton_assemble_solve cone 0 inside the graph;
+
+and the captured physics control steps of the slice before:
 
 - g1_capture: the G1 control step as the env runs it
   (tasks/velocity/config/g1/physics.py control_step): 4 substeps of the
@@ -86,9 +95,26 @@ idle share; every kernel of the step must show in the replay). The G1
 path then holds the scene's sensors on the card, after 3 replays of 64
 envs, against the CPU port's on the same Data (SENSOR_TOL).
 
+The g1_env path builds two envs on one seed (an eager twin and the
+captured one), resets both, sets the launch counts to 0 and drives the
+captured env's first step() (its two warm-up steps and the capture must
+show each kernel once per control step: kin_com 5, the other three 4),
+then: the captured env against its eager twin (the same generator state:
+the same draws) over 3 more steps, the first after tipping every 7th env
+past fell_over's limit and bringing every 11th to its time-out (the same
+terminated and truncated envs, reset to episode length 0; observations,
+reward and command within ENV_TOL, the state within E2E_TOL, the same
+active contact slots); two replays that reset every env draw different
+observation noise and reset poses; eager and captured env-steps/s (the
+median of CAPTURE_REPEATS x CAPTURE_STEPS control steps); one eager and
+one captured step under the profiler (CUDA kernels, busy ms, idle share,
+the kernels the env adds over g1_capture's replay); and the env of 64
+envs on the card against the CPU port's on the same draws (a reset and
+one step).
+
 The line before the last is the card's name and power limit (nvidia-smi);
-the lines before hold the kernels (JSON), the substep breakdowns and the
-physics throughputs. The last line is {"ok": true, "device": {...}}. Exits
+the lines before hold the kernels, the captured steps and the env (JSON
+each), the substep breakdowns and the physics throughputs. The last line is {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when there is no CUDA card (2) and when
 mjlab_tpu_torch is not importable, e.g. the script copied alone into an
 empty directory (1).
@@ -1218,6 +1244,299 @@ def run_capture_path(path: str) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# the env path: the G1 flat-velocity env's step (managers, MDP terms, the
+# velocity task) captured as one CUDA graph
+# ---------------------------------------------------------------------------
+
+ENV_TASK = "Mjlab-Velocity-Flat-Unitree-G1"
+# bench.py's traffic: a fresh action 0.5 N(0, 1) per control step
+ENV_ACTION_STD = 0.5
+# the env's outputs, captured against eager after ENV_CHECK_STEPS steps
+# across resets and the card against the CPU: the step tolerances on the
+# state (E2E_TOL), and on what each output reads of it
+# (tests/test_torch_env.py): the policy observations and the reward
+# qvel's, the critic observations (the feet's contact forces)
+# con_force_c's, the command (the heading) qpos's
+ENV_TOL = {"policy": 1e-3, "critic": 5e-3, "reward": 1e-3, "command": 1e-4}
+ENV_CHECK_STEPS = 3
+# the card's env against the CPU port's on the same draws, 64 envs
+ENV_CPU_ENVS = 64
+# the policy group's terms with noise (base velocities, gravity, joint
+# positions and velocities): its first 67 columns, which the critic group
+# repeats without noise
+NOISY_POLICY_COLUMNS = 3 + 3 + 3 + 29 + 29
+
+
+def make_env(num_envs: int, device: str, capture: bool = True, seed: int = SEED):
+    """The port's env of ENV_TASK, built from the port's registry."""
+    import os
+
+    os.environ.setdefault("MJLAB_QUIET", "1")
+    from mjlab_tpu_torch.envs import ManagerBasedRlEnv
+    from mjlab_tpu_torch.tasks import load_env_cfg
+
+    cfg = load_env_cfg(ENV_TASK)
+    cfg.scene.num_envs = num_envs
+    cfg.seed = seed
+    return ManagerBasedRlEnv(cfg, device=device, capture=capture)
+
+
+def env_actions(env, steps: int, seed: int) -> list:
+    gen = torch.Generator(device=env.device).manual_seed(seed)
+    A = env.action_manager.total_action_dim
+    return [ENV_ACTION_STD * torch.randn(env.num_envs, A, generator=gen, device=env.device)
+            for _ in range(steps)]
+
+
+def force_resets(env, tip: torch.Tensor, late: torch.Tensor) -> None:
+    """Tip the ``tip`` envs 80 degrees about x (past fell_over's 70) and set
+    the ``late`` envs one step before their time-out: the next step resets
+    both sets."""
+    import math
+
+    qpos = env.sim.data.qpos.clone()
+    a = math.radians(80.0) / 2
+    q = torch.tensor([math.cos(a), math.sin(a), 0.0, 0.0], dtype=qpos.dtype, device=qpos.device)
+    qpos[tip, 3:7] = q
+    env.sim.data = env.sim.data.replace(qpos=qpos)
+    env.episode_length_buf[late] = env.max_episode_length - 1
+
+
+def env_outputs(env, out) -> dict:
+    obs, rew, term, trunc, extras = out
+    return {"policy": obs["policy"].clone(), "critic": obs["critic"].clone(),
+            "reward": rew.clone(), "terminated": term.clone(), "truncated": trunc.clone(),
+            "episode_length": env.episode_length_buf.clone(),
+            "command": env.command_manager.get_command("twist").clone()}
+
+
+def assert_envs_agree(label: str, a_env, a: dict, b_env, b: dict) -> dict:
+    """Two envs' outputs and Data: equal flags and episode lengths, the
+    observations and rewards within ENV_TOL, the state within E2E_TOL and
+    the same active contact slots (assert_twins_agree)."""
+    for k in ("terminated", "truncated", "episode_length"):
+        if not torch.equal(a[k].cpu(), b[k].cpu()):
+            raise AssertionError(f"g1_env {label}: {k} differ")
+    errs = {}
+    for k, tol in ENV_TOL.items():
+        errs[k] = rel_err(a[k].cpu(), b[k].cpu())
+        if not errs[k] < tol:
+            raise AssertionError(f"g1_env {label}: {k} rel err {errs[k]:.3e} >= {tol:.0e}")
+    log(f"[env] {label}: " + ", ".join(f"{k} rel err {v:.3e} (tol {ENV_TOL[k]:.0e})"
+                                       for k, v in errs.items())
+        + f"; terminated {int(a['terminated'].sum())}, truncated "
+        f"{int(a['truncated'].sum())} in both")
+    da, db = a_env.sim.data, b_env.sim.data
+    if da.qpos.device == db.qpos.device:
+        errs.update(assert_twins_agree("g1", f"env {label}", da, db))
+    return errs
+
+
+class _HostRng:
+    """The env's draws made on the host from one numpy seed and moved to
+    the env's device: two envs on different devices draw the same numbers
+    (used by the card-against-CPU check only, never captured)."""
+
+    def __init__(self, seed: int, device):
+        self.rs = np.random.default_rng(seed)
+        self.device = torch.device(device)
+
+    def draw(self, kind, shape, dtype, low=0, high=1):
+        if kind == "uniform":
+            x = self.rs.random(shape, dtype=np.float32)
+        elif kind == "normal":
+            x = self.rs.standard_normal(shape, dtype=np.float32)
+        else:
+            x = self.rs.integers(low, high, shape).astype(np.int32)
+        return torch.as_tensor(x, device=self.device).to(dtype)
+
+
+def env_on_card_matches_cpu(seed: int) -> dict:
+    """The env of ENV_CPU_ENVS envs on the card (eager) against the CPU
+    port's (the plain versions, held against the JAX env by the CPU
+    tests) on the same draws: a reset and one step of bench.py's
+    traffic."""
+    envs = []
+    for dev in ("cuda", "cpu"):
+        env = make_env(ENV_CPU_ENVS, dev, capture=False, seed=seed)
+        host = _HostRng(seed, dev)
+        env.rng.draw = host.draw  # every draw goes through Rng.draw
+        envs.append(env)
+    card, cpu = envs
+    # the draws made at construction (the startup friction, the interval
+    # timers) came from each env's own generator: the card's are copied
+    cpu.sim.model.geom_friction.copy_(card.sim.model.geom_friction.cpu())
+    for name, t in card.event_manager.interval_left.items():
+        cpu.event_manager.interval_left[name].copy_(t.cpu())
+    for e in envs:
+        e.reset()
+    act = env_actions(cpu, 1, seed)[0]
+    outs = [env_outputs(e, e.step(act.to(e.device))) for e in envs]
+    errs = assert_envs_agree(f"card vs CPU, {ENV_CPU_ENVS} envs, reset and one step",
+                             cpu, outs[1], card, outs[0])
+    dc, dp = card.sim.data, cpu.sim.data
+    for f, tol in E2E_TOL["g1"]:
+        errs[f] = err = rel_err(getattr(dp, f), getattr(dc, f).cpu())
+        log(f"[env] card vs CPU, {ENV_CPU_ENVS} envs, reset and one step: {f} rel err "
+            f"{err:.3e} (tol {tol:.0e})")
+        if not err < tol:
+            raise AssertionError(f"g1_env card vs CPU {f}: {err:.3e} >= {tol:.0e}")
+    return errs
+
+
+def run_env_path(g1_capture_kernels: int | None) -> tuple[dict, dict]:
+    """The G1 flat-velocity env's step at NUM_ENVS envs, captured as one
+    CUDA graph: (launches, summary). The launch counts are set to 0 just
+    before the captured env's first step() and read after it: its two
+    warm-up steps and the capture each run the step once through the
+    wrappers (replays do not pass through them; the profile of one replay
+    shows the graph launching them)."""
+    t0 = time.perf_counter()
+    eager, cap = make_env(NUM_ENVS, "cuda", capture=False), make_env(NUM_ENVS, "cuda")
+    build_s = time.perf_counter() - t0
+    m = cap.sim.model
+    log(f"[env] {ENV_TASK} at {NUM_ENVS} envs built from the port's registry in "
+        f"{build_s:.2f} s (two envs): action dim {cap.action_manager.total_action_dim}, "
+        f"policy obs {cap.observation_manager.group_obs_dim('policy')}, critic obs "
+        f"{cap.observation_manager.group_obs_dim('critic')}; nq {m.nq} nv {m.nv} nu {m.nu}; "
+        f"decimation {cap.cfg.decimation}, step_dt {cap.step_dt}, max episode length "
+        f"{cap.max_episode_length}")
+    for e in (eager, cap):
+        e.reset()
+    if not torch.equal(eager.sim.data.qpos, cap.sim.data.qpos):
+        raise AssertionError("g1_env: the twins' resets differ")
+
+    acts = env_actions(cap, 1 + ENV_CHECK_STEPS + 2 * CAPTURE_REPEATS * CAPTURE_STEPS,
+                       SEED + 1)
+    first, check, timed = acts[0], acts[1:1 + ENV_CHECK_STEPS], acts[1 + ENV_CHECK_STEPS:]
+
+    # the main path: the captured env's first step() captures the graph
+    # (CAPTURE_WARMUP eager warm-up steps, then the capture, each through
+    # the kernel wrappers) and replays it; the counts are set to 0 just
+    # before and read just after
+    zero_launches()
+    t0 = time.perf_counter()
+    oc = env_outputs(cap, cap.step(first))
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    launches = read_launches()
+    per_step = {k: v / (CAPTURE_WARMUP + 1) for k, v in launches.items()}
+    expected = {"kin_com": DECIMATION + 1, "crb_packed": DECIMATION,
+                "vel_smooth": DECIMATION, "newton_assemble_solve": DECIMATION,
+                "newton_assemble_solve_elliptic": 0, "newton_solve_dense": 0}
+    log(f"[env] the first step() captured the env step and replayed it in {capture_s:.2f} s "
+        f"({CAPTURE_WARMUP} warm-up steps, the last with host synchronisation an error); "
+        f"launches {launches}, per control step {per_step}, expected {expected}")
+    if not cap.captured or per_step != expected:
+        raise AssertionError(f"g1_env launches per control step {per_step} != {expected}")
+    errs = assert_envs_agree("captured vs eager, the capturing step", eager,
+                             env_outputs(eager, eager.step(first)), cap, oc)
+
+    # captured against eager: ENV_CHECK_STEPS steps, the first after
+    # tipping some envs and bringing others to their time-out
+    E = NUM_ENVS
+    idx = torch.arange(E, device="cuda")
+    tip, late = idx % 7 == 0, idx % 11 == 3
+    for e in (eager, cap):
+        force_resets(e, tip, late)
+    for i, act in enumerate(check):
+        oe = env_outputs(eager, eager.step(act))
+        oc = env_outputs(cap, cap.step(act))
+        torch.cuda.synchronize()
+        if i == 0:
+            fell = cap.termination_manager.get_term("fell_over")
+            timed_out = cap.termination_manager.get_term("time_out")
+            log(f"[env] step 1: fell_over in {int(fell.sum())} envs (tipped "
+                f"{int(tip.sum())}), time_out in {int(timed_out.sum())} (set {int(late.sum())}); "
+                f"their episode lengths after the reset: "
+                f"{int(cap.episode_length_buf[fell | timed_out].max())}")
+            if not (bool(fell[tip].all()) and bool(timed_out[late].all())):
+                raise AssertionError("g1_env: the tipped or late envs did not terminate")
+            if int(cap.episode_length_buf[fell | timed_out].max()) != 0:
+                raise AssertionError("g1_env: the done envs were not reset")
+        errs = assert_envs_agree(f"captured vs eager, step {i + 1}", eager, oe, cap, oc)
+    for k in ("policy", "critic", "reward"):
+        if not bool(torch.isfinite(oc[k]).all()):
+            raise AssertionError(f"g1_env: non-finite {k}")
+    if oc["policy"].shape != (E, 99) or oc["critic"].shape[0] != E:
+        raise AssertionError(f"g1_env: obs shapes {oc['policy'].shape}, {oc['critic'].shape}")
+
+    # fresh draws per replay: the policy group's noise (policy obs minus
+    # the noise-free critic terms it shares) and the reset poses of envs
+    # reset in two consecutive replays
+    noise, poses = [], []
+    reset_all = torch.ones(E, dtype=torch.bool, device="cuda")
+    for _ in range(2):
+        force_resets(cap, ~reset_all, reset_all)
+        o = cap.step(timed[0])[0]
+        noisy = NOISY_POLICY_COLUMNS
+        noise.append((o["policy"][:, :noisy] - o["critic"][:, :noisy]).clone())
+        poses.append(cap.sim.data.qpos[:, :2].clone() - cap.scene.env_origins[:, :2])
+    torch.cuda.synchronize()
+    same_noise = float((noise[0] == noise[1]).double().mean())
+    same_pose = float((poses[0] == poses[1]).all(1).double().mean())
+    log(f"[env] two replays: share of equal policy-noise entries {same_noise:.4f}, of "
+        f"envs reset to equal xy offsets {same_pose:.4f}; noise range "
+        f"[{float(noise[0].min()):.3f}, {float(noise[0].max()):.3f}], reset xy offsets in "
+        f"[{float(poses[1].min()):.3f}, {float(poses[1].max()):.3f}]")
+    if same_noise > 0.01 or same_pose > 0.01:
+        raise AssertionError("g1_env: two replays drew the same numbers")
+
+    # throughput on bench.py's traffic: eager and captured, in turns
+    ms = {"eager": [], "captured": []}
+    for r in range(CAPTURE_REPEATS):
+        chunk = timed[2 * r * CAPTURE_STEPS:(2 * r + 2) * CAPTURE_STEPS]
+        ms["eager"].append(timed_control_steps(eager.step, chunk[:CAPTURE_STEPS]))
+        ms["captured"].append(timed_control_steps(cap.step, chunk[CAPTURE_STEPS:]))
+    rates = {k: [NUM_ENVS / (v / 1e3) for v in vals] for k, vals in ms.items()}
+    med = {k: float(np.median(v)) for k, v in rates.items()}
+    for k in ("eager", "captured"):
+        log(f"[env] {k}: env-steps/s at {NUM_ENVS} envs, median of {CAPTURE_REPEATS} x "
+            f"{CAPTURE_STEPS} control steps: {med[k]:.1f} (repeats "
+            + ", ".join(f"{x:.1f}" for x in rates[k]) + "); ms per control step "
+            + ", ".join(f"{x:.3f}" for x in ms[k]))
+
+    want = {n: v for n, v in expected.items() if v}
+
+    def replay_launched(prof):
+        seen = {n: v["launches"] for n, v in prof["by_kernel"].items()}
+        if set(seen) != set(want) or any(seen[n] > want[n] for n in seen):
+            return f"one replay launched {seen}, expected {want}"
+        return None
+
+    act = timed[-1]
+    profiles = {}
+    for k, env, accept in (("eager", eager, None), ("captured", cap, replay_launched)):
+        prof = device_profile(lambda env=env: env.step(act), accept=accept)
+        if not prof["kernels"]:
+            raise AssertionError(f"g1_env {k}: the profiler {prof['refused']}")
+        profiles[k] = prof
+        log(f"[env] {k} env step under the profiler: {prof['kernels']} CUDA kernels, "
+            f"device busy {prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms span, "
+            f"idle share {prof['idle_share']:.3f}; " + ", ".join(
+                f"{n} {v['launches']} x {v['ms_per_launch']:.4f} ms"
+                for n, v in prof["by_kernel"].items()))
+        log(f"[env] {k}: the CUDA kernels with the most device time: " + "; ".join(
+            f"{t['name'][:60]} {t['launches']} x, {t['ms']:.3f} ms" for t in prof["top"]))
+    added = (None if g1_capture_kernels is None
+             else profiles["captured"]["kernels"] - g1_capture_kernels)
+    log(f"[env] the managers, terms and resets add {added} CUDA kernels per control step "
+        f"over g1_capture's replay ({g1_capture_kernels})")
+    del eager, cap
+    torch.cuda.empty_cache()
+    summary = {"env_steps_per_s": med, "env_steps_per_s_repeats": rates,
+               "ms_per_control_step": {k: float(np.median(v)) for k, v in ms.items()},
+               "device_ms_per_control_step": {k: p["busy_ms"] for k, p in profiles.items()},
+               "idle_share": {k: p["idle_share"] for k, p in profiles.items()},
+               "cuda_kernels_per_control_step": {k: p["kernels"] for k, p in profiles.items()},
+               "kernels_added_over_g1_capture": added, "capture_s": capture_s,
+               "launches_per_control_step": per_step, "check_rel_err": errs,
+               "equal_noise_share": same_noise, "equal_reset_pose_share": same_pose,
+               "card_vs_cpu_rel_err": env_on_card_matches_cpu(SEED + 3)}
+    return launches, summary
+
+
+# ---------------------------------------------------------------------------
 # the forward path: Simulation.forward() of the G1 (kernel 6)
 # ---------------------------------------------------------------------------
 
@@ -1482,17 +1801,17 @@ def run_forward_path() -> tuple[dict, dict, dict]:
 CHECK_PATH = {"kin_com": "g1", "crb_packed": "g1", "vel_smooth": "g1",
               "newton_assemble_solve": "g1", "newton_assemble_solve_elliptic": "yam",
               "newton_solve_dense": "g1_forward"}
-LAUNCH_PATH = {"kin_com": "g1_capture", "crb_packed": "g1_capture",
-               "vel_smooth": "g1_capture", "newton_assemble_solve": "g1_capture",
+LAUNCH_PATH = {"kin_com": "g1_env", "crb_packed": "g1_env",
+               "vel_smooth": "g1_env", "newton_assemble_solve": "g1_env",
                "newton_assemble_solve_elliptic": "yam_capture",
                "newton_solve_dense": "g1_forward"}
 
 
-def kernel_rows(per_path: dict, launches: dict, capture: dict) -> list[dict]:
+def kernel_rows(per_path: dict, launches: dict, per_step: dict) -> list[dict]:
     """One row per kernel: its check's numbers (CHECK_PATH), its launches
     on this slice's main path (LAUNCH_PATH, with the launches per control
-    step the capture recorded), and every path's numbers under
-    "per_path"."""
+    step its capture recorded, ``per_step`` by path), and every path's
+    numbers under "per_path"."""
     rows = []
     for name in REPLACES:
         runs = {p: per_path[p][name] for p in per_path if name in per_path[p]}
@@ -1506,8 +1825,7 @@ def kernel_rows(per_path: dict, launches: dict, capture: dict) -> list[dict]:
             bound_by=r["bound_by"], library_ms=None, path=top, launch_path=lp,
             **({"launches_per_forward": launches[lp][name] / FORWARD_CALLS}
                if lp == "g1_forward" else
-               {"launches_per_control_step":
-                capture[lp.split("_")[0]]["launches_per_control_step"][name]}),
+               {"launches_per_control_step": per_step[lp][name]}),
             max_rel_err=r["max_rel_err"], bytes=r["bytes"], flops=r["flops"],
         )
         if "iteration_counts_differ" in r:
@@ -1537,6 +1855,11 @@ def main() -> int:
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     build_kernels()
+    if sys.argv[1:2] == ["--only-env"]:
+        # a quick run of this slice's path alone: no result line
+        run_env_path(None)
+        log("[partial] --only-env: the other paths did not run; no result")
+        return 0
     per_path, launches, summary = {}, {}, {}
     for path in PATHS:
         per_path[path], launches[path], summary[path] = run_path(path)
@@ -1545,13 +1868,18 @@ def main() -> int:
     capture = {}
     for path in PATHS:
         launches[f"{path}_capture"], capture[path] = run_capture_path(path)
+    launches["g1_env"], env = run_env_path(
+        capture["g1"]["cuda_kernels_per_control_step"]["captured"])
+    per_step = {f"{p}_capture": capture[p]["launches_per_control_step"] for p in PATHS}
+    per_step["g1_env"] = env["launches_per_control_step"]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    log(json.dumps({"kernels": kernel_rows(per_path, launches, capture)}))
+    log(json.dumps({"kernels": kernel_rows(per_path, launches, per_step)}))
     log(json.dumps({"capture": capture, "num_envs": NUM_ENVS, "power_limit": smi}))
+    log(json.dumps({"g1_env": env, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"paths": summary, "num_envs": NUM_ENVS,
                     "control_steps": CONTROL_STEPS,
                     "seconds": time.perf_counter() - t_start}))

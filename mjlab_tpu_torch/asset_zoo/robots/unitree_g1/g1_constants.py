@@ -180,3 +180,10 @@ def get_g1_robot_cfg() -> EntityCfg:
         actuators=G1_ACTUATORS,
         soft_joint_pos_limit_factor=0.9,
     )
+
+
+# action scale rule: 0.25 * effort_limit / stiffness per motor class
+G1_ACTION_SCALE: dict[str, float] = {}
+for _a in G1_ACTUATORS:
+    for _n in _a.joint_names_expr:
+        G1_ACTION_SCALE[_n] = 0.25 * _a.effort_limit / _a.stiffness

@@ -40,6 +40,7 @@ class EntityData:
 
     def __init__(self, entity: "Entity"):
         self._e = entity
+        self._consts: dict = {}
 
     # -- plumbing --
 
@@ -70,9 +71,14 @@ class EntityData:
         return self._e.is_articulated
 
     def _const3(self, v):
+        """(num_envs, 3) view of the constant v, made once per dtype (no
+        host copy after the first call, so a captured step may read it)."""
         d = self._d
-        return torch.tensor(v, dtype=d.qpos.dtype, device=d.qpos.device).expand(
-            d.qpos.shape[0], 3)
+        key = (tuple(v), d.qpos.dtype)
+        t = self._consts.get(key)
+        if t is None:
+            t = self._consts[key] = torch.tensor(v, dtype=d.qpos.dtype, device=d.qpos.device)
+        return t.expand(d.qpos.shape[0], 3)
 
     @property
     def gravity_vec_w(self):
@@ -372,7 +378,7 @@ class EntityData:
     def write_mocap_pose(self, pose, env_ids=None):
         if self._idx.mocap_id is None:
             raise ValueError("entity is not a mocap body")
-        mid = torch.tensor([self._idx.mocap_id], device=self._d.qpos.device)
+        mid = self._e.indexing.mocap_ids
         self._write("mocap_pos", mid, pose[:, None, :3], env_ids, 2)
         self._write("mocap_quat", mid, pose[:, None, 3:7], env_ids, 2)
 

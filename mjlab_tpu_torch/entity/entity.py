@@ -75,6 +75,7 @@ class EntityIndexing:
     free_joint_q_adr: torch.Tensor  # (7,) or empty
     free_joint_v_adr: torch.Tensor  # (6,) or empty
     mocap_id: int | None
+    mocap_ids: torch.Tensor  # (1,) [mocap_id], or empty
     root_body_id: int
     root_tree_id: int  # body_rootid of the root body
     body_tree_ids: torch.Tensor  # body_rootid of each body
@@ -213,6 +214,7 @@ class Entity:
             ctrl_ids=ix(ctrl_ids), joint_q_adr=ix(joint_q_adr),
             joint_v_adr=ix(joint_v_adr), free_joint_q_adr=ix(free_q),
             free_joint_v_adr=ix(free_v), mocap_id=mocap if mocap >= 0 else None,
+            mocap_ids=ix([mocap] if mocap >= 0 else []),
             root_body_id=root_body_id,
             root_tree_id=int(m.body_rootid[root_body_id]),
             body_tree_ids=ix(m.body_rootid[body_ids]),

@@ -245,9 +245,8 @@ def forward_solve(m: Model, d: Data, iters: torch.Tensor | None = None,
     vT = d.qvel.T.contiguous()
     ctrlT = d.ctrl.T.contiguous()
 
-    gxpos, gxmat, subcom, cdof, cinA, cinc, xipos, _, _ = kin_com(
-        m, qT, *mocap_planes(m, d)
-    )
+    kin = kin_com(m, qT, *mocap_planes(m, d))
+    gxpos, gxmat, subcom, cdof, cinA, cinc, xipos, _, _ = kin
     mark("kin_com")
     k = contact_stack(m, P, qT, vT, gxpos, gxmat, subcom)
     mark("contact")
@@ -265,20 +264,27 @@ def forward_solve(m: Model, d: Data, iters: torch.Tensor | None = None,
     )
     mark("solve")
     sol.setdefault("qacc_int", sol["qacc"])
-    sol.update(actuator_force=afrc, actuator_velocity=avel, k=k)
+    sol.update(actuator_force=afrc, actuator_velocity=avel, k=k, kin=kin)
     return qT, vT, sol
 
 
 def step_envlast(m: Model, d: Data,
-                 mark: Callable[[str], None] | None = None) -> Data:
+                 mark: Callable[[str], None] | None = None,
+                 frames: bool = False) -> Data:
     """One physics step of every env (mj_step semantics, lean writeback).
 
+    ``frames`` also writes what refresh_envlast writes, for the state the
+    step started from, from the step's own kin_com (what mj_step leaves in
+    mjData, and what the JAX package's batched step writes per substep on
+    the CPU: frames and velocities one substep behind qpos).
     ``mark(name)``, if given, is called after each phase with the phase's
     name (kin_com, contact, vel_smooth, crb, solve, integrate); a profiler
     records events there."""
     mark = mark or (lambda name: None)
     nu = m.nu
     qT, vT, sol = forward_solve(m, d, mark=mark)
+    if frames:
+        d = d.replace(**_frame_fields(m, d, sol["kin"], vT))
     qacc = sol["qacc"]
     qT_new, vT_new, bad = integrate_envlast(m, qT, vT, sol["qacc_int"])
     afrc, avel = sol["actuator_force"], sol["actuator_velocity"]
@@ -525,14 +531,18 @@ def refresh_envlast(m: Model, d: Data) -> Data:
     """Full-surface kinematic refresh of every env: xpos/xquat/xmat/xipos/
     ximat, geom and site frames, subtree_com, cinert, cdof, cvel, cdof_dot.
     xanchor/xaxis are not refreshed (no consumer outside the step)."""
+    qT = d.qpos.T.contiguous()
+    kin = kin_com(m, qT, *mocap_planes(m, d))
+    return d.replace(**_frame_fields(m, d, kin, d.qvel.T))
+
+
+def _frame_fields(m: Model, d: Data, kin: tuple, vT: torch.Tensor) -> dict:
+    """The refreshed Data fields from kin_com's outputs ``kin`` and the
+    velocities vT (nv, E)."""
     E = d.qpos.shape[0]
     nb, ng, ns = m.nbody, m.ngeom, m.nsite
     dt, dev = d.qpos.dtype, d.qpos.device
-    qT = d.qpos.T.contiguous()
-    vT = d.qvel.T
-    _, _, subcom, cdof, cinA, cinc, xipos, xpos, xquat = kin_com(
-        m, qT, *mocap_planes(m, d)
-    )
+    _, _, subcom, cdof, cinA, cinc, xipos, xpos, xquat = kin
 
     xmat = _quat_mat_planes(xquat)
     local = cached(m, "refresh_frames", lambda: {
@@ -590,4 +600,4 @@ def refresh_envlast(m: Model, d: Data) -> Data:
         subtree_com=_ef(subcom), cinert=_ef(cin36).reshape(E, nb, 6, 6),
         cdof=_ef(cdof), cvel=_ef(cvel), cdof_dot=_ef(cdof_dot),
     )
-    return d.replace(**upd)
+    return upd

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from mjlab_tpu_torch.entity.entity import Entity, EntityCfg
+from mjlab_tpu_torch.terrains.importer import TerrainImporterCfg
 from mjlab_tpu_torch.utils.string import (
     resolve_matching_names, resolve_matching_names_values,
 )
@@ -48,20 +49,24 @@ _SCENE_VISUAL_XML = """
 </mujoco>
 """
 
-# default friction of the terrain plane (TerrainImporterCfg.friction)
-PLANE_FRICTION = (1.0, 0.005, 0.0001)
-
-
 @dataclass
 class SceneCfg:
-    """Entities by name, the terrain plane, the sensors (configs with a
-    ``build(scene)``) and the spacing of the env origins' grid."""
+    """The number of envs, entities by name, the terrain (None for none),
+    the sensors (configs with a ``build(scene)``) and the spacing of the
+    env origins' grid without a terrain (a terrain has its own).
+    ``model_file`` names a model file (phys/model.py save_model) that holds
+    this scene compiled, with its XML sensors: the env then loads the
+    Model from it and needs no MuJoCo (the file must be regenerated when
+    the scene changes). ``extent`` is the JAX package's field, carried for
+    the viewers."""
 
-    entities: dict[str, EntityCfg] = field(default_factory=dict)
-    plane_terrain: bool = True
-    plane_friction: tuple = PLANE_FRICTION
-    sensors: tuple = ()
+    num_envs: int = 1
     env_spacing: float = 2.0
+    terrain: TerrainImporterCfg | None = None
+    entities: dict[str, EntityCfg] = field(default_factory=dict)
+    sensors: tuple = ()
+    extent: float | None = None
+    model_file: object | None = None
 
 
 def build_entity_spec(cfg: EntityCfg) -> "mujoco.MjSpec":
@@ -215,6 +220,10 @@ class Scene:
     runtime calls out to its entities and sensors."""
 
     def __init__(self, cfg: SceneCfg):
+        if cfg.terrain is not None and cfg.terrain.terrain_type != "plane":
+            raise NotImplementedError(
+                f"terrain type {cfg.terrain.terrain_type!r}: the terrain generator "
+                "(terrains/*) and the height-field pair families are not ported yet")
         self.cfg = cfg
         self.entities: dict[str, Entity] = {
             name: Entity(ecfg, name) for name, ecfg in cfg.entities.items()
@@ -243,13 +252,13 @@ class Scene:
             import mujoco
 
             spec = mujoco.MjSpec.from_string(_SCENE_VISUAL_XML)
-            if self.cfg.plane_terrain:
+            if self.cfg.terrain is not None:
                 terrain = mujoco.MjSpec()
                 body = terrain.worldbody.add_body(name="terrain")
                 g = body.add_geom(name="terrain")
                 g.type = mujoco.mjtGeom.mjGEOM_PLANE
                 g.size = [0.0, 0.0, 1.0]
-                g.friction[:] = self.cfg.plane_friction
+                g.friction[:] = self.cfg.terrain.friction
                 frame = spec.worldbody.add_frame()
                 spec.attach(terrain, frame=frame, prefix="terrain/")
             for name, ecfg in self.cfg.entities.items():
@@ -279,19 +288,22 @@ class Scene:
         for sensor in self.sensors.values():
             sensor.initialize(ctx)
         n = sim.num_envs
+        spacing = (self.cfg.env_spacing if self.cfg.terrain is None
+                   else self.cfg.terrain.env_spacing)
         side = int(np.ceil(np.sqrt(n)))
         idx = np.arange(n)
-        origins = np.zeros((n, 3))
-        origins[:, 0] = (idx // side - (side - 1) / 2) * self.cfg.env_spacing
-        origins[:, 1] = (idx % side - (side - 1) / 2) * self.cfg.env_spacing
-        self._env_origins = torch.as_tensor(origins, dtype=sim.dtype, device=sim.device)
+        origins = np.zeros((n, 3), np.float32)
+        origins[:, 0] = (idx // side - (side - 1) / 2) * spacing
+        origins[:, 1] = (idx % side - (side - 1) / 2) * spacing
+        self._env_origins = torch.as_tensor(origins, device=sim.device).to(sim.dtype)
         return ctx
 
     @property
     def env_origins(self) -> torch.Tensor:
-        """(num_envs, 3) world origin of each env: a grid of env_spacing
-        about the world origin (the plane terrain's,
-        mjlab_tpu/terrains/importer.py:69-78)."""
+        """(num_envs, 3) world origin of each env: a grid about the world
+        origin, of the plane terrain's env_spacing (mjlab_tpu/terrains/
+        importer.py:69-78), else the scene's (mjlab_tpu/scene/scene.py
+        env_origins); float32 values, as the JAX package's."""
         return self._env_origins
 
     def reset(self, mask: torch.Tensor) -> None:
@@ -325,15 +337,12 @@ class Scene:
 
 
 def g1_velocity_flat_scene_cfg() -> SceneCfg:
-    """The scene of Mjlab-Velocity-Flat-Unitree-G1: a ground plane, the G1
-    as "robot/", and the task's two contact sensors."""
-    from mjlab_tpu_torch.asset_zoo.robots.unitree_g1.g1_constants import (
-        get_g1_robot_cfg,
-    )
-    from mjlab_tpu_torch.tasks.velocity.config.g1.physics import contact_sensor_cfgs
+    """The scene of Mjlab-Velocity-Flat-Unitree-G1 (its env config's): a
+    ground plane, the G1 as "robot/", and the task's two contact
+    sensors."""
+    from mjlab_tpu_torch.tasks.velocity.config.g1.env_cfgs import unitree_g1_flat_env_cfg
 
-    return SceneCfg(entities={"robot": get_g1_robot_cfg()},
-                    sensors=contact_sensor_cfgs())
+    return unitree_g1_flat_env_cfg().scene
 
 
 def g1_velocity_flat_model() -> "mujoco.MjModel":
@@ -355,6 +364,6 @@ def yam_lift_cube_model() -> "mujoco.MjModel":
         cube_entity_cfg,
     )
 
-    return Scene(SceneCfg(entities={
+    return Scene(SceneCfg(terrain=TerrainImporterCfg(), entities={
         "robot": get_yam_robot_cfg(), "cube": cube_entity_cfg(),
     })).compile()

@@ -12,7 +12,8 @@ instance one read by phys.model.load_model on a machine without MuJoCo).
 The control step (ControlStep) plays the role ``jax.jit`` of the vmapped
 step plays in the JAX package (mjlab_tpu/sim/sim.py:1-12): decimation
 physics substeps, each between the caller's pre- and post-substep calls,
-then the kinematic refresh, captured on the card as one CUDA graph over the
+then the kinematic refresh (or the caller's own ``after``, as the env's
+step has it), captured on the card as one CUDA graph over the
 Simulation's static Data buffers.
 """
 
@@ -259,9 +260,11 @@ class Simulation:
 
     # -- the physics --
 
-    def step(self) -> None:
-        """One physics step of every env."""
-        self.data = step_envlast(self.model, self.data)
+    def step(self, frames: bool = False) -> None:
+        """One physics step of every env; ``frames`` also writes the
+        refreshed fields of the state the step started from (phys/
+        hybrid.py step_envlast)."""
+        self.data = step_envlast(self.model, self.data, frames=frames)
 
     def forward(self) -> None:
         """mj_forward of every env: positions, velocities, forces and the
@@ -306,20 +309,28 @@ def _field(d: Data, name: str) -> torch.Tensor:
 
 
 class ControlStep:
-    """One control step of every env: ``decimation`` times
-    ``pre_substep()``, a physics step and ``post_substep()``, then the
-    kinematic refresh (the env's decimation loop and refresh,
-    mjlab_tpu/envs/manager_based_rl_env.py:424-444 and 392-397). The
-    callables read and write the Simulation's Data (``sim.data``) and
-    tensors of their own, in place.
+    """One control step of every env: ``before()``, then ``decimation``
+    times ``pre_substep()``, a physics step and ``post_substep()``, then
+    ``after()`` (by default the kinematic refresh: the env's decimation
+    loop and refresh, mjlab_tpu/envs/manager_based_rl_env.py:424-444 and
+    392-397). The env's step passes its own ``before`` (the action) and
+    ``after`` (terminations, rewards, masked resets, the refresh where the
+    JAX env places it, commands, events, observations) and
+    ``frames_last``: the last substep also writes the frames of the state
+    it started from, which the terminations and rewards read, as after
+    mj_step. The callables read and write the Simulation's Data
+    (``sim.data``) and tensors of their own, in place.
 
     ``eager()`` runs it op by op. ``capture()`` records it on the card as
     one torch.cuda.CUDAGraph, and ``replay()`` then runs that graph. The
     graph reads and writes fixed buffers: the Simulation's Data (made
-    static here) and the tensors ``state()`` lists (entity and sensor
-    state); a reset, a domain randomisation write or a new joint target
-    written into them between replays is what the next replay reads.
-    There is no fallback: a capture or replay failure raises."""
+    static here) and the tensors ``state()`` lists (entity, sensor and
+    manager state); a reset, a domain randomisation write or a new input
+    written into them between replays is what the next replay reads. The
+    ``generators`` (torch.Generator on the card) are registered with the
+    graph, so that each replay draws fresh numbers, as the same number of
+    eager steps would. There is no fallback: a capture or replay failure
+    raises."""
 
     def __init__(
         self,
@@ -328,6 +339,10 @@ class ControlStep:
         pre_substep: Callable[[], None] | None = None,
         post_substep: Callable[[], None] | None = None,
         state: Callable[[], list[torch.Tensor]] | None = None,
+        before: Callable[[], None] | None = None,
+        after: Callable[[], None] | None = None,
+        generators: tuple[torch.Generator, ...] = (),
+        frames_last: bool = False,
     ):
         sim.make_static()
         self.sim = sim
@@ -335,27 +350,33 @@ class ControlStep:
         self.pre_substep = pre_substep or (lambda: None)
         self.post_substep = post_substep or (lambda: None)
         self.state = state or (lambda: [])
+        self.before = before or (lambda: None)
+        self.after = after if after is not None else sim.refresh
+        self.generators = tuple(generators)
+        self.frames_last = frames_last
         self.graph: torch.cuda.CUDAGraph | None = None
 
     def eager(self) -> None:
         """The control step, op by op."""
-        for _ in range(self.decimation):
+        self.before()
+        for i in range(self.decimation):
             self.pre_substep()
-            self.sim.step()
+            self.sim.step(frames=self.frames_last and i == self.decimation - 1)
             self.post_substep()
-        self.sim.refresh()
+        self.after()
 
     def capture(self, warmup: int = 2) -> None:
         """Record the control step as one CUDA graph. ``warmup`` eager
         control steps run first on a side stream (they fill every lazy
         table and build the kernels), the last of them with host
-        synchronisation an error; the state they advance is put back
-        before capture, so the next replay starts where the caller left
-        off."""
+        synchronisation an error; the state they advance and the
+        generators' state they drew from are put back before capture, so
+        the next replay starts where the caller left off."""
         sim = self.sim
         if sim.device.type != "cuda":
             raise RuntimeError("a control step is captured on a CUDA device")
         saved = [t.clone() for t in self._buffers()]
+        drawn = [g.get_state() for g in self.generators]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -369,7 +390,12 @@ class ControlStep:
             for t, s in zip(self._buffers(), saved):
                 t.copy_(s)
         torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        for g, s in zip(self.generators, drawn):
+            g.set_state(s)
         graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            graph.register_generator_state(g)
         sim._captured = True
         with torch.cuda.graph(graph):
             self.eager()

@@ -28,19 +28,17 @@ import torch
 
 from mjlab_tpu_torch.phys.model import Model, load_model, put_model, save_model
 from mjlab_tpu_torch.sensor.contact_sensor import ContactMatch, ContactSensorCfg
-from mjlab_tpu_torch.sim.sim import ControlStep, MujocoCfg, Simulation, SimulationCfg
+from mjlab_tpu_torch.sim.sim import ControlStep, Simulation, SimulationCfg
 
 SAVED_MODEL = Path(__file__).resolve().parent / "g1_velocity_flat.npz"
 DECIMATION = 4  # physics substeps per control step
 
 
 def sim_cfg() -> SimulationCfg:
-    """The velocity task's simulation options."""
-    return SimulationCfg(
-        nconmax=35,
-        njmax=300,
-        mujoco=MujocoCfg(timestep=0.005, iterations=10, ls_iterations=20),
-    )
+    """The velocity task's simulation options (velocity_env_cfg.py)."""
+    from mjlab_tpu_torch.tasks.velocity.velocity_env_cfg import make_velocity_env_cfg
+
+    return make_velocity_env_cfg().sim
 
 
 def contact_sensor_cfgs() -> tuple[ContactSensorCfg, ...]:

@@ -1,11 +1,13 @@
 """Env-level quaternion and frame helpers (batched torch tensors).
 
 PyTorch counterpart of the part of mjlab_tpu/utils/math.py that the entity
-view (entity/data.py) and the sensors call. Quaternions are (w, x, y, z)
-on the trailing axis; the algebra is phys/math.py's.
+view (entity/data.py), the sensors and the env's terms call. Quaternions
+are (w, x, y, z) on the trailing axis; the algebra is phys/math.py's.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -47,3 +49,37 @@ def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
     q = torch.take_along_dim(cases, idx[..., None, None].expand(idx.shape + (1, 4)), dim=-2)[..., 0, :]
     q = normalize_quat(q)
     return torch.where(q[..., 0:1] < 0, -q, q)
+
+
+def yaw_quat(q: torch.Tensor) -> torch.Tensor:
+    """The yaw-only part of q (mjlab_tpu/utils/math.py yaw_quat)."""
+    qw, qx, qy, qz = q.unbind(-1)
+    yaw = torch.atan2(2 * (qw * qz + qx * qy), 1 - 2 * (qy * qy + qz * qz))
+    half = 0.5 * yaw
+    zero = torch.zeros_like(half)
+    return torch.stack([torch.cos(half), zero, zero, torch.sin(half)], dim=-1)
+
+
+def quat_from_euler_xyz(roll, pitch, yaw) -> torch.Tensor:
+    cr, sr = torch.cos(roll * 0.5), torch.sin(roll * 0.5)
+    cp, sp = torch.cos(pitch * 0.5), torch.sin(pitch * 0.5)
+    cy, sy = torch.cos(yaw * 0.5), torch.sin(yaw * 0.5)
+    return torch.stack([
+        cr * cp * cy + sr * sp * sy,
+        sr * cp * cy - cr * sp * sy,
+        cr * sp * cy + sr * cp * sy,
+        cr * cp * sy - sr * sp * cy,
+    ], dim=-1)
+
+
+def euler_xyz_from_quat(q: torch.Tensor):
+    w, x, y, z = q.unbind(-1)
+    roll = torch.atan2(2 * (w * x + y * z), 1 - 2 * (x * x + y * y))
+    pitch = torch.asin(torch.clamp(2 * (w * y - z * x), -1.0, 1.0))
+    yaw = torch.atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
+    return roll, pitch, yaw
+
+
+def wrap_to_pi(x: torch.Tensor) -> torch.Tensor:
+    """x wrapped into [-pi, pi) (floor modulo, as jnp.mod)."""
+    return torch.remainder(x + math.pi, 2 * math.pi) - math.pi

@@ -150,3 +150,106 @@ def test_warm_state_snapshot_covers_scene_state():
     ids = {id(t) for t in bufs}
     assert len(bufs) == len(tensor_fields()) + len(scene.state_tensors())
     assert all(id(t) in ids for t in scene.state_tensors())
+
+
+# ---------------------------------------------------------------------------
+# the env's step on ControlStep (envs/manager_based_rl_env.py)
+# ---------------------------------------------------------------------------
+
+
+def test_control_step_hooks_run_in_order():
+    """before(), decimation x (pre, step, post), after(); the default
+    after() is the refresh (g1_capture's and yam_capture's order)."""
+    sim = _g1_sim()
+    calls = []
+    step = ControlStep(sim, 4, pre_substep=lambda: calls.append("pre"),
+                       post_substep=lambda: calls.append("post"),
+                       before=lambda: calls.append("before"),
+                       after=lambda: calls.append("after"))
+    step.eager()
+    assert calls == ["before"] + ["pre", "post"] * 4 + ["after"]
+    assert ControlStep(_g1_sim(), 4).after.__func__ is Simulation.refresh
+
+
+def test_last_substep_frames_are_the_start_state_refreshed():
+    """frames_last: the last substep writes the frames of the state it
+    started from (what mj_step leaves), equal to a refresh of that state;
+    qpos and the rest of the step are those of a plain step."""
+    a, b = _g1_sim(3), _g1_sim(3)
+    before = _g1_sim(3)
+    for s in (a, b, before):
+        for _ in range(3):
+            s.step()
+    a.step(frames=True)
+    b.step()
+    before.refresh()
+    for name in ("qpos", "qvel", "qacc", "con_sel", "con_force_c"):
+        assert torch.equal(getattr(a.data, name), getattr(b.data, name)), name
+    for name in ("xpos", "xquat", "xmat", "xipos", "ximat", "geom_xpos", "site_xpos",
+                 "subtree_com", "cinert", "cdof", "cvel", "cdof_dot"):
+        assert torch.equal(getattr(a.data, name), getattr(before.data, name)), name
+
+
+def _env(seed=0, E=3):
+    from mjlab_tpu_torch.envs import ManagerBasedRlEnv
+    from mjlab_tpu_torch.tasks import load_env_cfg
+
+    cfg = load_env_cfg("Mjlab-Velocity-Flat-Unitree-G1")
+    cfg.scene.num_envs = E
+    cfg.seed = seed
+    return ManagerBasedRlEnv(cfg, device="cpu")
+
+
+def test_env_step_outputs_are_fixed_buffers():
+    """step() returns the same tensors every step, written in place (a
+    captured step's outputs); the action is copied into a fixed input."""
+    env = _env()
+    env.reset()
+    act = torch.zeros(3, 29)
+    first = env.step(act)
+    ptrs = [first[0]["policy"].data_ptr(), first[0]["critic"].data_ptr(),
+            first[1].data_ptr(), first[2].data_ptr(), first[3].data_ptr()]
+    logs = {k: v.data_ptr() for k, v in first[4]["log"].items()}
+    policy = first[0]["policy"].clone()
+    second = env.step(act + 0.5)
+    assert ptrs == [second[0]["policy"].data_ptr(), second[0]["critic"].data_ptr(),
+                    second[1].data_ptr(), second[2].data_ptr(), second[3].data_ptr()]
+    assert logs == {k: v.data_ptr() for k, v in second[4]["log"].items()}
+    assert not torch.equal(policy, second[0]["policy"])
+    assert torch.equal(env._action_in, act + 0.5)
+
+
+def test_env_state_snapshot_covers_what_a_step_writes():
+    """What capture() puts back after its warm-up steps (the Data and the
+    env's state tensors, and the generator's state) is all a step
+    changes: two steps, put back, then a step equals a twin's first."""
+    env, twin = _env(seed=4), _env(seed=4)
+    for e in (env, twin):
+        e.reset()
+    acts = [torch.full((3, 29), 0.3 * i) for i in range(3)]
+    saved = [t.clone() for t in env._step._buffers()]
+    drawn = env.rng.generator.get_state()
+    env.step(acts[1])
+    env.step(acts[2])
+    for t, s in zip(env._step._buffers(), saved):
+        t.copy_(s)
+    env.rng.generator.set_state(drawn)
+    out, want = env.step(acts[0]), twin.step(acts[0])
+    for k in ("policy", "critic"):
+        assert torch.equal(out[0][k], want[0][k]), k
+    for i in (1, 2, 3):
+        assert torch.equal(out[i], want[i])
+    assert torch.equal(env.sim.data.qpos, twin.sim.data.qpos)
+    assert {k: float(v) for k, v in out[4]["log"].items()} == \
+        {k: float(v) for k, v in want[4]["log"].items()}
+
+
+def test_env_captures_only_on_cuda():
+    """On the CPU the env steps op by op; asking its ControlStep to capture
+    raises (the graph runs on the card: tests/test_torch_cuda.py)."""
+    env = _env()
+    env.reset()
+    env.step(torch.zeros(3, 29))
+    assert not env.captured
+    with pytest.raises(RuntimeError, match="CUDA"):
+        env._step.capture()

@@ -629,3 +629,93 @@ def test_replay_sees_reset_and_friction_writes(cuda):
     with pytest.raises(RuntimeError, match="captured"):
         sim_c.expand_model_fields(["geom_solref"])
 
+
+
+# ---------------------------------------------------------------------------
+# the G1 flat-velocity env's step captured as one CUDA graph
+# (envs/manager_based_rl_env.py; chip_smoke.py's g1_env phase at 4096 envs)
+# ---------------------------------------------------------------------------
+
+# the env's outputs: the step tolerances on what they read
+_ENV_TOL = {"policy": 1e-3, "critic": 5e-3, "reward": 1e-3}
+
+
+def _g1_envs(cuda, E=256, seed=5):
+    """An eager and a captured env of the task on one seed: the same
+    generator state, so the same draws."""
+    from mjlab_tpu_torch.envs import ManagerBasedRlEnv
+    from mjlab_tpu_torch.tasks import load_env_cfg
+
+    out = []
+    for capture in (False, True):
+        cfg = load_env_cfg("Mjlab-Velocity-Flat-Unitree-G1")
+        cfg.scene.num_envs = E
+        cfg.seed = seed
+        env = ManagerBasedRlEnv(cfg, device=cuda, capture=capture)
+        env.reset()
+        out.append(env)
+    return out
+
+
+def _tip_and_time_out(env, tip, late):
+    import math
+
+    qpos = env.sim.data.qpos.clone()
+    a = math.radians(80.0) / 2
+    qpos[tip, 3:7] = torch.tensor([math.cos(a), math.sin(a), 0.0, 0.0], device=qpos.device)
+    env.sim.data = env.sim.data.replace(qpos=qpos)
+    env.episode_length_buf[late] = env.max_episode_length - 1
+
+
+def test_captured_env_step_matches_eager(cuda):
+    """3 replays of the env step against 3 eager steps of a twin with the
+    same generator state, across the reset of tipped and timed-out envs:
+    the same flags and episode lengths, the observations and rewards and
+    the state within the step tolerances, the same active slots; the
+    capture recorded kernels 1-4 at their per-control-step counts."""
+    eager, cap = _g1_envs(cuda)
+    wrappers = (sk.kin_com, sk.crb_dense, sk.vel_smooth, sv.newton_assemble_solve)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    act = 0.5 * torch.randn(256, 29, generator=gen, device=cuda)
+    before = [w.launches for w in wrappers]
+    cap.step(act)  # captures (two warm-up steps and the capture), replays
+    per_step = [(w.launches - b) / 3 for w, b in zip(wrappers, before)]
+    assert cap.captured and per_step == [5, 4, 4, 4]
+    eager.step(act)
+    idx = torch.arange(256, device=cuda)
+    for env in (eager, cap):
+        _tip_and_time_out(env, idx % 7 == 0, idx % 11 == 3)
+    for i in range(3):
+        act = 0.5 * torch.randn(256, 29, generator=gen, device=cuda)
+        oe = [t.clone() if isinstance(t, torch.Tensor) else {k: v.clone() for k, v in t.items()}
+              for t in eager.step(act)[:4]]
+        oc = cap.step(act)
+        assert cap.captured
+        torch.cuda.synchronize()
+        for k in ("policy", "critic"):
+            assert rel_err(oe[0][k], oc[0][k]) < _ENV_TOL[k], (i, k)
+        assert rel_err(oe[1], oc[1]) < _ENV_TOL["reward"], i
+        assert torch.equal(oe[2], oc[2]) and torch.equal(oe[3], oc[3]), i
+        assert torch.equal(eager.episode_length_buf, cap.episode_length_buf), i
+        if i == 0:
+            assert bool(oc[2][idx % 7 == 0].all()) and bool(oc[3][idx % 11 == 3].all())
+        _assert_steps_agree(eager.sim.data, cap.sim.data, "g1")
+
+
+def test_env_replays_draw_fresh_numbers(cuda):
+    """Two replays draw different numbers: the policy group's noise and
+    the reset poses of envs reset in both."""
+    _, cap = _g1_envs(cuda, E=128)
+    act = torch.zeros(128, 29, device=cuda)
+    noise, poses = [], []
+    every = torch.ones(128, dtype=torch.bool, device=cuda)
+    for _ in range(2):
+        _tip_and_time_out(cap, ~every, every)
+        obs = cap.step(act)[0]
+        noise.append((obs["policy"][:, :67] - obs["critic"][:, :67]).clone())
+        poses.append(cap.sim.data.qpos[:, :2] - cap.scene.env_origins[:, :2])
+    torch.cuda.synchronize()
+    assert cap.captured
+    assert float((noise[0] == noise[1]).double().mean()) < 0.01
+    assert float((poses[0] == poses[1]).all(1).double().mean()) < 0.01
+    assert float(noise[0].abs().max()) <= 1.5 + 1e-6

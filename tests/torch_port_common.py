@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 import weakref
 
+import jax
 import jax.numpy as jnp
 import mujoco
 import numpy as np
@@ -214,10 +215,13 @@ def jax_data_from_port(d):
     from mjlab_tpu.phys.data import Data as JaxData
     from mjlab_tpu_torch.phys.data import tensor_fields
 
-    kw = {n: jnp.asarray(tnp(getattr(d, n)) if getattr(d, n).is_floating_point()
-                         else getattr(d, n).numpy())
+    # copies: a JAX array may share a numpy array's memory, and the port
+    # writes its Data in place
+    kw = {n: jnp.asarray(np.array(tnp(getattr(d, n))) if getattr(d, n).is_floating_point()
+                         else getattr(d, n).numpy().copy())
           for n in tensor_fields() if n != "contact"}
-    return JaxData(contact=JaxContact(packed=jnp.asarray(tnp(d.contact.packed))), **kw)
+    return JaxData(contact=JaxContact(packed=jnp.asarray(np.array(tnp(d.contact.packed)))),
+                   **kw)
 
 
 def g1_scenes(E: int, steps: int = 2, seed: int = 0):
@@ -259,3 +263,147 @@ def g1_scenes(E: int, steps: int = 2, seed: int = 0):
     ctx = JaxSimContext(jm, jax_data_from_port(sim.data))
     jscene.initialize(mj, ctx, jax.random.PRNGKey(0))
     return jscene, ctx, sim, scene
+
+
+# ---------------------------------------------------------------------------
+# random draws: the JAX package's, recorded, played back to the port
+# ---------------------------------------------------------------------------
+
+
+class JaxDraws:
+    """Records every jax.random.uniform / normal / randint draw made while
+    active (eager calls only: the values must be concrete), in order, as
+    ("uniform", unit draws in [0, 1)), ("normal", draws) or ("integers",
+    draws). ``with JaxDraws() as draws: ...`` then ``ReplayRng(draws)``
+    hands the same numbers to the port, whose every draw goes through
+    Rng.draw."""
+
+    def __init__(self):
+        self.log: list[tuple[str, np.ndarray]] = []
+
+    def __enter__(self):
+        import jax
+
+        self._orig = (jax.random.uniform, jax.random.normal, jax.random.randint)
+        uniform, normal, randint = self._orig
+
+        def rec_uniform(key, shape=(), dtype=float, minval=0.0, maxval=1.0):
+            self.log.append(("uniform", np.asarray(uniform(key, shape, dtype))))
+            return uniform(key, shape, dtype, minval, maxval)
+
+        def rec_normal(key, shape=(), dtype=float):
+            out = normal(key, shape, dtype)
+            self.log.append(("normal", np.asarray(out)))
+            return out
+
+        def rec_randint(key, shape, minval, maxval, dtype=int):
+            out = randint(key, shape, minval, maxval, dtype)
+            self.log.append(("integers", np.asarray(out)))
+            return out
+
+        jax.random.uniform, jax.random.normal, jax.random.randint = (
+            rec_uniform, rec_normal, rec_randint)
+        return self
+
+    def __exit__(self, *exc):
+        import jax
+
+        jax.random.uniform, jax.random.normal, jax.random.randint = self._orig
+        return False
+
+
+class ReplayRng:
+    """A port Rng (mjlab_tpu_torch/utils/random.py) whose draws are the
+    recorded JAX ones, in order; each must match the kind and shape the
+    port asks for."""
+
+    def __init__(self, draws: JaxDraws, device="cpu"):
+        from mjlab_tpu_torch.utils.random import Rng
+
+        self._rng = Rng(0, device)
+        self._rng.draw = self.draw
+        self.queue = list(draws.log)
+        self.device = torch.device(device)
+
+    def draw(self, kind, shape, dtype, low=0, high=1):
+        assert self.queue, f"the port draws {kind} {shape}: JAX drew no more"
+        jkind, value = self.queue.pop(0)
+        assert (jkind, tuple(value.shape)) == (kind, tuple(shape)), (
+            f"the port draws {kind} {tuple(shape)}, JAX drew {jkind} {value.shape}")
+        return torch.as_tensor(np.array(value), device=self.device).to(dtype)
+
+    def __getattr__(self, name):
+        return getattr(self._rng, name)
+
+    def done(self) -> bool:
+        return not self.queue
+
+
+# ---------------------------------------------------------------------------
+# the G1 flat-velocity env in both packages on one state
+# ---------------------------------------------------------------------------
+
+G1_TASK = "Mjlab-Velocity-Flat-Unitree-G1"
+
+
+def g1_env_pair(E: int, dtype: str = "float32", edit=None):
+    """(JAX env, port env on the CPU) of the G1 flat-velocity task, each
+    from its own registry, with ``edit(cfg)`` applied to both configs; the
+    JAX env at its float32 default, the port's Simulation at ``dtype``."""
+    import os
+
+    os.environ.setdefault("MJLAB_QUIET", "1")
+    import mjlab_tpu.tasks as jtasks
+    from mjlab_tpu.envs import ManagerBasedRlEnv as JaxEnv
+    from mjlab_tpu_torch.envs import ManagerBasedRlEnv as PortEnv
+    from mjlab_tpu_torch.tasks import load_env_cfg
+
+    cfgs = [jtasks.load_env_cfg(G1_TASK), load_env_cfg(G1_TASK)]
+    for cfg in cfgs:
+        cfg.scene.num_envs = E
+        if edit is not None:
+            edit(cfg)
+    cfgs[1].sim.dtype = dtype
+    return JaxEnv(cfgs[0]), PortEnv(cfgs[1], device="cpu")
+
+
+def sync_jax_env(jenv, penv) -> None:
+    """Put the port env's state into the JAX env's context: the Data, the
+    robot's targets and encoder bias, the air-time states, the action
+    history, the command terms' state, the episode counters, terminated
+    and the per-env friction (call under jax.enable_x64 for a float64
+    port)."""
+    from mjlab_tpu.managers.action_manager import ActionState
+    from mjlab_tpu.sensor.contact_sensor import ContactSensorState
+
+    def j(t):  # a copy: the port writes its tensors in place
+        return jnp.asarray(t.detach().cpu().numpy().copy())
+
+    ctx = jenv.ctx
+    ctx.data = jax_data_from_port(penv.sim.data)
+    for name, ent in penv.scene.entities.items():
+        st = ent.state
+        ctx.entity_states[name] = ctx.entity_states[name].replace(
+            joint_pos_target=j(st.joint_pos_target), joint_vel_target=j(st.joint_vel_target),
+            joint_effort_target=j(st.joint_effort_target), encoder_bias=j(st.encoder_bias))
+    for name, s in list(ctx.sensor_states.items()):
+        if isinstance(s, ContactSensorState):
+            p = penv.scene.ctx.sensor_states[name]
+            ctx.sensor_states[name] = ContactSensorState(
+                j(p.current_air_time), j(p.current_contact_time), j(p.last_air_time),
+                j(p.last_contact_time))
+    am = penv.action_manager
+    ctx.action_state = ActionState(action=j(am.action), prev_action=j(am.prev_action),
+                                   prev_prev_action=j(am.prev_prev_action))
+    for name in jenv.command_manager.active_terms:
+        ctx.command_state[name] = jax.tree_util.tree_map(
+            j, penv.command_manager.get_term(name).state)
+    ctx.episode_length = j(penv.episode_length_buf)
+    ctx.common_step = j(penv.common_step_counter)
+    jenv.termination_manager.terminated = j(penv.termination_manager.terminated)
+    jenv.termination_manager.truncated = j(penv.termination_manager.truncated)
+    for field in penv.sim._default_fields:
+        cur = getattr(ctx.model, field)
+        ctx.model = ctx.model.replace(
+            **{field: jnp.asarray(tnp(getattr(penv.sim.model, field)), cur.dtype)})
+    ctx.extras_log = {}
