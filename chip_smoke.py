@@ -3,8 +3,19 @@
 
     python3 chip_smoke.py
 
-Six main paths, each driven at 4096 envs through its public entry points,
-and the six kernels they run. This slice's main path is the env's:
+Seven main paths, each driven at 4096 envs through its public entry
+points, and the six kernels they run. This slice's main path is training:
+
+- g1_train: PPO on the Mjlab-Velocity-Flat-Unitree-G1 env through the
+  task's runner (rl/runner.py, tasks/velocity/rl/runner.py) from the port's
+  registry, with the task's full PPO config (actor and critic (512, 256,
+  128) ELU, 24 steps per env, 5 epochs of 4 minibatches, the adaptive KL
+  schedule, obs normalisation): three learn() iterations, each a rollout
+  of 24 env steps (one CUDA graph replay each: kin_com, crb_packed,
+  vel_smooth and newton_assemble_solve cone 0 inside it, plus the policy)
+  and the update;
+
+and the paths of the slices before:
 
 - g1_env: the Mjlab-Velocity-Flat-Unitree-G1 env (envs/
   manager_based_rl_env.py), built from the port's registry, its whole step
@@ -13,8 +24,6 @@ and the six kernels they run. This slice's main path is the env's:
   captured as one CUDA graph by its first step(), on bench.py's traffic (a
   fresh action 0.5 N(0, 1) per control step): kin_com, crb_packed,
   vel_smooth and newton_assemble_solve cone 0 inside the graph;
-
-and the captured physics control steps of the slice before:
 
 - g1_capture: the G1 control step as the env runs it
   (tasks/velocity/config/g1/physics.py control_step): 4 substeps of the
@@ -112,9 +121,27 @@ the kernels the env adds over g1_capture's replay); and the env of 64
 envs on the card against the CPU port's on the same draws (a reset and
 one step).
 
+The g1_train path sets the launch counts to 0 just before learn() and
+reads them after it (learn()'s env.reset() runs kin_com once; the env's
+capture in the first rollout step then runs each kernel once per control
+step: kin_com 5, the other three 4), checks after each iteration that the
+losses, the KL and every param are finite and the learning rate inside the
+adaptive rule's [1e-5, 1e-2], and prints each iteration's seconds,
+rollout and update ms (CUDA events), losses, KL, learning rate and mean
+reward; the training env-steps/s is T x N over the iteration's seconds,
+the median of the iterations after the one that captures. Then: one
+rollout step and one update under the profiler (CUDA kernels, busy ms,
+idle share; the rollout step's replay must launch kin_com 5 and the other
+three kernels 4 times each); the update on the card (TF32 off) against
+the CPU port from the same learner state, storage and permutations, on
+TRAIN_CHECK_ENVS envs of the card's first rollout (TRAIN_TOL); and a
+checkpoint saved on the card (model_<it>.pt and the ONNX policy) and
+loaded with the optimiser into a fresh runner: every learner tensor and
+the generator state equal bit for bit.
+
 The line before the last is the card's name and power limit (nvidia-smi);
-the lines before hold the kernels, the captured steps and the env (JSON
-each), the substep breakdowns and the physics throughputs. The last line is {"ok": true, "device": {...}}. Exits
+the lines before hold the kernels, the captured steps, the env and the
+training run (JSON each), the substep breakdowns and the physics throughputs. The last line is {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when there is no CUDA card (2) and when
 mjlab_tpu_torch is not importable, e.g. the script copied alone into an
 empty directory (1).
@@ -123,6 +150,7 @@ empty directory (1).
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -172,10 +200,13 @@ CAPTURE_REPEATS = 3
 CAPTURE_STEPS = 10
 # the G1 sensors on the card against the CPU port on the same Data, float32
 SENSOR_TOL = 1e-5
-# torch.profiler sessions: how many before a refused one fails, and the wait
-# for the last kernel records before a session stops
-PROFILE_TRIES = 3
+# torch.profiler sessions: how many before a refused one fails, the wait
+# for the last kernel records before a session stops, and the pause before
+# a retry (times the retry's number): the profiler drops whole sessions in
+# bursts (3 in a row once; 2 of 90 sessions of 20 launches in a probe)
+PROFILE_TRIES = 6
 PROFILE_DRAIN_S = 0.02
+PROFILE_BACKOFF_S = 0.25
 
 # the TPU kernels the rows replace
 REPLACES = {
@@ -241,14 +272,16 @@ def profiled(run, accept, prepare=None, tries: int = PROFILE_TRIES) -> tuple[lis
     None, or the last session's records and why accept refused them. The
     profiler drops a record now and then, on a rare run every record of a
     short session: a session whose records accept refuses (it returns the
-    reason, else None) is made again, up to ``tries`` sessions, each after
-    prepare(). The session waits PROFILE_DRAIN_S after the last kernel has
-    ended before it stops, for the last records to come in."""
+    reason, else None) is made again, up to ``tries`` sessions, each after a
+    pause of PROFILE_BACKOFF_S times its number and prepare(). The session
+    waits PROFILE_DRAIN_S after the last kernel has ended before it stops,
+    for the last records to come in."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     why = None
     for i in range(tries):
+        time.sleep(PROFILE_BACKOFF_S * i)
         if prepare is not None:
             prepare()
         torch.cuda.synchronize()
@@ -1333,9 +1366,9 @@ def assert_envs_agree(label: str, a_env, a: dict, b_env, b: dict) -> dict:
 
 
 class _HostRng:
-    """The env's draws made on the host from one numpy seed and moved to
-    the env's device: two envs on different devices draw the same numbers
-    (used by the card-against-CPU check only, never captured)."""
+    """Draws made on the host from one numpy seed and moved to a device:
+    two envs, or two learners, on different devices draw the same numbers
+    (used by the card-against-CPU checks only, never captured)."""
 
     def __init__(self, seed: int, device):
         self.rs = np.random.default_rng(seed)
@@ -1346,6 +1379,8 @@ class _HostRng:
             x = self.rs.random(shape, dtype=np.float32)
         elif kind == "normal":
             x = self.rs.standard_normal(shape, dtype=np.float32)
+        elif kind == "permutation":
+            x = self.rs.permutation(shape[0])
         else:
             x = self.rs.integers(low, high, shape).astype(np.int32)
         return torch.as_tensor(x, device=self.device).to(dtype)
@@ -1533,6 +1568,274 @@ def run_env_path(g1_capture_kernels: int | None) -> tuple[dict, dict]:
                "launches_per_control_step": per_step, "check_rel_err": errs,
                "equal_noise_share": same_noise, "equal_reset_pose_share": same_pose,
                "card_vs_cpu_rel_err": env_on_card_matches_cpu(SEED + 3)}
+    return launches, summary
+
+
+# ---------------------------------------------------------------------------
+# the training path: PPO on the captured env (rl/runner.py, rl/ppo.py)
+# ---------------------------------------------------------------------------
+
+# learn iterations of the timed run; the first captures the env step, the
+# throughput is the median of the ones after it
+TRAIN_ITERATIONS = 3
+# the update on the card against the CPU port: a sub-batch of the card's
+# first rollout, every env's T steps; the tolerances of
+# tests/test_torch_ppo.py (params: all but a share of 1e-3 of the
+# learner's param entries to 1e-5 relative to max(1, |CPU|), every one
+# within a tenth of the summed steps; Adam's moments 1e-3 of their largest entry; the
+# minibatch KL 1e-4, the learning rates equal to 1e-6)
+TRAIN_CHECK_ENVS = 256
+TRAIN_TOL = {"params": 1e-5, "outlier_share": 1e-3, "outlier_step": 0.1, "moments": 1e-3,
+             "kl": 1e-4, "lr": 1e-6, "stats": 1e-4}
+
+
+def make_train_runner(env=None):
+    """The G1 task's runner from the port's registry on the card: the
+    task's env at NUM_ENVS envs (or ``env``), its PPO config in full."""
+    import os
+
+    os.environ.setdefault("MJLAB_QUIET", "1")
+    from mjlab_tpu_torch.rl import RslRlVecEnvWrapper
+    from mjlab_tpu_torch.tasks import load_rl_cfg, load_runner_cls
+
+    agent = load_rl_cfg(ENV_TASK)
+    agent.seed = SEED
+    if env is None:
+        env = make_env(NUM_ENVS, "cuda")
+    return load_runner_cls(ENV_TASK)(RslRlVecEnvWrapper(env, clip_actions=agent.clip_actions),
+                                     agent, log_dir=None, device="cuda")
+
+
+def learner_snapshot(ppo, envs: int) -> dict:
+    """The learner's state and the first ``envs`` envs of its storage,
+    cloned (what update() reads)."""
+    keep = ("aobs", "cobs", "action", "logprob", "value", "advantage", "returns", "old_mean",
+            "old_std", "reward", "raw_reward", "done")
+    return {"tensors": {k: v.detach().clone() for k, v in ppo.learner_tensors().items()},
+            "storage": {k: ppo.storage[k][:, :envs].clone() for k in keep}}
+
+
+def update_on(device: str, runner, snap: dict) -> "object":
+    """A learner of TRAIN_CHECK_ENVS envs on ``device`` with the card
+    learner's state and storage slice, after one update() whose
+    permutations come from _HostRng."""
+    from mjlab_tpu_torch.rl.ppo import PPO
+
+    src = runner.ppo
+    ppo = PPO(src.cfg, None, TRAIN_CHECK_ENVS, src.ac.num_actions, src.ac.actor_obs_dim,
+              src.ac.critic_obs_dim, device=device)
+    with torch.no_grad():
+        for k, v in ppo.learner_tensors().items():
+            v.copy_(snap["tensors"][k])
+        shapes = {"policy": snap["storage"]["aobs"][0], "critic": snap["storage"]["cobs"][0]}
+        for k, v in ppo._storage(shapes).items():
+            if k in snap["storage"]:
+                v.copy_(snap["storage"][k])
+    ppo.rng = _HostRng(SEED + 5, device)
+    ppo.update()
+    return ppo
+
+
+def update_card_matches_cpu(runner, snap: dict) -> dict:
+    """The update phase on the card (TF32 off) against the CPU port on the
+    same learner state, storage and permutations."""
+    cpu, card = update_on("cpu", runner, snap), update_on("cuda", runner, snap)
+    torch.cuda.synchronize()
+    want, got = cpu.learner_tensors(), card.learner_tensors()
+    lrs = [r[-1] for r in cpu.minibatch_stats.tolist()]
+    steps = float(np.sum(lrs, dtype=np.float64))
+    errs = {"params": 0.0, "outliers": 0, "moments": 0.0}
+    total = 0
+    for k, w in want.items():
+        g = got[k].cpu()
+        if k.startswith("param/"):
+            w64 = w.double()
+            err = (w64 - g.double()).abs() / max(1.0, float(w64.abs().max()))
+            off = int((err >= TRAIN_TOL["params"]).sum())
+            errs["outliers"] += off
+            total += err.numel()
+            errs["params"] = max(errs["params"], float(err.max()))
+            if not float(err.max()) < TRAIN_TOL["outlier_step"] * steps:
+                raise AssertionError(f"g1_train update card vs CPU {k}: {off} of {err.numel()} "
+                                     f"entries off, at most {float(err.max()):.3e}")
+        elif k.startswith("adam_"):
+            e = float((w.double() - g.double()).abs().max()) / max(
+                float(w.double().abs().max()), 1e-30)
+            errs["moments"] = max(errs["moments"], e)
+            if not e < TRAIN_TOL["moments"]:
+                raise AssertionError(f"g1_train update card vs CPU {k}: {e:.3e}")
+        elif not torch.equal(w, g) and k != "lr":
+            raise AssertionError(f"g1_train update card vs CPU: {k} differs")
+    if errs["outliers"] > TRAIN_TOL["outlier_share"] * total:
+        raise AssertionError(f"g1_train update card vs CPU: {errs['outliers']} of {total} "
+                             f"param entries off by >= {TRAIN_TOL['params']:.0e}")
+    sc, sg = cpu.minibatch_stats.double(), card.minibatch_stats.double().cpu()
+    errs["kl"] = rel_err(sc[:, 3], sg[:, 3])
+    errs["lr"] = float(((sc[:, 4] - sg[:, 4]).abs() / sc[:, 4]).max())
+    errs["losses"] = rel_err(sc[:, :3], sg[:, :3])
+    log(f"[train] update card vs CPU ({TRAIN_CHECK_ENVS} envs x "
+        f"{runner.cfg.num_steps_per_env} steps of the card's first rollout, "
+        f"{sc.shape[0]} minibatches): params rel err {errs['params']:.3e} ({errs['outliers']} "
+        f"of {total} entries >= {TRAIN_TOL['params']:.0e}; summed steps {steps:.3e}), Adam "
+        f"moments {errs['moments']:.3e}, KL {errs['kl']:.3e}, lr {errs['lr']:.3e}, losses "
+        f"{errs['losses']:.3e}; KL per minibatch " + ", ".join(f"{x:.4f}" for x in sc[:, 3]))
+    for k in ("kl", "lr"):
+        if not errs[k] < TRAIN_TOL[k]:
+            raise AssertionError(f"g1_train update card vs CPU {k}: {errs[k]:.3e}")
+    if not errs["losses"] < TRAIN_TOL["stats"]:
+        raise AssertionError(f"g1_train update card vs CPU losses: {errs['losses']:.3e}")
+    return errs
+
+
+def checkpoint_round_trip(runner) -> dict:
+    """Save on the card (the task's runner: model_<it>.pt and the ONNX
+    policy), load with the optimiser into a fresh runner on the same env:
+    every learner tensor and the generator state equal bit for bit."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        run = os.path.join(d, "run")
+        path = os.path.join(run, f"model_{runner.iteration}.pt")
+        runner.save(path)
+        files = sorted(os.listdir(run))
+        size = os.path.getsize(path)
+        fresh = make_train_runner(runner.env)
+        fresh.load(path, load_optimizer=True)
+    want, got = runner.ppo.learner_tensors(), fresh.ppo.learner_tensors()
+    differ = [k for k in want if not torch.equal(want[k], got[k])]
+    same_gen = torch.equal(runner.ppo.rng.generator.get_state(),
+                           fresh.ppo.rng.generator.get_state())
+    log(f"[train] checkpoint round trip: wrote {files} ({size} bytes), {len(want)} learner "
+        f"tensors, {len(differ)} differ after load; generator state equal: {same_gen}")
+    if differ or not same_gen or fresh.iteration != runner.iteration:
+        raise AssertionError(f"g1_train checkpoint round trip: {differ[:5]} differ, generator "
+                             f"equal {same_gen}")
+    return {"files": files, "bytes": size, "tensors": len(want)}
+
+
+def run_train_path() -> tuple[dict, dict]:
+    """PPO on the G1 flat-velocity env at NUM_ENVS envs with the task's
+    full PPO config, through the task's runner: (launches, summary). The
+    launch counts are set to 0 just before learn() and read after it: its
+    env.reset() runs kin_com once (the refresh), then the env's capture (two
+    warm-up steps and the capture, in the first rollout step) runs each
+    kernel through its wrapper once per control step;
+    replays do not pass the wrappers (the profile of one rollout step shows
+    the graph launching them)."""
+    t0 = time.perf_counter()
+    runner = make_train_runner()
+    ppo, cfg = runner.ppo, runner.cfg
+    alg = cfg.algorithm
+    T, N = cfg.num_steps_per_env, NUM_ENVS
+    nparams = sum(p.numel() for p in ppo.params)
+    log(f"[train] {ENV_TASK} runner ({type(runner).__name__}) at {N} envs built in "
+        f"{time.perf_counter() - t0:.2f} s: actor {ppo.ac.actor_obs_dim} -> "
+        f"{tuple(cfg.policy.actor_hidden_dims)} -> {ppo.ac.num_actions}, critic "
+        f"{ppo.ac.critic_obs_dim} -> {tuple(cfg.policy.critic_hidden_dims)} -> 1, "
+        f"{cfg.policy.activation}, {nparams} params; {T} steps per env, "
+        f"{alg.num_learning_epochs} epochs x {alg.num_mini_batches} minibatches of "
+        f"{T * N // alg.num_mini_batches}, schedule {alg.schedule}, lr {alg.learning_rate}")
+
+    # the first update's inputs, for the card-against-CPU check
+    snaps = []
+    update = ppo.update
+
+    def update_keeping_first():
+        if not snaps:
+            snaps.append(learner_snapshot(ppo, TRAIN_CHECK_ENVS))
+        return update()
+
+    ppo.update = update_keeping_first
+    per_iter = []
+
+    def check_iteration(m):
+        finite = all(math.isfinite(m[k]) for k in ("loss/surrogate", "loss/value",
+                                                   "loss/entropy", "train/kl"))
+        params_finite = all(bool(torch.isfinite(p).all()) for p in ppo.params)
+        per_iter.append(dict(m, params_finite=params_finite))
+        if not (finite and params_finite):
+            raise AssertionError(f"g1_train iteration {runner.iteration}: non-finite losses, KL "
+                                 f"or params: {m}")
+        # the rule's clamps, as float32 numbers
+        if not np.float32(1e-5) <= m["train/lr"] <= np.float32(1e-2):
+            raise AssertionError(f"g1_train: lr {m['train/lr']} outside [1e-5, 1e-2]")
+
+    # the main path: learn(), the launch counts set to 0 just before and
+    # read just after
+    torch.cuda.synchronize()
+    zero_launches()
+    runner.learn(TRAIN_ITERATIONS, on_iteration=check_iteration)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    ppo.update = update
+    # learn() starts with env.reset(), whose kinematic refresh runs kin_com
+    # once, eagerly
+    reset = {"kin_com": 1}
+    per_step = {k: (v - reset.get(k, 0)) / (CAPTURE_WARMUP + 1) for k, v in launches.items()}
+    expected = {"kin_com": DECIMATION + 1, "crb_packed": DECIMATION,
+                "vel_smooth": DECIMATION, "newton_assemble_solve": DECIMATION,
+                "newton_assemble_solve_elliptic": 0, "newton_solve_dense": 0}
+    log(f"[train] learn({TRAIN_ITERATIONS}): launches {launches} (the reset's refresh "
+        f"{reset}, then the capture), per control step of the capture {per_step}, "
+        f"expected {expected}")
+    if not runner.env.captured or per_step != expected:
+        raise AssertionError(f"g1_train launches per control step {per_step} != {expected}")
+    timings = runner.timings
+    for i, (tm, m) in enumerate(zip(timings, per_iter)):
+        log(f"[train] iteration {i + 1}: {tm['seconds']:.3f} s, rollout "
+            f"{tm['rollout_ms']:.2f} ms ({tm['rollout_ms'] / T:.2f} per step), update "
+            f"{tm['update_ms']:.2f} ms; {T * N / tm['seconds']:.1f} env-steps/s; surrogate "
+            f"{m['loss/surrogate']:.5f}, value {m['loss/value']:.5f}, entropy "
+            f"{m['loss/entropy']:.4f}, kl {m['train/kl']:.5f}, lr {m['train/lr']:.3e}, mean "
+            f"reward {m['train/mean_reward']:.5f}, mean std {m['train/mean_std']:.4f}, episode "
+            f"length {m.get('Episode/length', float('nan')):.2f}")
+    steady = timings[1:]
+    rate = float(np.median([T * N / t["seconds"] for t in steady]))
+    rollout_ms = float(np.median([t["rollout_ms"] for t in steady]))
+    update_ms = float(np.median([t["update_ms"] for t in steady]))
+    log(f"[train] training env-steps/s at {N} envs (T x N / the iteration's seconds, median "
+        f"of iterations 2-{TRAIN_ITERATIONS}): {rate:.1f}; rollout {rollout_ms:.2f} ms "
+        f"({rollout_ms / T:.3f} per control step), update {update_ms:.2f} ms; the first "
+        f"iteration (it captures the env step) {timings[0]['seconds']:.3f} s")
+
+    # one rollout step and one update phase under the profiler
+    obs = runner.obs
+    want = {n: v for n, v in expected.items() if v}
+
+    def replay_launched(prof):
+        seen = {n: v["launches"] for n, v in prof["by_kernel"].items()}
+        if seen != want:
+            return f"one rollout step launched {seen}, expected {want}"
+        return None
+
+    profiles = {}
+    for k, run, accept in (("rollout_step", lambda: ppo.rollout_step(0, obs), replay_launched),
+                           ("update", ppo.update, None)):
+        prof = device_profile(run, accept=accept)
+        if not prof["kernels"]:
+            raise AssertionError(f"g1_train {k}: the profiler {prof['refused']}")
+        profiles[k] = prof
+        log(f"[train] {k} under the profiler: {prof['kernels']} CUDA kernels, device busy "
+            f"{prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms span, idle share "
+            f"{prof['idle_share']:.3f}; " + ", ".join(
+                f"{n} {v['launches']} x {v['ms_per_launch']:.4f} ms"
+                for n, v in prof["by_kernel"].items()))
+        log(f"[train] {k}: the CUDA kernels with the most device time: " + "; ".join(
+            f"{t['name'][:60]} {t['launches']} x, {t['ms']:.3f} ms" for t in prof["top"]))
+
+    card_vs_cpu = update_card_matches_cpu(runner, snaps[0])
+    ckpt = checkpoint_round_trip(runner)
+    summary = {"env_steps_per_s": rate, "rollout_ms": rollout_ms, "update_ms": update_ms,
+               "rollout_ms_per_control_step": rollout_ms / T, "timings": timings,
+               "iterations": per_iter, "launches_per_control_step": per_step,
+               "profile": {k: {kk: p[kk] for kk in ("kernels", "busy_ms", "span_ms",
+                                                     "idle_share", "by_kernel")}
+                           for k, p in profiles.items()},
+               "update_card_vs_cpu": card_vs_cpu, "checkpoint": ckpt,
+               "num_steps_per_env": T, "params": nparams}
+    del runner, ppo
+    torch.cuda.empty_cache()
     return launches, summary
 
 
@@ -1796,13 +2099,14 @@ def run_forward_path() -> tuple[dict, dict, dict]:
 
 # the kernel rows' numbers: the kernel checks of the path that runs the
 # kernel (the G1 physics for kernels 1-4, the YAM for 5, g1_forward for 6),
-# and the launches of this slice's main paths, the captured control steps
-# (g1_capture, yam_capture; kernel 6: g1_forward)
+# and the launches of this slice's main path, the training run (g1_train:
+# the env's capture in the first rollout step; kernel 5: yam_capture;
+# kernel 6: g1_forward)
 CHECK_PATH = {"kin_com": "g1", "crb_packed": "g1", "vel_smooth": "g1",
               "newton_assemble_solve": "g1", "newton_assemble_solve_elliptic": "yam",
               "newton_solve_dense": "g1_forward"}
-LAUNCH_PATH = {"kin_com": "g1_env", "crb_packed": "g1_env",
-               "vel_smooth": "g1_env", "newton_assemble_solve": "g1_env",
+LAUNCH_PATH = {"kin_com": "g1_train", "crb_packed": "g1_train",
+               "vel_smooth": "g1_train", "newton_assemble_solve": "g1_train",
                "newton_assemble_solve_elliptic": "yam_capture",
                "newton_solve_dense": "g1_forward"}
 
@@ -1856,9 +2160,14 @@ def main() -> int:
 
     build_kernels()
     if sys.argv[1:2] == ["--only-env"]:
-        # a quick run of this slice's path alone: no result line
+        # a quick run of the env's path alone: no result line
         run_env_path(None)
         log("[partial] --only-env: the other paths did not run; no result")
+        return 0
+    if sys.argv[1:2] == ["--only-train"]:
+        # a quick run of this slice's path alone: no result line
+        run_train_path()
+        log("[partial] --only-train: the other paths did not run; no result")
         return 0
     per_path, launches, summary = {}, {}, {}
     for path in PATHS:
@@ -1872,6 +2181,8 @@ def main() -> int:
         capture["g1"]["cuda_kernels_per_control_step"]["captured"])
     per_step = {f"{p}_capture": capture[p]["launches_per_control_step"] for p in PATHS}
     per_step["g1_env"] = env["launches_per_control_step"]
+    launches["g1_train"], train = run_train_path()
+    per_step["g1_train"] = train["launches_per_control_step"]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1880,6 +2191,7 @@ def main() -> int:
     log(json.dumps({"kernels": kernel_rows(per_path, launches, per_step)}))
     log(json.dumps({"capture": capture, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"g1_env": env, "num_envs": NUM_ENVS, "power_limit": smi}))
+    log(json.dumps({"g1_train": train, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"paths": summary, "num_envs": NUM_ENVS,
                     "control_steps": CONTROL_STEPS,
                     "seconds": time.perf_counter() - t_start}))

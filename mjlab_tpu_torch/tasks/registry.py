@@ -1,8 +1,8 @@
 """Task registry.
 
-PyTorch counterpart of mjlab_tpu/tasks/registry.py. The learner's config
-and runner of a task are optional until the RL slice is ported:
-load_rl_cfg raises for a task registered without one.
+PyTorch counterpart of mjlab_tpu/tasks/registry.py. A task registers its
+env configs and, where it has one, its PPO config and runner class;
+load_rl_cfg raises for a task registered without a PPO config.
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ def load_env_cfg(name: str, play: bool = False):
 def load_rl_cfg(name: str):
     cfg = _get(name).rl_cfg
     if cfg is None:
-        raise NotImplementedError(f"task '{name}': the learner is not ported yet")
+        raise NotImplementedError(f"task '{name}' has no PPO config")
     return _fresh(cfg)
 
 

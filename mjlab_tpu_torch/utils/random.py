@@ -8,6 +8,11 @@ graph (sim.ControlStep), so that each replay draws fresh numbers. Because
 every draw passes through ``draw``, a test can substitute the JAX
 package's draws for the port's by overriding that one method.
 
+The kinds are those the JAX package draws: "uniform", "normal" and
+"integers" (jax.random.uniform, normal, randint) for the env, "normal" and
+"permutation" (jax.random.permutation of range(n), one per learning epoch)
+for the learner, which has a Rng of its own.
+
 The samplers keep the JAX package's formulas: ``uniform(shape, lo, hi)``
 is jax.random.uniform with minval/maxval (lo + u (hi - lo), at least lo);
 where the JAX code draws a unit uniform and scales it itself, the port
@@ -33,7 +38,8 @@ class Rng:
     def draw(self, kind: str, shape: tuple, dtype: torch.dtype,
              low: int = 0, high: int = 1) -> torch.Tensor:
         """The one source of randomness: ``kind`` "uniform" ([0, 1)),
-        "normal" (N(0, 1)) or "integers" ([low, high), int32)."""
+        "normal" (N(0, 1)), "integers" ([low, high), int32) or
+        "permutation" (a permutation of range(shape[0]), int64)."""
         g, dev = self.generator, self.device
         if kind == "uniform":
             return torch.rand(shape, generator=g, device=dev, dtype=dtype)
@@ -42,6 +48,8 @@ class Rng:
         if kind == "integers":
             return torch.randint(low, high, shape, generator=g, device=dev,
                                  dtype=torch.int32)
+        if kind == "permutation":
+            return torch.randperm(shape[0], generator=g, device=dev, dtype=torch.int64)
         raise ValueError(f"unknown draw kind {kind!r}")
 
     def uniform(self, shape, lo=0.0, hi=1.0, dtype=torch.float32) -> torch.Tensor:

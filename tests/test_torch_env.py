@@ -26,8 +26,8 @@ the builtin actuators pass through, 1e-6; all relative to max(1,
 The file also checks the quantities the terms read of the two Models
 (the port's from g1_velocity_flat.npz, the JAX env's from MuJoCo), that
 the port env builds with MuJoCo blocked and runs on CUDA unless asked for
-the CPU, the registry, and what is not ported (rough terrain, the NaN
-guard).
+the CPU, the registry and the learner's config, the ONNX deployment
+metadata, and what is not ported (rough terrain, the NaN guard).
 """
 
 import math
@@ -227,6 +227,18 @@ def test_models_carry_the_same_quantities(run):
     assert jr.joint_names == pr.joint_names and jr.actuator_joint_names == pr.actuator_joint_names
 
 
+def test_base_metadata_matches_jax(run):
+    """The ONNX deployment metadata: the port's from its Model (no
+    MuJoCo), the JAX package's from the MjModel."""
+    from mjlab_tpu.rl.exporter import get_base_metadata as jax_metadata
+    from mjlab_tpu_torch.rl.exporter import get_base_metadata
+
+    jenv, penv, _ = run
+    want, got = jax_metadata(jenv, run_path="r"), get_base_metadata(penv, run_path="r")
+    assert len(got["joint_names"]) == 29 and len(got["joint_stiffness"]) == 29
+    assert got == want
+
+
 def test_dims_match_jax(run):
     jenv, penv, _ = run
     assert penv.action_manager.total_action_dim == 29
@@ -288,8 +300,25 @@ def test_registry_matches_jax():
     assert play.observations["policy"].enable_corruption is False
     assert "push_robot" not in play.events and "randomize_terrain" not in play.events
     assert tasks.load_env_cfg(G1_TASK) is not tasks.load_env_cfg(G1_TASK)
-    with pytest.raises(NotImplementedError):
-        tasks.load_rl_cfg(G1_TASK)
+    # the learner's config and runner: the JAX task's, field for field, but
+    # for the checkpoint file the port writes
+    import dataclasses
+
+    from mjlab_tpu_torch.tasks import registry
+    from mjlab_tpu_torch.tasks.velocity.rl import VelocityOnPolicyRunner
+
+    want = dataclasses.asdict(jtasks.load_rl_cfg(G1_TASK))
+    got = dataclasses.asdict(tasks.load_rl_cfg(G1_TASK))
+    assert want.pop("load_checkpoint") == "model_.*.ckpt"
+    assert got.pop("load_checkpoint") == "model_.*.pt"
+    assert got == want
+    assert tasks.load_runner_cls(G1_TASK) is VelocityOnPolicyRunner
+    # a task registered without a PPO config
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(registry._REGISTRY, "No-Learner",
+                   registry.TaskEntry(env_cfg=dict, play_env_cfg=dict))
+        with pytest.raises(NotImplementedError, match="no PPO config"):
+            tasks.load_rl_cfg("No-Learner")
 
 
 def test_rough_terrain_and_nan_guard_raise():

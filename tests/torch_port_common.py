@@ -271,12 +271,13 @@ def g1_scenes(E: int, steps: int = 2, seed: int = 0):
 
 
 class JaxDraws:
-    """Records every jax.random.uniform / normal / randint draw made while
-    active (eager calls only: the values must be concrete), in order, as
-    ("uniform", unit draws in [0, 1)), ("normal", draws) or ("integers",
-    draws). ``with JaxDraws() as draws: ...`` then ``ReplayRng(draws)``
-    hands the same numbers to the port, whose every draw goes through
-    Rng.draw."""
+    """Records every jax.random.uniform / normal / randint / permutation
+    draw made while active (eager calls only: the values must be concrete;
+    a learn_iteration runs under jax.disable_jit()), in order, as
+    ("uniform", unit draws in [0, 1)), ("normal", draws), ("integers",
+    draws) or ("permutation", a permutation of range(n)). ``with JaxDraws()
+    as draws: ...`` then ``ReplayRng(draws)`` hands the same numbers to the
+    port, whose every draw goes through Rng.draw."""
 
     def __init__(self):
         self.log: list[tuple[str, np.ndarray]] = []
@@ -284,8 +285,9 @@ class JaxDraws:
     def __enter__(self):
         import jax
 
-        self._orig = (jax.random.uniform, jax.random.normal, jax.random.randint)
-        uniform, normal, randint = self._orig
+        self._orig = (jax.random.uniform, jax.random.normal, jax.random.randint,
+                      jax.random.permutation)
+        uniform, normal, randint, permutation = self._orig
 
         def rec_uniform(key, shape=(), dtype=float, minval=0.0, maxval=1.0):
             self.log.append(("uniform", np.asarray(uniform(key, shape, dtype))))
@@ -301,14 +303,20 @@ class JaxDraws:
             self.log.append(("integers", np.asarray(out)))
             return out
 
-        jax.random.uniform, jax.random.normal, jax.random.randint = (
-            rec_uniform, rec_normal, rec_randint)
+        def rec_permutation(key, x, *args, **kw):
+            out = permutation(key, x, *args, **kw)
+            self.log.append(("permutation", np.asarray(out)))
+            return out
+
+        (jax.random.uniform, jax.random.normal, jax.random.randint,
+         jax.random.permutation) = (rec_uniform, rec_normal, rec_randint, rec_permutation)
         return self
 
     def __exit__(self, *exc):
         import jax
 
-        jax.random.uniform, jax.random.normal, jax.random.randint = self._orig
+        (jax.random.uniform, jax.random.normal, jax.random.randint,
+         jax.random.permutation) = self._orig
         return False
 
 
@@ -407,3 +415,112 @@ def sync_jax_env(jenv, penv) -> None:
         ctx.model = ctx.model.replace(
             **{field: jnp.asarray(tnp(getattr(penv.sim.model, field)), cur.dtype)})
     ctx.extras_log = {}
+
+
+# ---------------------------------------------------------------------------
+# the PPO learner: one JAX learn_iteration, its internals recorded
+# ---------------------------------------------------------------------------
+
+
+class RecordingRng:
+    """A port Rng whose draws are recorded, in order, as (kind, numpy)."""
+
+    def __init__(self, rng):
+        self._rng = rng
+        self.log: list[tuple[str, np.ndarray]] = []
+        rng_draw = rng.draw
+
+        def draw(kind, shape, dtype, low=0, high=1):
+            out = rng_draw(kind, shape, dtype, low, high)
+            self.log.append((kind, out.detach().cpu().numpy().copy()))
+            return out
+
+        rng.draw = draw
+
+    def __getattr__(self, name):
+        return getattr(self._rng, name)
+
+
+class DrawsIntoJax:
+    """While active, jax.random.normal and jax.random.permutation return the
+    recorded draws of a port learner (RecordingRng.log), in order; each
+    must match the kind and shape JAX asks for."""
+
+    def __init__(self, log):
+        self.queue = list(log)
+
+    def _pop(self, kind, shape):
+        assert self.queue, f"JAX draws {kind} {shape}: the port drew no more"
+        k, value = self.queue.pop(0)
+        assert (k, tuple(value.shape)) == (kind, tuple(shape)), (
+            f"JAX draws {kind} {tuple(shape)}, the port drew {k} {value.shape}")
+        return jnp.asarray(value)
+
+    def __enter__(self):
+        import jax
+
+        self._orig = (jax.random.normal, jax.random.permutation)
+        jax.random.normal = lambda key, shape=(), dtype=float: self._pop("normal", shape)
+        jax.random.permutation = lambda key, x, *a, **kw: self._pop("permutation", (int(x),))
+        return self
+
+    def __exit__(self, *exc):
+        import jax
+
+        jax.random.normal, jax.random.permutation = self._orig
+        return False
+
+
+def jax_learn_iteration(jppo, state, obs, env_state):
+    """One mjlab_tpu.rl.ppo.PPO.learn_iteration under jax.disable_jit()
+    (lax.scan a Python loop, every draw concrete): ((state, env_state,
+    obs), metrics, rec). rec["scan"][name] holds the stacked outputs of
+    each lax.scan by its body's name (rollout_step: the trajectory and
+    logs; gae_step: the advantages, last step first; epoch: each
+    minibatch's losses and KL), rec["lr"] the learning rate of each
+    minibatch's optimiser step. The JAX package is not changed: the test
+    wraps jax.lax.scan and the PPO instance's optax transformation."""
+    import jax
+
+    rec = {"scan": {}, "lr": []}
+    scan, tx = jax.lax.scan, jppo.tx
+
+    def recording_scan(f, init, xs=None, length=None, **kw):
+        carry, ys = scan(f, init, xs, length=length, **kw)
+        rec["scan"].setdefault(f.__name__, []).append(
+            jax.tree_util.tree_map(lambda a: np.array(a), ys))
+        return carry, ys
+
+    class RecordingTx:
+        init = tx.init
+
+        def update(self, grads, opt_state, params=None):
+            rec["lr"].append(float(opt_state[1].hyperparams["learning_rate"]))
+            return tx.update(grads, opt_state, params)
+
+    jax.lax.scan, jppo.tx = recording_scan, RecordingTx()
+    try:
+        with jax.disable_jit():
+            carry, metrics = jppo.learn_iteration((state, env_state, obs))
+    finally:
+        jax.lax.scan, jppo.tx = scan, tx
+    return carry, {k: np.asarray(v) for k, v in metrics.items()}, rec
+
+
+def jax_learner_payload(state, noise_std_type="scalar") -> dict:
+    """The JAX PPO state's params, normalisers and Adam moments in the
+    port's names (rl/interop.py params_from_numpy): {"model": rsl-rl
+    model_state_dict, "mu": ..., "nu": ... (by parameter name), "count",
+    "lr"}."""
+    import jax
+
+    from mjlab_tpu_torch.rl.interop import params_from_numpy
+
+    get = jax.device_get
+    sd = params_from_numpy(get(state.params), get(state.actor_norm), get(state.critic_norm),
+                           noise_std_type)["model_state_dict"]
+    adam = state.opt_state[1].inner_state[0]
+    mom = {k: params_from_numpy(get(getattr(adam, k)), noise_std_type=noise_std_type)
+           ["model_state_dict"] for k in ("mu", "nu")}
+    return {"model": sd, "mu": mom["mu"], "nu": mom["nu"], "count": int(adam.count),
+            "lr": float(state.lr)}
