@@ -3,8 +3,31 @@
 
     python3 chip_smoke.py
 
-Seven main paths, each driven at 4096 envs through its public entry
-points, and the six kernels they run. This slice's main path is training:
+    python3 chip_smoke.py --only-rough   # this slice's three paths, no result line
+
+Ten main paths, each driven at 4096 envs through its public entry
+points, and the six kernels they run. This slice's main path is training
+on rough terrain:
+
+- g1_rough_train: PPO on the Mjlab-Velocity-Rough-Unitree-G1 env (the
+  full ROUGH_TERRAINS_CFG: 10 x 20 sub-terrains of 8 m and a 20 m border,
+  one 2001 x 1201 height field on the card; the terrain curriculum; at
+  most level 5 at the start) through the task's runner with its full PPO
+  config, three learn() iterations: kin_com, crb_packed, vel_smooth and
+  newton_assemble_solve cone 0 inside the env's graph, the height-field
+  pair families in the eager contact stack the graph holds;
+- g1_rough_env and go1_rough_env: the rough G1 and Go1 envs, captured
+  against an eager twin across forced resets that the terrain
+  curriculum promotes (roots moved past half a sub-terrain) and demotes
+  (roots left near their origin): levels and origins bit for bit; eager
+  and captured env-steps/s; kernels 1-4 against their plain versions on
+  the env's state (robots on flat patches and stairs up and down; the Go1
+  a third model shape: nv 18, 15 bodies, 17 slots); the height-field
+  narrowphase on the card against the CPU with geoms on and past the
+  field's four edges (HFIELD_TOL); 64 envs on the card against the CPU
+  port on the same draws;
+
+and the paths of the slices before:
 
 - g1_train: PPO on the Mjlab-Velocity-Flat-Unitree-G1 env through the
   task's runner (rl/runner.py, tasks/velocity/rl/runner.py) from the port's
@@ -139,9 +162,18 @@ checkpoint saved on the card (model_<it>.pt and the ONNX policy) and
 loaded with the optimiser into a fresh runner: every learner tensor and
 the generator state equal bit for bit.
 
+The rough paths run last (run_rough_paths): g1_rough_env, go1_rough_env
+(run_env_path on a generated terrain, whose seed is pinned to SEED so
+that twins and the CPU env stand on one terrain), then g1_rough_train
+(run_train_path without the learner checks, which g1_train makes: the
+learner is the task's own, the same code), whose launch counts the
+kernel rows 1-4 carry; its profiled rollout step gives kernel 4's ms per
+launch on stairs.
+
 The line before the last is the card's name and power limit (nvidia-smi);
-the lines before hold the kernels, the captured steps, the env and the
-training run (JSON each), the substep breakdowns and the physics throughputs. The last line is {"ok": true, "device": {...}}. Exits
+the lines before hold the kernels, the captured steps, the env, the
+training runs and the rough paths (JSON each), the substep breakdowns and
+the physics throughputs. The last line is {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when there is no CUDA card (2) and when
 mjlab_tpu_torch is not importable, e.g. the script copied alone into an
 empty directory (1).
@@ -205,7 +237,12 @@ SENSOR_TOL = 1e-5
 # a retry (times the retry's number): the profiler drops whole sessions in
 # bursts (3 in a row once; 2 of 90 sessions of 20 launches in a probe)
 PROFILE_TRIES = 6
-PROFILE_DRAIN_S = 0.02
+# late in a full run (minutes into the process) sessions of short launches
+# kept only their first records (8 of 20 kin_com launches; a pause before
+# the first launch changed nothing): with a wait of 0.3 s (0.02 s
+# before) they kept all 20; sessions of kernel 4 there still kept 0-1 of
+# 10 (check_kernels times the rough states with CUDA graphs)
+PROFILE_DRAIN_S = 0.3
 PROFILE_BACKOFF_S = 0.25
 
 # the TPU kernels the rows replace
@@ -240,10 +277,24 @@ def log(*a):
     print(*a, flush=True)
 
 
-def rel_err(ref: torch.Tensor, got: torch.Tensor) -> float:
+def rel_err(ref: torch.Tensor, got: torch.Tensor, length: float = 1.0) -> float:
+    """max |ref - got| over max(1, |ref|max, length): ``length`` is the
+    state's coordinate scale for the kernel checks (coordinate_scale)."""
     ref = ref.double()
-    scale = max(1.0, float(ref.abs().max())) if ref.numel() else 1.0
+    scale = max(1.0, length, float(ref.abs().max())) if ref.numel() else 1.0
     return float((ref - got.double()).abs().max()) / scale if ref.numel() else 0.0
+
+
+def coordinate_scale(xpos: torch.Tensor) -> float:
+    """The largest |world coordinate| of the state's bodies, in metres.
+    float32 rounds a coordinate L to about 6e-8 L (7.6e-6 m at 100 m, the
+    rough terrain's reach), and a difference of two coordinates (a com
+    offset, cdof's linear part, a contact's lever arm) keeps that absolute
+    error; so the kernels are held against their plain versions relative
+    to max(1, |plain|max, L). A state at the world origin (the physics
+    paths) has L about 1 and its tolerances are unchanged; the rough envs'
+    robots stand up to 100 m from it."""
+    return float(xpos.abs().max())
 
 
 def max_abs(ref: torch.Tensor, got: torch.Tensor) -> float:
@@ -315,9 +366,39 @@ def kernel_ms(fn, kernel: str, reps: int, warm: int = 1) -> float:
         fn()
     kernels, why = profiled(lambda: [fn() for _ in range(reps)], accept)
     if why is not None:
-        raise RuntimeError(f"the profiler {why}")
+        # the profiler kept too few records in every session (late in a
+        # full run it kept 0-4 of 10 in every session of the rough paths'
+        # checks): the calls captured in one CUDA graph, timed by events
+        ms = graph_ms(fn, reps)
+        log(f"[profiler] {kernel}: the profiler {why} in all {PROFILE_TRIES} sessions; "
+            f"{reps} calls in one CUDA graph under CUDA events: {ms:.4f} ms per call")
+        return ms
     times = launches(kernels)
     return sum(times) / len(times) / 1e3
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device ms per call of fn: reps calls captured in one CUDA graph
+    (after a warm call on a side stream), one replay timed with CUDA
+    events. No host time between launches; the wrapper's own small kernels
+    (output fills) are included."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def cuda_kernels_per_call(fn, reps: int = 10) -> tuple[float, set]:
@@ -534,9 +615,44 @@ def build_kernels():
                 f"stores, {k['spill_loads']} bytes spill loads")
 
 
-def check_kernels(sim, path: str) -> dict:
+# a state's share of envs whose plain solve is stable under ulp nudges
+# (stable_envs), at least: tests/test_torch_cuda.py's rule
+STABLE_SHARE = 0.95
+
+
+def stable_envs(args, kw, so_p) -> torch.Tensor:
+    """(E,) the envs whose plain solve moves less than a third of its
+    tolerance (qacc at SOLVE_TOL, the row forces at FORCE_TOL) when qvel,
+    qfrc_smooth or the warmstart changes by a few ulps (2e-7 and 1e-6
+    relative, both signs): where it moves more, the float32 line search has
+    not converged (often at the iteration cap) and its result turns on
+    rounding, so any two sums of it differ by more than the tolerance
+    (tests/test_torch_cuda.py _check_kernels, stable_only)."""
+    from mjlab_tpu_torch.phys import solver_kernels as sv
+
+    E = so_p[0].shape[1]
+    keep = torch.ones(E, dtype=torch.bool, device=so_p[0].device)
+    for index in (1, 2, 3):  # qfrc_smooth, the warmstart, qvel
+        for nudge in (1 + 2e-7, 1 - 2e-7, 1 + 1e-6, 1 - 1e-6):
+            nudged = args[:index] + (args[index] * nudge,) + args[index + 1:]
+            so_n = sv.newton_assemble_solve_plain(*nudged, **kw)
+            for i, tol in ((0, sv.SOLVE_TOL), (1, sv.FORCE_TOL), (2, sv.FORCE_TOL)):
+                scale = max(1.0, float(so_p[i].abs().max()))
+                keep &= (so_p[i] - so_n[i]).abs().amax(0) / scale < tol / 3
+    return keep
+
+
+def check_kernels(sim, path: str, rough: bool = False) -> dict:
     """Each kernel of the path against its plain version on the settled
-    state: {kernel name: its numbers at the path's shapes}."""
+    state: {kernel name: its numbers at the path's shapes}. ``rough``: a
+    rough env's state, robots up to 100 m from the origin with feet on
+    stair edges: errors relative to max(1, |plain|max, the coordinate
+    scale) (coordinate_scale), and the solve held in the envs whose plain
+    solve is stable (stable_envs), at least STABLE_SHARE of them, its
+    errors over all envs printed; the kernels timed as CUDA graphs of
+    their calls (graph_ms: these checks run minutes into the process,
+    where the profiler kept 0-1 of 10 records in every session of a full
+    run)."""
     from mjlab_tpu_torch.phys import smooth_kernels as sk
     from mjlab_tpu_torch.phys import solver_kernels as sv
     from mjlab_tpu_torch.phys.hybrid import (
@@ -560,7 +676,7 @@ def check_kernels(sim, path: str) -> dict:
             log(f"[check] {path} {name} {label}: rel err {err:.3e} (tol {tol:.0e})")
             if not err < tol:
                 raise AssertionError(f"{path} {name} {label}: {err:.3e} >= {tol:.0e}")
-        ms = kernel_ms(fn_k, KERNEL_NAMES[name], reps)
+        ms = graph_ms(fn_k, reps) if rough else kernel_ms(fn_k, KERNEL_NAMES[name], reps)
         wrapper_ms = cuda_ms(fn_k, reps)
         plain_ms = cuda_ms(fn_p, 2)
         b_ms, b_by = bound(outs_in_bytes, flops * E)
@@ -569,18 +685,23 @@ def check_kernels(sim, path: str) -> dict:
             bound_by=b_by, bytes=outs_in_bytes, flops=flops * E,
             max_abs_err=abs_err, max_rel_err=max(e for e, _ in errs.values()),
         )
-        log(f"[time] {path} {name}: kernel {ms:.4f} ms (device, profiler), wrapper "
+        log(f"[time] {path} {name}: kernel {ms:.4f} ms (device, "
+            f"{'a CUDA graph of the calls' if rough else 'profiler'}), wrapper "
             f"{wrapper_ms:.4f} ms (back to back, CUDA events), plain {plain_ms:.3f} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
 
     # kernel 1: kin_com (with the mocap frames where the model has them)
     outs_k = sk.kin_com(m, qT, mcT, mcqT)
     outs_p = sk.kin_com_plain(m, qT, mcT, mcqT)
+    L = coordinate_scale(outs_p[7]) if rough else 1.0
+    if rough:
+        log(f"[check] {path}: coordinate scale {L:.3f} m (errors relative to max(1, "
+            "|plain|max, this))")
     names = ("gxpos", "gxmat", "subcom", "cdof", "cinA", "cinc", "xipos",
              "xpos", "xquat")
     mocap_in = (mcT, mcqT) if m.nmocap else ()
     record("kin_com",
-           {n: (rel_err(p, k), TOL_FRAMES) for n, p, k in zip(names, outs_p, outs_k)},
+           {n: (rel_err(p, k, L), TOL_FRAMES) for n, p, k in zip(names, outs_p, outs_k)},
            nbytes(qT, *mocap_in, *outs_k),
            kin_com_flops(m, len(sk.collision_geoms(m))),
            lambda: sk.kin_com(m, qT, mcT, mcqT),
@@ -594,7 +715,7 @@ def check_kernels(sim, path: str) -> dict:
     vs_p = sk.vel_smooth_plain(m, qT, vT, ctrlT, cdof, cinA, cinc, xq)
     names = ("qfrc_smooth", "actuator_force", "actuator_velocity", "mh_diag")
     record("vel_smooth",
-           {n: (rel_err(p, k), TOL_SMOOTH) for n, p, k in zip(names, vs_p, vs_k)},
+           {n: (rel_err(p, k, L), TOL_SMOOTH) for n, p, k in zip(names, vs_p, vs_k)},
            nbytes(qT, vT, ctrlT, cdof, cinA, cinc, subcom, xipos, xfrcT, qfaT, *vs_k),
            vel_smooth_flops(m),
            lambda: sk.vel_smooth(m, qT, vT, ctrlT, cdof, cinA, cinc, xq),
@@ -607,9 +728,9 @@ def check_kernels(sim, path: str) -> dict:
     mh = mh_diag if has_implicit(m) else None
     crb_k = sk.crb_dense(m, cdof, cinA, cinc, mh)
     qM_cm, Mh_cm = sk.crb_dense_plain(m, cdof, cinA, cinc, mh)
-    errs = {"qM": (rel_err(qM_cm, crb_k[0]), TOL_SMOOTH)}
+    errs = {"qM": (rel_err(qM_cm, crb_k[0], L), TOL_SMOOTH)}
     if mh is not None:
-        errs["Mh"] = (rel_err(Mh_cm, crb_k[1]), TOL_SMOOTH)
+        errs["Mh"] = (rel_err(Mh_cm, crb_k[1], L), TOL_SMOOTH)
     outs = [x for x in crb_k if x is not None]
     record("crb_packed", errs,
            nbytes(cdof, cinA, cinc, *([mh] if mh is not None else []), *outs),
@@ -617,13 +738,18 @@ def check_kernels(sim, path: str) -> dict:
            lambda: sk.crb_dense(m, cdof, cinA, cinc, mh),
            lambda: sk.crb_dense_plain(m, cdof, cinA, cinc, mh), 20,
            max(max_abs(p, kk) for p, kk in zip((qM_cm, Mh_cm), crb_k) if p is not None))
-    per_call, names = cuda_kernels_per_call(lambda: sk.crb_dense(m, cdof, cinA, cinc, mh))
-    per_call_p, _ = cuda_kernels_per_call(lambda: sk.crb_dense_plain(m, cdof, cinA, cinc, mh))
-    log(f"[check] {path} crb phase: {per_call:.2f} CUDA kernels per call (profiler, 10 "
-        f"calls), all {sorted(names)}; the plain version {per_call_p:.1f}")
-    if names != {KERNEL_NAMES["crb_packed"]}:
-        raise AssertionError(f"{path}: the crb phase launched {sorted(names)}")
-    out["crb_packed"]["phase_kernels_per_call"] = per_call
+    if not rough:
+        # the wrapper's structure, whatever the state: counted on the
+        # physics paths (the profiler, late in a full run, keeps no record
+        # of sessions like this one)
+        per_call, names = cuda_kernels_per_call(lambda: sk.crb_dense(m, cdof, cinA, cinc, mh))
+        per_call_p, _ = cuda_kernels_per_call(
+            lambda: sk.crb_dense_plain(m, cdof, cinA, cinc, mh))
+        log(f"[check] {path} crb phase: {per_call:.2f} CUDA kernels per call (profiler, 10 "
+            f"calls), all {sorted(names)}; the plain version {per_call_p:.1f}")
+        if names != {KERNEL_NAMES["crb_packed"]}:
+            raise AssertionError(f"{path}: the crb phase launched {sorted(names)}")
+        out["crb_packed"]["phase_kernels_per_call"] = per_call
 
     # kernel 4 / 5: newton_assemble_solve (the path's cone), on the plain
     # versions' inputs
@@ -638,7 +764,23 @@ def check_kernels(sim, path: str) -> dict:
              "qacc_smooth", "qacc_int")
     S, F = sv.SOLVE_TOL, sv.FORCE_TOL
     tols = (S, F, F, S, S, S)
-    errs = {n: (rel_err(p, kk), t) for n, p, kk, t in zip(names, so_p, so_k, tols)}
+    all_p, all_k, all_it_p, all_it_k = so_p, so_k, it_p, it_k
+    if rough:
+        keep = stable_envs(args, kw, so_p)
+        share = float(keep.double().mean())
+        full = {n: rel_err(p, kk, L) for n, p, kk in zip(names, so_p, so_k)}
+        cap = kw["iterations"]
+        log(f"[check] {path} {KERNEL_NAMES['newton_assemble_solve']}: envs whose plain solve "
+            f"moves less than a third of its tolerance under ulp nudges of qvel, qfrc_smooth "
+            f"and the warmstart: {int(keep.sum())} of {E} ({share:.4f}, at least "
+            f"{STABLE_SHARE}); the others at the {cap}-iteration cap: "
+            f"{int((it_p[~keep] == cap).sum())} of {int((~keep).sum())}; over all envs "
+            "(not held): " + ", ".join(f"{n} {e:.3e}" for n, e in full.items()))
+        if share < STABLE_SHARE:
+            raise AssertionError(f"{path}: only {share:.4f} of the envs have a stable solve")
+        so_p, so_k = ([o[:, keep] for o in outs] for outs in (so_p, so_k))
+        it_p, it_k = it_p[keep], it_k[keep]
+    errs = {n: (rel_err(p, kk, L), t) for n, p, kk, t in zip(names, so_p, so_k, tols)}
     # qfrc_constraint under the iteration-count rule (sv.qfrc_errors: under
     # the elliptic cone relative to the row forces' scale); its own scale,
     # the row forces' and the errors on its own scale are printed beside
@@ -653,6 +795,8 @@ def check_kernels(sim, path: str) -> dict:
     log(f"[check] {path} qfrc_constraint: |qfrc|max {qfrc_scale:.4g}, row forces "
         f"|f|max {force_scale:.4g} (ratio {force_scale / max(1.0, qfrc_scale):.3g}); "
         "on qfrc's own scale: " + ", ".join(f"{k} {e:.3e}" for k, (e, _) in own.items()))
+    so_p, so_k, it_p, it_k = all_p, all_k, all_it_p, all_it_k
+    same = it_k == it_p
     on = args[20]
     K, R = kw["K"], kw["R"]
     nlive = (on != 0).sum(0).double()
@@ -1300,17 +1444,24 @@ ENV_CPU_ENVS = 64
 NOISY_POLICY_COLUMNS = 3 + 3 + 3 + 29 + 29
 
 
-def make_env(num_envs: int, device: str, capture: bool = True, seed: int = SEED):
-    """The port's env of ENV_TASK, built from the port's registry."""
+def make_env(num_envs: int, device: str, capture: bool = True, seed: int = SEED,
+             task: str = ENV_TASK):
+    """The port's env of ``task``, built from the port's registry; a
+    generated terrain's seed pinned to SEED (the task's own is None, a
+    fresh terrain per build), so that twins and the CPU env stand on the
+    same terrain."""
     import os
 
     os.environ.setdefault("MJLAB_QUIET", "1")
     from mjlab_tpu_torch.envs import ManagerBasedRlEnv
     from mjlab_tpu_torch.tasks import load_env_cfg
 
-    cfg = load_env_cfg(ENV_TASK)
+    cfg = load_env_cfg(task)
     cfg.scene.num_envs = num_envs
     cfg.seed = seed
+    gen = cfg.scene.terrain.terrain_generator
+    if gen is not None:
+        gen.seed = SEED
     return ManagerBasedRlEnv(cfg, device=device, capture=capture)
 
 
@@ -1321,44 +1472,56 @@ def env_actions(env, steps: int, seed: int) -> list:
             for _ in range(steps)]
 
 
-def force_resets(env, tip: torch.Tensor, late: torch.Tensor) -> None:
+def force_resets(env, tip: torch.Tensor, late: torch.Tensor, shift=None) -> None:
     """Tip the ``tip`` envs 80 degrees about x (past fell_over's 70) and set
     the ``late`` envs one step before their time-out: the next step resets
-    both sets."""
+    both sets. The ``shift`` envs' roots move by ROUGH_SHIFT (past half a
+    sub-terrain: the terrain curriculum promotes a late one; a late one
+    left near its origin may be demoted)."""
     import math
 
     qpos = env.sim.data.qpos.clone()
     a = math.radians(80.0) / 2
     q = torch.tensor([math.cos(a), math.sin(a), 0.0, 0.0], dtype=qpos.dtype, device=qpos.device)
     qpos[tip, 3:7] = q
+    if shift is not None:
+        qpos[shift, :3] += torch.tensor(ROUGH_SHIFT, dtype=qpos.dtype, device=qpos.device)
     env.sim.data = env.sim.data.replace(qpos=qpos)
     env.episode_length_buf[late] = env.max_episode_length - 1
 
 
 def env_outputs(env, out) -> dict:
+    """The step's outputs, cloned; on a generated terrain also the terrain
+    levels and origins."""
     obs, rew, term, trunc, extras = out
-    return {"policy": obs["policy"].clone(), "critic": obs["critic"].clone(),
-            "reward": rew.clone(), "terminated": term.clone(), "truncated": trunc.clone(),
-            "episode_length": env.episode_length_buf.clone(),
-            "command": env.command_manager.get_command("twist").clone()}
+    res = {"policy": obs["policy"].clone(), "critic": obs["critic"].clone(),
+           "reward": rew.clone(), "terminated": term.clone(), "truncated": trunc.clone(),
+           "episode_length": env.episode_length_buf.clone(),
+           "command": env.command_manager.get_command("twist").clone()}
+    terrain = env.scene.terrain
+    if terrain is not None and terrain.generator is not None:
+        res.update(levels=terrain.levels.clone(), origins=terrain.origins.clone())
+    return res
 
 
-def assert_envs_agree(label: str, a_env, a: dict, b_env, b: dict) -> dict:
-    """Two envs' outputs and Data: equal flags and episode lengths, the
-    observations and rewards within ENV_TOL, the state within E2E_TOL and
-    the same active contact slots (assert_twins_agree)."""
-    for k in ("terminated", "truncated", "episode_length"):
-        if not torch.equal(a[k].cpu(), b[k].cpu()):
-            raise AssertionError(f"g1_env {label}: {k} differ")
+def assert_envs_agree(label: str, a_env, a: dict, b_env, b: dict, path: str = "g1_env") -> dict:
+    """Two envs' outputs and Data: equal flags, episode lengths and terrain
+    levels and origins, the observations and rewards within ENV_TOL, the
+    state within E2E_TOL and the same active contact slots
+    (assert_twins_agree)."""
+    for k in ("terminated", "truncated", "episode_length", "levels", "origins"):
+        if k in a and not torch.equal(a[k].cpu(), b[k].cpu()):
+            raise AssertionError(f"{path} {label}: {k} differ")
     errs = {}
     for k, tol in ENV_TOL.items():
         errs[k] = rel_err(a[k].cpu(), b[k].cpu())
         if not errs[k] < tol:
-            raise AssertionError(f"g1_env {label}: {k} rel err {errs[k]:.3e} >= {tol:.0e}")
-    log(f"[env] {label}: " + ", ".join(f"{k} rel err {v:.3e} (tol {ENV_TOL[k]:.0e})"
-                                       for k, v in errs.items())
+            raise AssertionError(f"{path} {label}: {k} rel err {errs[k]:.3e} >= {tol:.0e}")
+    log(f"[env] {path} {label}: " + ", ".join(f"{k} rel err {v:.3e} (tol {ENV_TOL[k]:.0e})"
+                                              for k, v in errs.items())
         + f"; terminated {int(a['terminated'].sum())}, truncated "
-        f"{int(a['truncated'].sum())} in both")
+        f"{int(a['truncated'].sum())} in both"
+        + (", terrain levels and origins equal" if "levels" in a else ""))
     da, db = a_env.sim.data, b_env.sim.data
     if da.qpos.device == db.qpos.device:
         errs.update(assert_twins_agree("g1", f"env {label}", da, db))
@@ -1386,60 +1549,76 @@ class _HostRng:
         return torch.as_tensor(x, device=self.device).to(dtype)
 
 
-def env_on_card_matches_cpu(seed: int) -> dict:
+def env_on_card_matches_cpu(seed: int, task: str = ENV_TASK, path: str = "g1_env") -> dict:
     """The env of ENV_CPU_ENVS envs on the card (eager) against the CPU
     port's (the plain versions, held against the JAX env by the CPU
     tests) on the same draws: a reset and one step of bench.py's
     traffic."""
     envs = []
     for dev in ("cuda", "cpu"):
-        env = make_env(ENV_CPU_ENVS, dev, capture=False, seed=seed)
+        env = make_env(ENV_CPU_ENVS, dev, capture=False, seed=seed, task=task)
         host = _HostRng(seed, dev)
         env.rng.draw = host.draw  # every draw goes through Rng.draw
         envs.append(env)
     card, cpu = envs
-    # the draws made at construction (the startup friction, the interval
-    # timers) came from each env's own generator: the card's are copied
+    # the draws made at construction (the terrain levels, the startup
+    # friction, the interval timers) came from each env's own generator:
+    # the card's are copied
     cpu.sim.model.geom_friction.copy_(card.sim.model.geom_friction.cpu())
     for name, t in card.event_manager.interval_left.items():
         cpu.event_manager.interval_left[name].copy_(t.cpu())
+    for a, b in zip(cpu.scene.state_tensors(), card.scene.state_tensors()):
+        a.copy_(b.cpu())
     for e in envs:
         e.reset()
     act = env_actions(cpu, 1, seed)[0]
     outs = [env_outputs(e, e.step(act.to(e.device))) for e in envs]
     errs = assert_envs_agree(f"card vs CPU, {ENV_CPU_ENVS} envs, reset and one step",
-                             cpu, outs[1], card, outs[0])
+                             cpu, outs[1], card, outs[0], path)
     dc, dp = card.sim.data, cpu.sim.data
     for f, tol in E2E_TOL["g1"]:
         errs[f] = err = rel_err(getattr(dp, f), getattr(dc, f).cpu())
-        log(f"[env] card vs CPU, {ENV_CPU_ENVS} envs, reset and one step: {f} rel err "
+        log(f"[env] {path} card vs CPU, {ENV_CPU_ENVS} envs, reset and one step: {f} rel err "
             f"{err:.3e} (tol {tol:.0e})")
         if not err < tol:
-            raise AssertionError(f"g1_env card vs CPU {f}: {err:.3e} >= {tol:.0e}")
+            raise AssertionError(f"{path} card vs CPU {f}: {err:.3e} >= {tol:.0e}")
     return errs
 
 
-def run_env_path(g1_capture_kernels: int | None) -> tuple[dict, dict]:
-    """The G1 flat-velocity env's step at NUM_ENVS envs, captured as one
-    CUDA graph: (launches, summary). The launch counts are set to 0 just
+def run_env_path(g1_capture_kernels: int | None, task: str = ENV_TASK,
+                 path: str = "g1_env") -> tuple[dict, dict]:
+    """The env's step of ``task`` at NUM_ENVS envs, captured as one CUDA
+    graph: (launches, summary). The launch counts are set to 0 just
     before the captured env's first step() and read after it: its two
     warm-up steps and the capture each run the step once through the
     wrappers (replays do not pass through them; the profile of one replay
-    shows the graph launching them)."""
+    shows the graph launching them). On a generated terrain the forced
+    resets also promote and demote envs through the terrain curriculum,
+    and the path then holds kernels 1-4 against their plain versions on
+    the env's state and the height-field narrowphase on the card against
+    the CPU (summary["kernel_checks"], summary["hfield_card_vs_cpu"])."""
     t0 = time.perf_counter()
-    eager, cap = make_env(NUM_ENVS, "cuda", capture=False), make_env(NUM_ENVS, "cuda")
+    eager = make_env(NUM_ENVS, "cuda", capture=False, task=task)
+    cap = make_env(NUM_ENVS, "cuda", task=task)
     build_s = time.perf_counter() - t0
     m = cap.sim.model
-    log(f"[env] {ENV_TASK} at {NUM_ENVS} envs built from the port's registry in "
-        f"{build_s:.2f} s (two envs): action dim {cap.action_manager.total_action_dim}, "
-        f"policy obs {cap.observation_manager.group_obs_dim('policy')}, critic obs "
-        f"{cap.observation_manager.group_obs_dim('critic')}; nq {m.nq} nv {m.nv} nu {m.nu}; "
-        f"decimation {cap.cfg.decimation}, step_dt {cap.step_dt}, max episode length "
-        f"{cap.max_episode_length}")
+    terrain = cap.scene.terrain
+    rough = terrain is not None and terrain.generator is not None
+    A = cap.action_manager.total_action_dim
+    log(f"[env] {path}: {task} at {NUM_ENVS} envs built from the port's registry in "
+        f"{build_s:.2f} s (two envs): action dim {A}, policy obs "
+        f"{cap.observation_manager.group_obs_dim('policy')}, critic obs "
+        f"{cap.observation_manager.group_obs_dim('critic')}; nq {m.nq} nv {m.nv} nu {m.nu}, "
+        f"{m.pairs.ncon} contact slots, K {m.ncon_max}; decimation {cap.cfg.decimation}, "
+        f"step_dt {cap.step_dt}, max episode length {cap.max_episode_length}"
+        + (f"; terrain {terrain.max_terrain_level} x {terrain.terrain_origins.shape[1]} "
+           f"sub-terrains, height field {m.hfield_nrow} x {m.hfield_ncol} "
+           f"({m.hfield_data.numel() * m.hfield_data.element_size()} bytes on the card)"
+           if rough else ""))
     for e in (eager, cap):
         e.reset()
     if not torch.equal(eager.sim.data.qpos, cap.sim.data.qpos):
-        raise AssertionError("g1_env: the twins' resets differ")
+        raise AssertionError(f"{path}: the twins' resets differ")
 
     acts = env_actions(cap, 1 + ENV_CHECK_STEPS + 2 * CAPTURE_REPEATS * CAPTURE_STEPS,
                        SEED + 1)
@@ -1459,21 +1638,25 @@ def run_env_path(g1_capture_kernels: int | None) -> tuple[dict, dict]:
     expected = {"kin_com": DECIMATION + 1, "crb_packed": DECIMATION,
                 "vel_smooth": DECIMATION, "newton_assemble_solve": DECIMATION,
                 "newton_assemble_solve_elliptic": 0, "newton_solve_dense": 0}
-    log(f"[env] the first step() captured the env step and replayed it in {capture_s:.2f} s "
-        f"({CAPTURE_WARMUP} warm-up steps, the last with host synchronisation an error); "
-        f"launches {launches}, per control step {per_step}, expected {expected}")
+    log(f"[env] {path}: the first step() captured the env step and replayed it in "
+        f"{capture_s:.2f} s ({CAPTURE_WARMUP} warm-up steps, the last with host "
+        f"synchronisation an error); launches {launches}, per control step {per_step}, "
+        f"expected {expected}")
     if not cap.captured or per_step != expected:
-        raise AssertionError(f"g1_env launches per control step {per_step} != {expected}")
+        raise AssertionError(f"{path} launches per control step {per_step} != {expected}")
     errs = assert_envs_agree("captured vs eager, the capturing step", eager,
-                             env_outputs(eager, eager.step(first)), cap, oc)
+                             env_outputs(eager, eager.step(first)), cap, oc, path)
 
     # captured against eager: ENV_CHECK_STEPS steps, the first after
-    # tipping some envs and bringing others to their time-out
+    # tipping some envs and bringing others to their time-out (on a
+    # generated terrain half of those moved past half a sub-terrain)
     E = NUM_ENVS
     idx = torch.arange(E, device="cuda")
     tip, late = idx % 7 == 0, idx % 11 == 3
+    shift = (idx % 22 == 3) & ~tip if rough else None
+    before = (terrain.levels.clone(), terrain.origins.clone()) if rough else None
     for e in (eager, cap):
-        force_resets(e, tip, late)
+        force_resets(e, tip, late, shift)
     for i, act in enumerate(check):
         oe = env_outputs(eager, eager.step(act))
         oc = env_outputs(cap, cap.step(act))
@@ -1481,41 +1664,46 @@ def run_env_path(g1_capture_kernels: int | None) -> tuple[dict, dict]:
         if i == 0:
             fell = cap.termination_manager.get_term("fell_over")
             timed_out = cap.termination_manager.get_term("time_out")
-            log(f"[env] step 1: fell_over in {int(fell.sum())} envs (tipped "
+            log(f"[env] {path} step 1: fell_over in {int(fell.sum())} envs (tipped "
                 f"{int(tip.sum())}), time_out in {int(timed_out.sum())} (set {int(late.sum())}); "
                 f"their episode lengths after the reset: "
                 f"{int(cap.episode_length_buf[fell | timed_out].max())}")
             if not (bool(fell[tip].all()) and bool(timed_out[late].all())):
-                raise AssertionError("g1_env: the tipped or late envs did not terminate")
+                raise AssertionError(f"{path}: the tipped or late envs did not terminate")
             if int(cap.episode_length_buf[fell | timed_out].max()) != 0:
-                raise AssertionError("g1_env: the done envs were not reset")
-        errs = assert_envs_agree(f"captured vs eager, step {i + 1}", eager, oe, cap, oc)
+                raise AssertionError(f"{path}: the done envs were not reset")
+            if rough:
+                curriculum_moves(path, terrain, before, shift, late & ~tip & ~shift,
+                                 fell | timed_out)
+        errs = assert_envs_agree(f"captured vs eager, step {i + 1}", eager, oe, cap, oc, path)
     for k in ("policy", "critic", "reward"):
         if not bool(torch.isfinite(oc[k]).all()):
-            raise AssertionError(f"g1_env: non-finite {k}")
-    if oc["policy"].shape != (E, 99) or oc["critic"].shape[0] != E:
-        raise AssertionError(f"g1_env: obs shapes {oc['policy'].shape}, {oc['critic'].shape}")
+            raise AssertionError(f"{path}: non-finite {k}")
+    P = cap.observation_manager.group_obs_dim("policy")
+    if oc["policy"].shape != (E, P) or oc["critic"].shape[0] != E:
+        raise AssertionError(f"{path}: obs shapes {oc['policy'].shape}, {oc['critic'].shape}")
 
     # fresh draws per replay: the policy group's noise (policy obs minus
-    # the noise-free critic terms it shares) and the reset poses of envs
-    # reset in two consecutive replays
+    # the noise-free critic terms it shares: base velocities, gravity,
+    # joint positions and velocities) and the reset poses of envs reset in
+    # two consecutive replays
     noise, poses = [], []
     reset_all = torch.ones(E, dtype=torch.bool, device="cuda")
+    noisy = 3 + 3 + 3 + 2 * A
     for _ in range(2):
         force_resets(cap, ~reset_all, reset_all)
         o = cap.step(timed[0])[0]
-        noisy = NOISY_POLICY_COLUMNS
         noise.append((o["policy"][:, :noisy] - o["critic"][:, :noisy]).clone())
         poses.append(cap.sim.data.qpos[:, :2].clone() - cap.scene.env_origins[:, :2])
     torch.cuda.synchronize()
     same_noise = float((noise[0] == noise[1]).double().mean())
     same_pose = float((poses[0] == poses[1]).all(1).double().mean())
-    log(f"[env] two replays: share of equal policy-noise entries {same_noise:.4f}, of "
+    log(f"[env] {path} two replays: share of equal policy-noise entries {same_noise:.4f}, of "
         f"envs reset to equal xy offsets {same_pose:.4f}; noise range "
         f"[{float(noise[0].min()):.3f}, {float(noise[0].max()):.3f}], reset xy offsets in "
         f"[{float(poses[1].min()):.3f}, {float(poses[1].max()):.3f}]")
     if same_noise > 0.01 or same_pose > 0.01:
-        raise AssertionError("g1_env: two replays drew the same numbers")
+        raise AssertionError(f"{path}: two replays drew the same numbers")
 
     # throughput on bench.py's traffic: eager and captured, in turns
     ms = {"eager": [], "captured": []}
@@ -1526,7 +1714,7 @@ def run_env_path(g1_capture_kernels: int | None) -> tuple[dict, dict]:
     rates = {k: [NUM_ENVS / (v / 1e3) for v in vals] for k, vals in ms.items()}
     med = {k: float(np.median(v)) for k, v in rates.items()}
     for k in ("eager", "captured"):
-        log(f"[env] {k}: env-steps/s at {NUM_ENVS} envs, median of {CAPTURE_REPEATS} x "
+        log(f"[env] {path} {k}: env-steps/s at {NUM_ENVS} envs, median of {CAPTURE_REPEATS} x "
             f"{CAPTURE_STEPS} control steps: {med[k]:.1f} (repeats "
             + ", ".join(f"{x:.1f}" for x in rates[k]) + "); ms per control step "
             + ", ".join(f"{x:.3f}" for x in ms[k]))
@@ -1544,31 +1732,139 @@ def run_env_path(g1_capture_kernels: int | None) -> tuple[dict, dict]:
     for k, env, accept in (("eager", eager, None), ("captured", cap, replay_launched)):
         prof = device_profile(lambda env=env: env.step(act), accept=accept)
         if not prof["kernels"]:
-            raise AssertionError(f"g1_env {k}: the profiler {prof['refused']}")
+            raise AssertionError(f"{path} {k}: the profiler {prof['refused']}")
         profiles[k] = prof
-        log(f"[env] {k} env step under the profiler: {prof['kernels']} CUDA kernels, "
+        log(f"[env] {path} {k} env step under the profiler: {prof['kernels']} CUDA kernels, "
             f"device busy {prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms span, "
             f"idle share {prof['idle_share']:.3f}; " + ", ".join(
                 f"{n} {v['launches']} x {v['ms_per_launch']:.4f} ms"
                 for n, v in prof["by_kernel"].items()))
-        log(f"[env] {k}: the CUDA kernels with the most device time: " + "; ".join(
+        log(f"[env] {path} {k}: the CUDA kernels with the most device time: " + "; ".join(
             f"{t['name'][:60]} {t['launches']} x, {t['ms']:.3f} ms" for t in prof["top"]))
     added = (None if g1_capture_kernels is None
              else profiles["captured"]["kernels"] - g1_capture_kernels)
-    log(f"[env] the managers, terms and resets add {added} CUDA kernels per control step "
-        f"over g1_capture's replay ({g1_capture_kernels})")
-    del eager, cap
-    torch.cuda.empty_cache()
-    summary = {"env_steps_per_s": med, "env_steps_per_s_repeats": rates,
+    if g1_capture_kernels is not None:
+        log(f"[env] {path}: the managers, terms and resets add {added} CUDA kernels per "
+            f"control step over g1_capture's replay ({g1_capture_kernels})")
+    summary = {"task": task, "env_steps_per_s": med, "env_steps_per_s_repeats": rates,
                "ms_per_control_step": {k: float(np.median(v)) for k, v in ms.items()},
                "device_ms_per_control_step": {k: p["busy_ms"] for k, p in profiles.items()},
                "idle_share": {k: p["idle_share"] for k, p in profiles.items()},
                "cuda_kernels_per_control_step": {k: p["kernels"] for k, p in profiles.items()},
                "kernels_added_over_g1_capture": added, "capture_s": capture_s,
                "launches_per_control_step": per_step, "check_rel_err": errs,
-               "equal_noise_share": same_noise, "equal_reset_pose_share": same_pose,
-               "card_vs_cpu_rel_err": env_on_card_matches_cpu(SEED + 3)}
+               "equal_noise_share": same_noise, "equal_reset_pose_share": same_pose}
+    if rough:
+        # the kernels on the env's state after the timed steps: the robots
+        # on the terrain's flat patches and stairs up and down
+        on_stairs = cap.scene.terrain.types.long()
+        log(f"[check] {path}: kernels 1-4 on the env's state: envs by sub-terrain column "
+            f"{torch.bincount(on_stairs, minlength=terrain.terrain_origins.shape[1]).tolist()}, "
+            f"levels {torch.bincount(terrain.levels.long()).tolist()}")
+        summary["kernel_checks"] = check_kernels(cap.sim, path, rough=True)
+        summary["hfield_card_vs_cpu"] = hfield_card_matches_cpu(m, path, SEED + 7)
+    del eager, cap
+    torch.cuda.empty_cache()
+    summary["card_vs_cpu_rel_err"] = env_on_card_matches_cpu(SEED + 3, task, path)
     return launches, summary
+
+
+# the rough paths' forced promotions: the root moved past half a
+# sub-terrain (8 m wide; the reset's offset is at most 0.71 m) along +x and
+# lifted above the highest neighbouring step (stairs of at most 0.6 m up
+# or down), so that it lands on nothing before its reset
+ROUGH_SHIFT = (5.0, 0.0, 1.3)
+# the height-field narrowphase on the card against the CPU, float32, absolute:
+# local coordinates reach 100 m, where a float32 step is 7.6e-6 m, and a
+# grid coordinate reaches 2000 cells, where a float32 step is 1.2e-4 of a
+# cell: a position a few steps (5e-5 m); a distance through the height's
+# slope at a stair edge (0.1 m over a 0.1 m cell: 1.2e-4 cell = 1.2e-5 m,
+# 2e-5); a normal through the gradient of one cell (1e-4). Both devices
+# pick the same cell: the sampler divides by tensors (phys/lm/
+# collision.py _hfield_sample), so a grid coordinate rounds alike; the
+# gradient jumps across a stair edge, and another cell would move a normal
+# by up to 0.7
+HFIELD_TOL = {"con_dist": 2e-5, "con_pos": 5e-5, "con_frame": 1e-4}
+
+
+def curriculum_moves(path: str, terrain, before, up, down, done) -> None:
+    """After the forced resets: each ``up`` env one level higher (a random
+    level past the top row); each ``down`` env one lower (held at 0) or,
+    where its command was too slow for the rule, unchanged; some demoted;
+    the envs that did not reset unchanged; origins from the table."""
+    old, _ = before
+    new = terrain.levels
+    rows = terrain.max_terrain_level
+    ok_up = torch.where(old[up] + 1 < rows, new[up] == old[up] + 1, new[up] < rows)
+    demoted = new[down] == torch.clamp(old[down] - 1, min=0)
+    ok_down = demoted | (new[down] == old[down])
+    table = terrain.terrain_origins[new.long(), terrain.types.long()]
+    log(f"[env] {path} terrain curriculum at step 1: {int(up.sum())} timed-out envs moved "
+        f"by {ROUGH_SHIFT} m, {int(ok_up.sum())} promoted; {int(down.sum())} timed out near "
+        f"their origin, {int((new[down] < old[down]).sum())} demoted; levels now "
+        f"{torch.bincount(new.long(), minlength=rows).tolist()}")
+    if not (bool(ok_up.all()) and bool(ok_down.all()) and torch.equal(table, terrain.origins)
+            and torch.equal(new[~done], old[~done])):
+        raise AssertionError(f"{path}: the terrain curriculum did not move the levels "
+                             "by its rule")
+    if not bool((new[down] < old[down]).any()):
+        raise AssertionError(f"{path}: no env was demoted")
+
+
+def hfield_card_matches_cpu(m, path: str, seed: int) -> dict:
+    """The height-field narrowphase (phys/lm/collision.py) on the card
+    against the CPU port at float32, NUM_ENVS envs of geom frames: every
+    robot geom at a random pose above the terrain, a quarter of them on or
+    past the height field's four edges; the height-field slots within
+    HFIELD_TOL, everything finite."""
+    from mjlab_tpu_torch.phys.lm import collision as pcol
+    from mjlab_tpu_torch.phys.lm.base import Params
+    from mjlab_tpu_torch.phys.model import model_from_numpy, model_to_numpy
+
+    E = NUM_ENVS
+    cpu = model_from_numpy(*model_to_numpy(m), dtype=torch.float32, device="cpu")
+    rs = np.random.default_rng(seed)
+    hf = m.geom_names.index("terrain/terrain")
+    sx, sy, sz = (float(v) for v in m.hfield_size[0, :3].cpu())
+    g0 = m.geom_pos[hf].cpu().numpy()
+    G = m.ngeom
+    x = rs.uniform(-sx, sx, (G, E))
+    y = rs.uniform(-sy, sy, (G, E))
+    edge = rs.random((G, E)) < 0.25
+    x = np.where(edge & (rs.random((G, E)) < 0.5), rs.choice([-sx - 0.5, -sx, sx, sx + 0.5],
+                                                             (G, E)), x)
+    y = np.where(edge, rs.choice([-sy - 0.5, -sy, sy, sy + 0.5], (G, E)), y)
+    z = rs.uniform(-0.2, sz + 0.3, (G, E))
+    quat = rs.standard_normal((G, E, 4))
+    quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+    w, a, b, c = np.moveaxis(quat, -1, 0)
+    mat = np.stack([1 - 2 * (b * b + c * c), 2 * (a * b - w * c), 2 * (a * c + w * b),
+                    2 * (a * b + w * c), 1 - 2 * (a * a + c * c), 2 * (b * c - w * a),
+                    2 * (a * c - w * b), 2 * (b * c + w * a), 1 - 2 * (a * a + b * b)], 1)
+    gx = np.stack([x, y, z], 1) + g0[None, :, None]
+    gx[hf] = g0[:, None]
+    mat[hf] = np.eye(3).reshape(9, 1)
+    out = {}
+    for dev, mm in (("cuda", m), ("cpu", cpu)):
+        k = pcol.collision_lm(mm, Params(mm, E), torch.as_tensor(gx, dtype=torch.float32,
+                                                                   device=dev),
+                              torch.as_tensor(mat, dtype=torch.float32, device=dev), {})
+        out[dev] = {key: k[key].cpu() for key in HFIELD_TOL}
+    slots = torch.as_tensor(m.pairs.con_geom1 == hf)
+    errs = {}
+    for key, tol in HFIELD_TOL.items():
+        card, host = out["cuda"][key][slots], out["cpu"][key][slots]
+        if not (bool(torch.isfinite(card).all()) and bool(torch.isfinite(host).all())):
+            raise AssertionError(f"{path} hfield {key}: non-finite values")
+        errs[key] = float((card.double() - host.double()).abs().max())
+    past = int(((np.abs(x) >= sx) | (np.abs(y) >= sy)).sum())
+    log(f"[check] {path} height-field narrowphase card vs CPU ({int(slots.sum())} slots x {E} "
+        f"envs, {past} geom samples on or past an edge): " + ", ".join(
+            f"{k} max abs err {v:.3e} (tol {HFIELD_TOL[k]:.0e})" for k, v in errs.items()))
+    for key, tol in HFIELD_TOL.items():
+        if not errs[key] < tol:
+            raise AssertionError(f"{path} hfield card vs CPU {key}: {errs[key]:.3e} >= {tol:.0e}")
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -1589,21 +1885,21 @@ TRAIN_TOL = {"params": 1e-5, "outlier_share": 1e-3, "outlier_step": 0.1, "moment
              "kl": 1e-4, "lr": 1e-6, "stats": 1e-4}
 
 
-def make_train_runner(env=None):
-    """The G1 task's runner from the port's registry on the card: the
-    task's env at NUM_ENVS envs (or ``env``), its PPO config in full."""
+def make_train_runner(env=None, task: str = ENV_TASK):
+    """The task's runner from the port's registry on the card: the task's
+    env at NUM_ENVS envs (or ``env``), its PPO config in full."""
     import os
 
     os.environ.setdefault("MJLAB_QUIET", "1")
     from mjlab_tpu_torch.rl import RslRlVecEnvWrapper
     from mjlab_tpu_torch.tasks import load_rl_cfg, load_runner_cls
 
-    agent = load_rl_cfg(ENV_TASK)
+    agent = load_rl_cfg(task)
     agent.seed = SEED
     if env is None:
-        env = make_env(NUM_ENVS, "cuda")
-    return load_runner_cls(ENV_TASK)(RslRlVecEnvWrapper(env, clip_actions=agent.clip_actions),
-                                     agent, log_dir=None, device="cuda")
+        env = make_env(NUM_ENVS, "cuda", task=task)
+    return load_runner_cls(task)(RslRlVecEnvWrapper(env, clip_actions=agent.clip_actions),
+                                 agent, log_dir=None, device="cuda")
 
 
 def learner_snapshot(ppo, envs: int) -> dict:
@@ -1714,22 +2010,25 @@ def checkpoint_round_trip(runner) -> dict:
     return {"files": files, "bytes": size, "tensors": len(want)}
 
 
-def run_train_path() -> tuple[dict, dict]:
-    """PPO on the G1 flat-velocity env at NUM_ENVS envs with the task's
-    full PPO config, through the task's runner: (launches, summary). The
-    launch counts are set to 0 just before learn() and read after it: its
+def run_train_path(task: str = ENV_TASK, path: str = "g1_train",
+                   learner_checks: bool = True) -> tuple[dict, dict]:
+    """PPO on the task's env at NUM_ENVS envs with the task's full PPO
+    config, through the task's runner: (launches, summary). The launch
+    counts are set to 0 just before learn() and read after it: its
     env.reset() runs kin_com once (the refresh), then the env's capture (two
     warm-up steps and the capture, in the first rollout step) runs each
-    kernel through its wrapper once per control step;
-    replays do not pass the wrappers (the profile of one rollout step shows
-    the graph launching them)."""
+    kernel through its wrapper once per control step; replays do not pass
+    the wrappers (the profile of one rollout step shows the graph
+    launching them). ``learner_checks``: the update on the card against
+    the CPU and the checkpoint round trip (the learner is the same on
+    every task)."""
     t0 = time.perf_counter()
-    runner = make_train_runner()
+    runner = make_train_runner(task=task)
     ppo, cfg = runner.ppo, runner.cfg
     alg = cfg.algorithm
     T, N = cfg.num_steps_per_env, NUM_ENVS
     nparams = sum(p.numel() for p in ppo.params)
-    log(f"[train] {ENV_TASK} runner ({type(runner).__name__}) at {N} envs built in "
+    log(f"[train] {path}: {task} runner ({type(runner).__name__}) at {N} envs built in "
         f"{time.perf_counter() - t0:.2f} s: actor {ppo.ac.actor_obs_dim} -> "
         f"{tuple(cfg.policy.actor_hidden_dims)} -> {ppo.ac.num_actions}, critic "
         f"{ppo.ac.critic_obs_dim} -> {tuple(cfg.policy.critic_hidden_dims)} -> 1, "
@@ -1755,11 +2054,11 @@ def run_train_path() -> tuple[dict, dict]:
         params_finite = all(bool(torch.isfinite(p).all()) for p in ppo.params)
         per_iter.append(dict(m, params_finite=params_finite))
         if not (finite and params_finite):
-            raise AssertionError(f"g1_train iteration {runner.iteration}: non-finite losses, KL "
+            raise AssertionError(f"{path} iteration {runner.iteration}: non-finite losses, KL "
                                  f"or params: {m}")
         # the rule's clamps, as float32 numbers
         if not np.float32(1e-5) <= m["train/lr"] <= np.float32(1e-2):
-            raise AssertionError(f"g1_train: lr {m['train/lr']} outside [1e-5, 1e-2]")
+            raise AssertionError(f"{path}: lr {m['train/lr']} outside [1e-5, 1e-2]")
 
     # the main path: learn(), the launch counts set to 0 just before and
     # read just after
@@ -1776,14 +2075,14 @@ def run_train_path() -> tuple[dict, dict]:
     expected = {"kin_com": DECIMATION + 1, "crb_packed": DECIMATION,
                 "vel_smooth": DECIMATION, "newton_assemble_solve": DECIMATION,
                 "newton_assemble_solve_elliptic": 0, "newton_solve_dense": 0}
-    log(f"[train] learn({TRAIN_ITERATIONS}): launches {launches} (the reset's refresh "
+    log(f"[train] {path}: learn({TRAIN_ITERATIONS}): launches {launches} (the reset's refresh "
         f"{reset}, then the capture), per control step of the capture {per_step}, "
         f"expected {expected}")
     if not runner.env.captured or per_step != expected:
-        raise AssertionError(f"g1_train launches per control step {per_step} != {expected}")
+        raise AssertionError(f"{path} launches per control step {per_step} != {expected}")
     timings = runner.timings
     for i, (tm, m) in enumerate(zip(timings, per_iter)):
-        log(f"[train] iteration {i + 1}: {tm['seconds']:.3f} s, rollout "
+        log(f"[train] {path} iteration {i + 1}: {tm['seconds']:.3f} s, rollout "
             f"{tm['rollout_ms']:.2f} ms ({tm['rollout_ms'] / T:.2f} per step), update "
             f"{tm['update_ms']:.2f} ms; {T * N / tm['seconds']:.1f} env-steps/s; surrogate "
             f"{m['loss/surrogate']:.5f}, value {m['loss/value']:.5f}, entropy "
@@ -1794,7 +2093,7 @@ def run_train_path() -> tuple[dict, dict]:
     rate = float(np.median([T * N / t["seconds"] for t in steady]))
     rollout_ms = float(np.median([t["rollout_ms"] for t in steady]))
     update_ms = float(np.median([t["update_ms"] for t in steady]))
-    log(f"[train] training env-steps/s at {N} envs (T x N / the iteration's seconds, median "
+    log(f"[train] {path}: training env-steps/s at {N} envs (T x N / the iteration's seconds, median "
         f"of iterations 2-{TRAIN_ITERATIONS}): {rate:.1f}; rollout {rollout_ms:.2f} ms "
         f"({rollout_ms / T:.3f} per control step), update {update_ms:.2f} ms; the first "
         f"iteration (it captures the env step) {timings[0]['seconds']:.3f} s")
@@ -1814,19 +2113,25 @@ def run_train_path() -> tuple[dict, dict]:
                            ("update", ppo.update, None)):
         prof = device_profile(run, accept=accept)
         if not prof["kernels"]:
-            raise AssertionError(f"g1_train {k}: the profiler {prof['refused']}")
+            raise AssertionError(f"{path} {k}: the profiler {prof['refused']}")
         profiles[k] = prof
-        log(f"[train] {k} under the profiler: {prof['kernels']} CUDA kernels, device busy "
+        log(f"[train] {path} {k} under the profiler: {prof['kernels']} CUDA kernels, device busy "
             f"{prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} ms span, idle share "
             f"{prof['idle_share']:.3f}; " + ", ".join(
                 f"{n} {v['launches']} x {v['ms_per_launch']:.4f} ms"
                 for n, v in prof["by_kernel"].items()))
-        log(f"[train] {k}: the CUDA kernels with the most device time: " + "; ".join(
+        log(f"[train] {path} {k}: the CUDA kernels with the most device time: " + "; ".join(
             f"{t['name'][:60]} {t['launches']} x, {t['ms']:.3f} ms" for t in prof["top"]))
 
-    card_vs_cpu = update_card_matches_cpu(runner, snaps[0])
-    ckpt = checkpoint_round_trip(runner)
-    summary = {"env_steps_per_s": rate, "rollout_ms": rollout_ms, "update_ms": update_ms,
+    k4 = profiles["rollout_step"]["by_kernel"]["newton_assemble_solve"]["ms_per_launch"]
+    log(f"[train] {path}: kernel 4 (newton_assemble_solve) in one rollout step: "
+        f"{k4:.4f} ms per launch")
+    if learner_checks:
+        card_vs_cpu = update_card_matches_cpu(runner, snaps[0])
+        ckpt = checkpoint_round_trip(runner)
+    else:
+        card_vs_cpu = ckpt = None
+    summary = {"task": task, "env_steps_per_s": rate, "kernel4_ms_per_launch": k4, "rollout_ms": rollout_ms, "update_ms": update_ms,
                "rollout_ms_per_control_step": rollout_ms / T, "timings": timings,
                "iterations": per_iter, "launches_per_control_step": per_step,
                "profile": {k: {kk: p[kk] for kk in ("kernels", "busy_ms", "span_ms",
@@ -2098,15 +2403,16 @@ def run_forward_path() -> tuple[dict, dict, dict]:
 
 
 # the kernel rows' numbers: the kernel checks of the path that runs the
-# kernel (the G1 physics for kernels 1-4, the YAM for 5, g1_forward for 6),
-# and the launches of this slice's main path, the training run (g1_train:
-# the env's capture in the first rollout step; kernel 5: yam_capture;
-# kernel 6: g1_forward)
+# kernel (the G1 physics for kernels 1-4, the YAM for 5, g1_forward for 6;
+# every path's checks, the rough envs' included, under "per_path"), and
+# the launches of this slice's main path, the rough-terrain training run
+# (g1_rough_train: the env's capture in the first rollout step; kernel 5:
+# yam_capture; kernel 6: g1_forward)
 CHECK_PATH = {"kin_com": "g1", "crb_packed": "g1", "vel_smooth": "g1",
               "newton_assemble_solve": "g1", "newton_assemble_solve_elliptic": "yam",
               "newton_solve_dense": "g1_forward"}
-LAUNCH_PATH = {"kin_com": "g1_train", "crb_packed": "g1_train",
-               "vel_smooth": "g1_train", "newton_assemble_solve": "g1_train",
+LAUNCH_PATH = {"kin_com": "g1_rough_train", "crb_packed": "g1_rough_train",
+               "vel_smooth": "g1_rough_train", "newton_assemble_solve": "g1_rough_train",
                "newton_assemble_solve_elliptic": "yam_capture",
                "newton_solve_dense": "g1_forward"}
 
@@ -2139,6 +2445,24 @@ def kernel_rows(per_path: dict, launches: dict, per_step: dict) -> list[dict]:
     return rows
 
 
+# this slice's paths: the rough-terrain envs (G1 and Go1), then the main
+# path, PPO on the rough G1 task
+ROUGH_ENV_PATHS = {"g1_rough_env": "Mjlab-Velocity-Rough-Unitree-G1",
+                   "go1_rough_env": "Mjlab-Velocity-Rough-Unitree-Go1"}
+ROUGH_TRAIN_TASK = "Mjlab-Velocity-Rough-Unitree-G1"
+
+
+def run_rough_paths() -> tuple[dict, dict]:
+    """g1_rough_env, go1_rough_env and g1_rough_train: (launches by path,
+    summary by path)."""
+    launches, summary = {}, {}
+    for p, task in ROUGH_ENV_PATHS.items():
+        launches[p], summary[p] = run_env_path(None, task, p)
+    launches["g1_rough_train"], summary["g1_rough_train"] = run_train_path(
+        ROUGH_TRAIN_TASK, "g1_rough_train", learner_checks=False)
+    return launches, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -2165,9 +2489,15 @@ def main() -> int:
         log("[partial] --only-env: the other paths did not run; no result")
         return 0
     if sys.argv[1:2] == ["--only-train"]:
-        # a quick run of this slice's path alone: no result line
+        # a quick run of the flat training path alone: no result line
         run_train_path()
         log("[partial] --only-train: the other paths did not run; no result")
+        return 0
+    if sys.argv[1:2] == ["--only-rough"]:
+        # a quick run of the rough-terrain paths alone: no result line
+        launches, rough = run_rough_paths()
+        log(json.dumps({"rough": rough, "num_envs": NUM_ENVS}))
+        log("[partial] --only-rough: the other paths did not run; no result")
         return 0
     per_path, launches, summary = {}, {}, {}
     for path in PATHS:
@@ -2183,6 +2513,11 @@ def main() -> int:
     per_step["g1_env"] = env["launches_per_control_step"]
     launches["g1_train"], train = run_train_path()
     per_step["g1_train"] = train["launches_per_control_step"]
+    rough_launches, rough = run_rough_paths()
+    launches.update(rough_launches)
+    for p in ROUGH_ENV_PATHS:
+        per_path[p] = rough[p]["kernel_checks"]
+    per_step.update({p: rough[p]["launches_per_control_step"] for p in rough})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2192,6 +2527,7 @@ def main() -> int:
     log(json.dumps({"capture": capture, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"g1_env": env, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"g1_train": train, "num_envs": NUM_ENVS, "power_limit": smi}))
+    log(json.dumps({"rough": rough, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"paths": summary, "num_envs": NUM_ENVS,
                     "control_steps": CONTROL_STEPS,
                     "seconds": time.perf_counter() - t_start}))

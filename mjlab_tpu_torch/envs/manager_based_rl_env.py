@@ -135,10 +135,13 @@ class ManagerBasedRlEnv:
         self.scene.initialize(self.sim, xml_sensors)
         self.sim.refresh()
 
-        # 3. managers, in the JAX env's load order
+        # 3. the terrain's per-env state, then the managers, in the JAX
+        # env's load order
         E = self.num_envs
         self.episode_length_buf = torch.zeros((E,), dtype=torch.int32, device=self.device)
         self.common_step_counter = torch.zeros((), dtype=torch.int32, device=self.device)
+        if self.scene.terrain is not None:
+            self.scene.terrain.init_state(self.rng)
 
         self.event_manager = EventManager(cfg.events, self)
         dr_fields = self.event_manager.domain_randomization_fields
@@ -192,12 +195,21 @@ class ManagerBasedRlEnv:
     # -- helpers --
 
     def _scene_model(self):
-        """(Model or MjModel, the XML sensor rows) of the scene."""
+        """(Model or MjModel, the XML sensor rows) of the scene; a Model
+        from the scene's model file gets the scene's generated terrain."""
         from mjlab_tpu_torch.scene.scene import xml_sensors, xml_sensors_from_arrays
 
         path = self.cfg.scene.model_file
         if path is not None:
             model, extra = load_model(Path(path), dtype=torch.float64, device="cpu")
+            terrain = self.scene.terrain
+            generated = terrain is not None and terrain.generator is not None
+            if generated != bool(model.nhfield):
+                raise ValueError(
+                    f"the model file {path} holds {model.nhfield} height fields; the "
+                    f"scene's terrain is {'generated' if generated else 'not generated'}")
+            if generated:
+                model = terrain.fill_hfield(model)
             return model, xml_sensors_from_arrays(extra)
         mj = self.scene.compile()
         return mj, xml_sensors(mj)

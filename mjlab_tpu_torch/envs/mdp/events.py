@@ -2,7 +2,7 @@
 fields.
 
 PyTorch counterpart of the part of mjlab_tpu/envs/mdp/events.py that the
-G1 flat-velocity task runs: reset_scene_to_default,
+velocity tasks run: randomize_terrain, reset_scene_to_default,
 reset_root_state_uniform, reset_joints_by_offset, push_by_setting_velocity
 and randomize_field (on the Model fields Simulation.expand_model_fields
 carries per env). Every term takes (env, env_mask, **params) and writes
@@ -61,7 +61,6 @@ def _not_ported(name: str):
     return term
 
 
-randomize_terrain = _not_ported("randomize_terrain")
 apply_external_force_torque = _not_ported("apply_external_force_torque")
 randomize_pd_gains = _not_ported("randomize_pd_gains")
 randomize_effort_limits = _not_ported("randomize_effort_limits")
@@ -72,6 +71,16 @@ sync_actuator_delays = _not_ported("sync_actuator_delays")
 # ---------------------------------------------------------------------------
 # state resets
 # ---------------------------------------------------------------------------
+
+
+def randomize_terrain(env, env_mask):
+    """A random sub-terrain level and type for each resetting env
+    (mjlab_tpu/envs/mdp/events.py:56-61; the play variants' variety): two
+    integer draws over every env, levels first
+    (terrains/importer.py randomize_env_origins)."""
+    terrain = env.scene.terrain
+    if terrain is not None:
+        terrain.randomize_env_origins(env_mask, env.rng)
 
 
 def reset_scene_to_default(env, env_mask):

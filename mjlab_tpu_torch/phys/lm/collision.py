@@ -1,13 +1,18 @@
 """Env-last narrowphase: contact distance, position and frame per slot.
 
 PyTorch counterpart of mjlab_tpu/phys/lm/collision.py for the pair
-families the G1 velocity and YAM lift-cube tasks use: plane-sphere,
+families the velocity and YAM lift-cube tasks use: plane-sphere,
 plane-capsule, plane-box, sphere-sphere, sphere-capsule, sphere-box,
-capsule-capsule, capsule-box and box-box (the heightfield families are
-not carried yet). Same formulas and the same selection order as the JAX
-package: a box's corners are taken deepest first, lower corner index
-first on ties, and box-box picks its separating axis as argmax does
-(first axis on ties). Pair groups run as
+capsule-capsule, capsule-box and box-box, and the height field (the one
+terrain) against sphere, capsule and box. Same formulas and the same
+selection order as the JAX package: a box's corners are taken deepest
+first, lower corner index first on ties, and box-box picks its separating
+axis as argmax does (first axis on ties). The height-field sample clamps
+each grid index on its own axis, as the JAX package's vmapped engine
+(mjlab_tpu/phys/collision.py _hfield_sample) does: at float32 the clip to
+ncol - 1.000001 rounds to ncol - 1, and the JAX env-last code's flat
+gather then wraps to the next row (or reads past the table) at the +x
+and +y edges, where the port never gathers out of range. Pair groups run as
 (P, E) tensors, pairs on the first axis and envs on the last. Per-slot
 contact parameters (friction, solref, solimp, margin - gap) are mixed on
 the host in numpy once per Model while every env shares the geom
@@ -23,7 +28,7 @@ import torch
 
 from mjlab_tpu_torch.phys.lm.base import Params
 from mjlab_tpu_torch.phys.model import (
-    GEOM_BOX, GEOM_CAPSULE, GEOM_PLANE, GEOM_SPHERE, Model, cached,
+    GEOM_BOX, GEOM_CAPSULE, GEOM_HFIELD, GEOM_PLANE, GEOM_SPHERE, Model, cached,
     device_array, host_array,
 )
 
@@ -33,7 +38,8 @@ PAIR_FAMILIES = frozenset({
     (GEOM_PLANE, GEOM_BOX), (GEOM_SPHERE, GEOM_SPHERE),
     (GEOM_SPHERE, GEOM_CAPSULE), (GEOM_SPHERE, GEOM_BOX),
     (GEOM_CAPSULE, GEOM_CAPSULE), (GEOM_CAPSULE, GEOM_BOX),
-    (GEOM_BOX, GEOM_BOX),
+    (GEOM_BOX, GEOM_BOX), (GEOM_HFIELD, GEOM_SPHERE),
+    (GEOM_HFIELD, GEOM_CAPSULE), (GEOM_HFIELD, GEOM_BOX),
 })
 
 
@@ -281,10 +287,10 @@ def _corners(xp, xm, size):
 
 def _deepest4(D8, C8):
     """The 4 lowest of the distances D8 (8, P, E), lower corner first on
-    ties (jax.lax.top_k of the negated distances), with their points from
-    C8 (8, P, 3, E): (d4 (P, 4, E), p4 (P, 4, 3, E))."""
+    ties (jax.lax.top_k of the negated distances), with their rows of C8
+    (8, P, k, E): (d4 (P, 4, E), c4 (P, 4, k, E))."""
     d8, idx = torch.sort(D8.permute(1, 0, 2), dim=1, stable=True)
-    i4 = idx[:, :4, None, :].expand(-1, -1, 3, -1)
+    i4 = idx[:, :4, None, :].expand(-1, -1, C8.shape[-2], -1)
     return d8[:, :4], torch.gather(C8.permute(1, 0, 2, 3), 1, i4)
 
 
@@ -370,6 +376,83 @@ def _box_box(xp1, xm1, s1, xp2, xm2, s2):
     )
     d4, p4 = _deepest4(_dot(corners - plane_p, n_out), corners)
     return d4, p4 - n_out[:, None] * 0.5 * d4[:, :, None], _make_frame(n)
+
+
+def _hfield_sample(m: Model, lx, ly):
+    """Bilinear height and its gradient of the model's one height field at
+    local points (lx, ly) (any shape): data (nrow, ncol) normalised to
+    [0, 1], columns along x over [-size0, size0], rows along y over
+    [-size1, size1], elevation data * size2. Each grid index is clamped on
+    its own axis, so that no gather leaves the table (see the module
+    docstring). The sizes are the model's tensors: a division by a tensor
+    is a true division on every device (torch on the card multiplies by
+    the reciprocal of a Python number), so that the card and the CPU pick
+    the same cell, where the gradient jumps across a stair edge."""
+    sz0, sz1, sz2 = m.hfield_size[0, :3].unbind()
+    nr, nc = m.hfield_nrow, m.hfield_ncol
+    gx = torch.clamp((lx / sz0 + 1.0) * 0.5 * (nc - 1), 0.0, nc - 1.000001)
+    gy = torch.clamp((ly / sz1 + 1.0) * 0.5 * (nr - 1), 0.0, nr - 1.000001)
+    # the clamp after the cast also bounds a NaN's index
+    ix = torch.clamp(torch.floor(gx).long(), 0, nc - 1)
+    iy = torch.clamp(torch.floor(gy).long(), 0, nr - 1)
+    fx, fy = gx - ix, gy - iy
+    ix1 = torch.clamp(ix + 1, max=nc - 1)
+    row0, row1 = iy * nc, torch.clamp(iy + 1, max=nr - 1) * nc
+    tab = m.hfield_data.reshape(-1)
+    h00, h01 = tab[row0 + ix], tab[row0 + ix1]
+    h10, h11 = tab[row1 + ix], tab[row1 + ix1]
+    h = ((1 - fx) * (1 - fy) * h00 + fx * (1 - fy) * h01
+         + (1 - fx) * fy * h10 + fx * fy * h11) * sz2
+    # (a number / a tensor would multiply by the tensor's reciprocal)
+    kx = torch.full_like(sz0, 0.5 * (nc - 1)) / sz0
+    ky = torch.full_like(sz1, 0.5 * (nr - 1)) / sz1
+    dhdx = ((1 - fy) * (h01 - h00) + fy * (h11 - h10)) * sz2 * kx
+    dhdy = ((1 - fx) * (h10 - h00) + fx * (h11 - h01)) * sz2 * ky
+    return h, dhdx, dhdy
+
+
+def _hfield_point(m: Model, p_local, radius):
+    """Contact of spheres of ``radius`` centred at local points p_local
+    (..., P, 3, E) with the height field, in its frame: (dist (..., P, E),
+    pos_local, n_local), the distance along the normal from the surface
+    plane at the foot point."""
+    h, dhdx, dhdy = _hfield_sample(m, p_local[..., 0, :], p_local[..., 1, :])
+    n = torch.stack([-dhdx, -dhdy, torch.ones_like(h)], dim=-2)
+    n = n / torch.sqrt(torch.clamp(_dot(n, n), min=1e-30))[..., None, :]
+    dist = (p_local[..., 2, :] - h) * n[..., 2, :] - radius
+    return dist, p_local - n * (radius + 0.5 * dist)[..., None, :], n
+
+
+def _hfield_contacts(m: Model, xp1, xm1, points, radius):
+    """Contacts of spheres at world points (..., P, 3, E) with the height
+    field geoms at xp1 (P, 3, E), frames xm1 (P, 9, E): (dist, pos, n) in
+    world coordinates."""
+    dist, pos_l, n_l = _hfield_point(m, _rot_t(xm1, points - xp1), radius)
+    return dist, xp1 + _rot(xm1, pos_l), _rot(xm1, n_l)
+
+
+def _hfield_group(m: Model, t2: int, xp1, xm1, xp2, xm2, s2):
+    """The height field against geoms of type t2 (mjlab_tpu/phys/lm/
+    collision.py _hfield_group_lm): (dist (P * ncp, E), pos, frame) in the
+    pair-major slot order; a sphere 1 slot, a capsule its two end spheres,
+    a box its 4 deepest corners (lower corner first on ties)."""
+    E = xp2.shape[-1]
+    if t2 == GEOM_SPHERE:
+        dist, pos, n = _hfield_contacts(m, xp1, xm1, xp2, s2[:, 0:1])
+        return dist, pos, _make_frame(n)
+    if t2 == GEOM_CAPSULE:
+        axis = _times(_col(xm2, 2), s2[:, 1:2])
+        ends = torch.stack([xp2 + axis, xp2 - axis])  # (2, P, 3, E)
+        dist, pos, n = _hfield_contacts(m, xp1, xm1, ends, s2[:, 0:1])
+        frame = _make_frame(n.reshape(-1, 3, E)).reshape(2, -1, 9, E)
+        return (dist.transpose(0, 1).reshape(-1, E),
+                pos.transpose(0, 1).reshape(-1, 3, E),
+                frame.transpose(0, 1).reshape(-1, 9, E))
+    corners = _corners(xp2, xm2, s2)  # (8, P, 3, E)
+    dist, pos, n = _hfield_contacts(m, xp1, xm1, corners, 0.0)
+    d4, pn4 = _deepest4(dist, torch.cat([pos, n], dim=-2))
+    frame = _make_frame(pn4[:, :, 3:].reshape(-1, 3, E))
+    return d4.reshape(-1, E), pn4[:, :, :3].reshape(-1, 3, E), frame
 
 
 def _groups(m: Model, dtype):
@@ -502,6 +585,11 @@ def collision_lm(m: Model, P: Params, gx: torch.Tensor, gm: torch.Tensor,
             dist_b.append(torch.stack(ds, 1).reshape(-1, E))
             pos_b.append(torch.stack(ps, 1).reshape(-1, 3, E))
             frame_b.append(torch.stack(fs, 1).reshape(-1, 9, E))
+        elif key[0] == GEOM_HFIELD:
+            dist, pos, frame = _hfield_group(m, key[1], xp1, xm1, xp2, xm2, s2)
+            dist_b.append(dist)
+            pos_b.append(pos)
+            frame_b.append(frame)
         elif key == (GEOM_BOX, GEOM_BOX):
             d4, p4, frame = _box_box(xp1, xm1, s1, xp2, xm2, s2)
             dist_b.append(d4.reshape(-1, E))

@@ -1,17 +1,22 @@
-"""Scene: MjSpec composition of a terrain plane and entities, and the
-runtime fan-out to the composed entities and sensors.
+"""Scene: MjSpec composition of a terrain (a plane or a generated height
+field) and entities, and the runtime fan-out to the composed terrain,
+entities and sensors.
 
 PyTorch-package counterpart of mjlab_tpu/scene/scene.py. The host side
 (``Scene.spec`` and ``compile``, with the spec edits of
-mjlab_tpu/entity/entity.py ``Entity.__init__`` and the plane branch of
-mjlab_tpu/terrains/importer.py) needs MuJoCo; entities attach under a
-"{name}/" prefix and the terrain under "terrain/". The runtime side
+mjlab_tpu/entity/entity.py ``Entity.__init__`` and the terrain's spec,
+terrains/importer.py) needs MuJoCo; entities attach under a "{name}/"
+prefix and the terrain under "terrain/". The runtime side
 (``initialize``, ``reset``, ``update``, ``write_data_to_sim``,
 ``env_origins``) needs only the port's Model, so it runs on a machine
 without MuJoCo from a saved model file: entities resolve their indices
-from the Model's names, and the sensors the entity XMLs declare come as
+from the Model's names, the sensors the entity XMLs declare come as
 XmlSensor rows (``xml_sensors`` of a compiled MjModel, or the rows a model
-file keeps).
+file keeps), and a generated terrain's height field is written into the
+Model by the terrain (``TerrainImporter.fill_hfield``). A generated
+terrain's per-env state (levels, types, origins) is part of the scene's
+state tensors, and ``env_origins`` is its origins tensor, updated in place
+by the terrain curriculum.
 
 ``g1_velocity_flat_model()`` compiles the scene of the
 Mjlab-Velocity-Flat-Unitree-G1 task (a ground plane and the G1 robot),
@@ -28,7 +33,7 @@ import numpy as np
 import torch
 
 from mjlab_tpu_torch.entity.entity import Entity, EntityCfg
-from mjlab_tpu_torch.terrains.importer import TerrainImporterCfg
+from mjlab_tpu_torch.terrains.importer import TerrainImporter, TerrainImporterCfg, grid_origins
 from mjlab_tpu_torch.utils.string import (
     resolve_matching_names, resolve_matching_names_values,
 )
@@ -220,11 +225,8 @@ class Scene:
     runtime calls out to its entities and sensors."""
 
     def __init__(self, cfg: SceneCfg):
-        if cfg.terrain is not None and cfg.terrain.terrain_type != "plane":
-            raise NotImplementedError(
-                f"terrain type {cfg.terrain.terrain_type!r}: the terrain generator "
-                "(terrains/*) and the height-field pair families are not ported yet")
         self.cfg = cfg
+        self.terrain = TerrainImporter(cfg.terrain) if cfg.terrain is not None else None
         self.entities: dict[str, Entity] = {
             name: Entity(ecfg, name) for name, ecfg in cfg.entities.items()
         }
@@ -240,6 +242,8 @@ class Scene:
             return self.entities[key]
         if key in self.sensors:
             return self.sensors[key]
+        if key == "terrain" and self.terrain is not None:
+            return self.terrain
         raise KeyError(
             f"'{key}' not in scene; entities={list(self.entities)}, "
             f"sensors={list(self.sensors)}"
@@ -252,15 +256,9 @@ class Scene:
             import mujoco
 
             spec = mujoco.MjSpec.from_string(_SCENE_VISUAL_XML)
-            if self.cfg.terrain is not None:
-                terrain = mujoco.MjSpec()
-                body = terrain.worldbody.add_body(name="terrain")
-                g = body.add_geom(name="terrain")
-                g.type = mujoco.mjtGeom.mjGEOM_PLANE
-                g.size = [0.0, 0.0, 1.0]
-                g.friction[:] = self.cfg.terrain.friction
+            if self.terrain is not None:
                 frame = spec.worldbody.add_frame()
-                spec.attach(terrain, frame=frame, prefix="terrain/")
+                spec.attach(self.terrain.spec(), frame=frame, prefix="terrain/")
             for name, ecfg in self.cfg.entities.items():
                 frame = spec.worldbody.add_frame()
                 spec.attach(build_entity_spec(ecfg), frame=frame, prefix=f"{name}/")
@@ -287,23 +285,24 @@ class Scene:
                 self.sensors[row.name] = BuiltinSensor.from_xml_sensor(self, row)
         for sensor in self.sensors.values():
             sensor.initialize(ctx)
-        n = sim.num_envs
-        spacing = (self.cfg.env_spacing if self.cfg.terrain is None
-                   else self.cfg.terrain.env_spacing)
-        side = int(np.ceil(np.sqrt(n)))
-        idx = np.arange(n)
-        origins = np.zeros((n, 3), np.float32)
-        origins[:, 0] = (idx // side - (side - 1) / 2) * spacing
-        origins[:, 1] = (idx % side - (side - 1) / 2) * spacing
-        self._env_origins = torch.as_tensor(origins, device=sim.device).to(sim.dtype)
+        if self.terrain is None:
+            grid = grid_origins(sim.num_envs, self.cfg.env_spacing, sim.device)
+        else:
+            self.terrain.initialize(sim.num_envs, sim.device)
+            grid = self.terrain.origins if self.terrain.generator is None else None
+        self._env_origins = None if grid is None else grid.to(sim.dtype)
         return ctx
 
     @property
     def env_origins(self) -> torch.Tensor:
-        """(num_envs, 3) world origin of each env: a grid about the world
-        origin, of the plane terrain's env_spacing (mjlab_tpu/terrains/
-        importer.py:69-78), else the scene's (mjlab_tpu/scene/scene.py
-        env_origins); float32 values, as the JAX package's."""
+        """(num_envs, 3) world origin of each env: a generated terrain's
+        per-env origins (float32, updated in place by the terrain
+        curriculum), else a grid about the world origin of the plane
+        terrain's env_spacing (mjlab_tpu/terrains/importer.py:69-78) or the
+        scene's (mjlab_tpu/scene/scene.py env_origins), float32 values in
+        the Simulation's dtype."""
+        if self.terrain is not None and self.terrain.generator is not None:
+            return self.terrain.env_origins
         return self._env_origins
 
     def reset(self, mask: torch.Tensor) -> None:
@@ -325,15 +324,49 @@ class Scene:
             entity.apply_actuator_controls()
 
     def state_tensors(self) -> list[torch.Tensor]:
-        """Every per-env state tensor of the entities and sensors (the
-        buffers a captured control step reads and writes besides the
+        """Every per-env state tensor of the terrain, entities and sensors
+        (the buffers a captured control step reads and writes besides the
         Data)."""
-        out = []
+        out = [] if self.terrain is None else self.terrain.state_tensors()
         for entity in self.entities.values():
             out += entity.state_tensors()
         for sensor in self.sensors.values():
             out += sensor.state_tensors(self.ctx)
         return out
+
+
+def model_file_scene_cfg(cfg: SceneCfg) -> SceneCfg:
+    """The scene a model file is compiled from: cfg, with a generated
+    terrain at its smallest (one flat sub-terrain, no border, seed 0). A
+    build writes its own terrain's height field into the file's Model
+    (TerrainImporter.fill_hfield); the pair table does not depend on it."""
+    import copy
+
+    from mjlab_tpu_torch.terrains.primitive_terrains import BoxFlatTerrainCfg
+
+    cfg = copy.deepcopy(cfg)
+    cfg.model_file = None
+    if cfg.terrain is not None and cfg.terrain.terrain_type == "generator":
+        gen = cfg.terrain.terrain_generator
+        gen.num_rows = gen.num_cols = 1
+        gen.border_width = 0.0
+        gen.seed = 0
+        gen.curriculum = False
+        gen.sub_terrains = {"flat": BoxFlatTerrainCfg()}
+    return cfg
+
+
+def save_scene_model(path, cfg: SceneCfg, sim_cfg) -> None:
+    """Compile the scene (model_file_scene_cfg) with MuJoCo, apply the
+    simulation options, convert it at float64 and write ``path`` (phys/
+    model.py save_model) with its first keyframe and its XML sensors."""
+    from mjlab_tpu_torch.phys.model import put_model, save_model
+
+    mj = Scene(model_file_scene_cfg(cfg)).compile()
+    sim_cfg.mujoco.apply(mj)
+    m = put_model(mj, dtype=torch.float64, nconmax=sim_cfg.nconmax, device="cpu")
+    save_model(path, m, key_qpos=mj.key_qpos[0], key_ctrl=mj.key_ctrl[0],
+               **xml_sensor_arrays(xml_sensors(mj)))
 
 
 def g1_velocity_flat_scene_cfg() -> SceneCfg:

@@ -1,1 +1,1 @@
-from mjlab_tpu_torch.tasks.velocity.config import g1  # noqa: F401
+from mjlab_tpu_torch.tasks.velocity.config import g1, go1  # noqa: F401

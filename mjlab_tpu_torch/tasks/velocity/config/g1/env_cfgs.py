@@ -3,11 +3,11 @@ play variant.
 
 PyTorch counterpart of mjlab_tpu/tasks/velocity/config/g1/env_cfgs.py.
 The contact sensors are those of the task's physics (physics.py
-contact_sensor_cfgs, their one definition in the port). The flat scene
-loads its Model from g1_velocity_flat.npz (physics.SAVED_MODEL), so that
-it builds without MuJoCo; the rough variant needs the terrain generator
-and the height-field pairs, which are not ported, so building its env
-raises.
+contact_sensor_cfgs, their one definition in the port). Each scene loads
+its Model from a model file, so that it builds without MuJoCo: the rough
+one from g1_velocity_rough.npz (physics.ROUGH_MODEL), into which the env
+writes the height field of the terrain it generates, the flat one from
+g1_velocity_flat.npz (physics.SAVED_MODEL).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from mjlab_tpu_torch.envs.mdp import events as envs_mdp
 from mjlab_tpu_torch.managers.manager_term_config import EventTermCfg, RewardTermCfg
 from mjlab_tpu_torch.tasks.velocity import mdp
 from mjlab_tpu_torch.tasks.velocity.config.g1.physics import (
+    ROUGH_MODEL,
     SAVED_MODEL,
     contact_sensor_cfgs,
 )
@@ -37,6 +38,7 @@ def unitree_g1_rough_env_cfg(play: bool = False) -> ManagerBasedRlEnvCfg:
     cfg = make_velocity_env_cfg()
     cfg.scene.entities = {"robot": get_g1_robot_cfg()}
     cfg.scene.sensors = contact_sensor_cfgs()
+    cfg.scene.model_file = ROUGH_MODEL
 
     cfg.actions["joint_pos"].scale = G1_ACTION_SCALE
 

@@ -1,6 +1,7 @@
-"""The physics of Mjlab-Velocity-Flat-Unitree-G1: its simulation options,
-its scene's contact sensors, its control step as the env runs it, and its
-compiled model, saved so that a machine without MuJoCo can run it.
+"""The physics of the G1 velocity tasks: their simulation options, their
+scenes' contact sensors, the flat task's control step as the env runs it,
+and the compiled models of the flat and rough scenes, saved so that a
+machine without MuJoCo can run them.
 
 PyTorch-package counterpart of the sim part of
 mjlab_tpu/tasks/velocity/velocity_env_cfg.py (nconmax 35, njmax 300, dt
@@ -9,14 +10,17 @@ implicitfast, pyramidal cone) and of the contact sensors of
 mjlab_tpu/tasks/velocity/config/g1/env_cfgs.py:28-49, for the G1
 flat-terrain scene (scene/scene.py g1_velocity_flat_model).
 
-g1_velocity_flat.npz beside this file holds that model as the port's
+g1_velocity_flat.npz beside this file holds the flat scene as the port's
 Model (float64 values) with the knees-bent keyframe and the sensors the G1
-XML declares (scene.XmlSensor rows). Regenerate it, on a machine with
+XML declares (scene.XmlSensor rows); g1_velocity_rough.npz the rough
+scene, its terrain a height field that each build fills with its own
+generated terrain (scene.model_file_scene_cfg,
+terrains/importer.py fill_hfield). Regenerate both, on a machine with
 MuJoCo, with
 
     python -m mjlab_tpu_torch.tasks.velocity.config.g1.physics
 
-tests/test_torch_model.py checks that it equals a fresh conversion.
+tests/test_torch_model.py checks that they equal fresh conversions.
 """
 
 from __future__ import annotations
@@ -26,11 +30,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mjlab_tpu_torch.phys.model import Model, load_model, put_model, save_model
+from mjlab_tpu_torch.phys.model import Model, load_model
 from mjlab_tpu_torch.sensor.contact_sensor import ContactMatch, ContactSensorCfg
 from mjlab_tpu_torch.sim.sim import ControlStep, Simulation, SimulationCfg
 
 SAVED_MODEL = Path(__file__).resolve().parent / "g1_velocity_flat.npz"
+ROUGH_MODEL = Path(__file__).resolve().parent / "g1_velocity_rough.npz"
 DECIMATION = 4  # physics substeps per control step
 
 
@@ -103,27 +108,29 @@ def control_step(sim: Simulation, scene) -> ControlStep:
 
 
 def load_saved_model(
-    dtype: torch.dtype = torch.float32, device: str | torch.device = "cuda"
+    dtype: torch.dtype = torch.float32, device: str | torch.device = "cuda",
+    path: Path = SAVED_MODEL,
 ) -> tuple[Model, np.ndarray, np.ndarray]:
-    """(Model, keyframe qpos, keyframe ctrl) from g1_velocity_flat.npz."""
-    m, extra = load_model(SAVED_MODEL, dtype=dtype, device=device)
+    """(Model, keyframe qpos, keyframe ctrl) from a model file (the flat
+    scene's by default)."""
+    m, extra = load_model(path, dtype=dtype, device=device)
     return m, extra["key_qpos"], extra["key_ctrl"]
 
 
-def save_model_file(path: Path = SAVED_MODEL) -> None:
-    """Compile the scene with MuJoCo, convert it and write ``path``."""
-    from mjlab_tpu_torch.scene.scene import (
-        g1_velocity_flat_model, xml_sensor_arrays, xml_sensors,
+def save_model_files() -> None:
+    """Compile the flat and rough scenes with MuJoCo, convert them and
+    write SAVED_MODEL and ROUGH_MODEL."""
+    from mjlab_tpu_torch.scene.scene import save_scene_model
+    from mjlab_tpu_torch.tasks.velocity.config.g1.env_cfgs import (
+        unitree_g1_flat_env_cfg, unitree_g1_rough_env_cfg,
     )
 
-    mj = g1_velocity_flat_model()
-    cfg = sim_cfg()
-    cfg.mujoco.apply(mj)
-    m = put_model(mj, dtype=torch.float64, nconmax=cfg.nconmax, device="cpu")
-    save_model(path, m, key_qpos=mj.key_qpos[0], key_ctrl=mj.key_ctrl[0],
-               **xml_sensor_arrays(xml_sensors(mj)))
+    for make, path in ((unitree_g1_flat_env_cfg, SAVED_MODEL),
+                       (unitree_g1_rough_env_cfg, ROUGH_MODEL)):
+        save_scene_model(path, make().scene, sim_cfg())
 
 
 if __name__ == "__main__":
-    save_model_file()
-    print(f"wrote {SAVED_MODEL} ({SAVED_MODEL.stat().st_size} bytes)")
+    save_model_files()
+    for path in (SAVED_MODEL, ROUGH_MODEL):
+        print(f"wrote {path} ({path.stat().st_size} bytes)")

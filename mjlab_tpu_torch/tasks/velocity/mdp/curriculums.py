@@ -31,11 +31,24 @@ def commands_vel(env, env_mask, command_name: str, velocity_stages: list[dict]):
 
 def terrain_levels_vel(env, env_mask, command_name: str,
                        asset_cfg: SceneEntityCfg = _DEFAULT):
-    """Terrain-level promotion by the distance walked. On a plane it does
-    nothing and returns 0; the terrain generator it steers is not ported,
-    so a generator terrain raises."""
-    terrain = env.scene.cfg.terrain
-    if terrain is not None and terrain.terrain_type == "generator":
-        raise NotImplementedError(
-            "terrain_levels_vel on a generator terrain: terrains/* is not ported yet")
-    return env.const(0.0)
+    """Terrain-level promotion by the distance walked
+    (mjlab_tpu/tasks/velocity/mdp/curriculums.py:36-58): of the resetting
+    envs, one that walked more than half a sub-terrain from its origin
+    moves up a row, one that covered less than half its commanded distance
+    over an episode moves down; the levels and origins change in place
+    (terrains/importer.py update_env_origins). It runs in the masked reset
+    before the reset events, so it reads the root position the episode
+    ended at. Returns the mean level (a device scalar); 0 on a plane."""
+    terrain = env.scene.terrain
+    if terrain is None or terrain.generator is None:
+        return env.const(0.0)
+    asset = env.scene[asset_cfg.name]
+    command = env.command_manager.get_command(command_name)
+    dist = torch.linalg.vector_norm(
+        asset.data.root_link_pos_w[:, :2] - env.scene.env_origins[:, :2], dim=1)
+    size = terrain.cfg.terrain_generator.size[0]
+    move_up = dist > size / 2
+    move_down = (dist < torch.linalg.vector_norm(command[:, :2], dim=1)
+                 * env.max_episode_length_s * 0.5) & ~move_up
+    terrain.update_env_origins(env_mask, move_up, move_down, env.rng)
+    return terrain.terrain_levels.to(torch.float32).mean()

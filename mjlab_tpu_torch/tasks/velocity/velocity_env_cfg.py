@@ -2,13 +2,14 @@
 
 PyTorch counterpart of mjlab_tpu/tasks/velocity/velocity_env_cfg.py, with
 the same terms, weights, ranges and simulation options. The base config
-is rough terrain, whose generator (the JAX package's ROUGH_TERRAINS_CFG)
-is not ported: its terrain_generator is None, and a Scene with a
-generator terrain raises (terrains/importer.py).
+is rough terrain (terrains/config.py ROUGH_TERRAINS_CFG, with the terrain
+curriculum); the flat robot variants switch to a plane and drop the
+terrain curriculum.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 from mjlab_tpu_torch.envs.manager_based_rl_env import (
@@ -29,6 +30,7 @@ from mjlab_tpu_torch.scene.scene import SceneCfg
 from mjlab_tpu_torch.sim.sim import MujocoCfg, SimulationCfg
 from mjlab_tpu_torch.tasks.velocity import mdp
 from mjlab_tpu_torch.tasks.velocity.mdp import UniformVelocityCommandCfg
+from mjlab_tpu_torch.terrains.config import ROUGH_TERRAINS_CFG
 from mjlab_tpu_torch.terrains.importer import TerrainImporterCfg
 from mjlab_tpu_torch.utils.noise import UniformNoiseCfg as Unoise
 
@@ -283,7 +285,7 @@ def make_velocity_env_cfg() -> ManagerBasedRlEnvCfg:
         scene=SceneCfg(
             terrain=TerrainImporterCfg(
                 terrain_type="generator",
-                terrain_generator=None,
+                terrain_generator=copy.deepcopy(ROUGH_TERRAINS_CFG),
                 max_init_terrain_level=5,
             ),
             num_envs=1,

@@ -37,3 +37,8 @@ def reflect_rotary_to_linear(
         velocity_limit_rotary * transmission_ratio,
         effort_limit_rotary / transmission_ratio,
     )
+
+
+def reflected_inertia(rotor_inertia: float, gear_ratio: float) -> float:
+    """Rotor inertia reflected through a single-stage gearbox: I * G^2."""
+    return rotor_inertia * gear_ratio**2

@@ -180,21 +180,23 @@ def test_topk_lowest_matches_lax_top_k_on_ties(seed):
     np.testing.assert_array_equal(-np.asarray(neg).T, vals.numpy())
 
 
-HFIELD_XML = """
+CYLINDER_XML = """
 <mujoco>
-  <asset><hfield name="h" nrow="4" ncol="4" size="1 1 0.1 0.1"/></asset>
   <worldbody>
-    <geom type="hfield" hfield="h"/>
-    <body pos="0 0 0.3"><freejoint/><geom type="sphere" size="0.05"/></body>
+    <geom type="plane" size="1 1 0.1"/>
+    <body pos="0 0 0.3"><freejoint/><geom type="cylinder" size="0.05 0.1"/></body>
   </worldbody>
 </mujoco>
 """
 
 
 def test_collision_raises_on_missing_family():
+    """A family of the engine's pair catalog the port does not carry (plane
+    against a cylinder; the height-field families are carried since the
+    rough-terrain slice, tests/test_torch_hfield.py)."""
     import mujoco
 
-    mj = mujoco.MjModel.from_xml_string(HFIELD_XML)  # the hfield-sphere family
+    mj = mujoco.MjModel.from_xml_string(CYLINDER_XML)  # the plane-cylinder family
     from mjlab_tpu_torch.phys.model import put_model
 
     m = put_model(mj, dtype=torch.float64, nconmax=TOY_NCONMAX, device="cpu")

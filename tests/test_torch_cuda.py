@@ -48,9 +48,13 @@ from mjlab_tpu_torch.tasks.velocity.config.g1 import physics
 pytestmark = pytest.mark.cuda
 
 
-def rel_err(ref, got) -> float:
+def rel_err(ref, got, length=1.0) -> float:
+    """max |ref - got| over max(1, |ref|max, length); ``length`` is a
+    state's coordinate scale (chip_smoke.coordinate_scale: float32 keeps
+    about 6e-8 of a coordinate, and differences of coordinates keep that
+    absolute error)."""
     ref, got = ref.double().cpu(), got.double().cpu()
-    return float((ref - got).abs().max()) / max(1.0, float(ref.abs().max()))
+    return float((ref - got).abs().max()) / max(1.0, length, float(ref.abs().max()))
 
 
 def _state(key_qpos, key_ctrl, E, seed=0):
@@ -72,7 +76,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _check_kernels(m, d, cuda, seed=1, dead_envs=(), stable_only=False):
+def _check_kernels(m, d, cuda, seed=1, dead_envs=(), stable_only=False, length=1.0):
     """Each kernel against its plain version on the state d; the solve
     also with every contact row of ``dead_envs`` off (no live row). With
     ``stable_only`` the solve is held only in the envs whose plain solve
@@ -96,19 +100,19 @@ def _check_kernels(m, d, cuda, seed=1, dead_envs=(), stable_only=False):
     assert sk.kin_com.launches == launches + 1
     kin_p = sk.kin_com_plain(m, qT, mcT, mcqT)
     for p, k in zip(kin_p, kin_k):
-        assert rel_err(p, k) < 2e-6
+        assert rel_err(p, k, length) < 2e-6
     _, _, subcom, cdof, cinA, cinc, xipos, _, _ = kin_p
 
     xq = (subcom, xipos, xfrcT, qfaT)
     vs_k = sk.vel_smooth(m, qT, vT, ctrlT, cdof, cinA, cinc, xq)
     vs_p = sk.vel_smooth_plain(m, qT, vT, ctrlT, cdof, cinA, cinc, xq)
     for p, k in zip(vs_p, vs_k):
-        assert rel_err(p, k) < 5e-6
+        assert rel_err(p, k, length) < 5e-6
 
     assert has_implicit(m)
     crb_k = sk.crb_dense(m, cdof, cinA, cinc, vs_p[3])
     qM_cm, Mh_cm = sk.crb_dense_plain(m, cdof, cinA, cinc, vs_p[3])
-    assert rel_err(qM_cm, crb_k[0]) < 5e-6 and rel_err(Mh_cm, crb_k[1]) < 5e-6
+    assert rel_err(qM_cm, crb_k[0], length) < 5e-6 and rel_err(Mh_cm, crb_k[1], length) < 5e-6
 
     nv = m.nv
     k = contact_stack(m, Params(m, E), qT, vT, kin_p[0], kin_p[1], subcom)
@@ -146,7 +150,7 @@ def _check_kernels(m, d, cuda, seed=1, dead_envs=(), stable_only=False):
                 assert err < tol, (i, label)
         elif i != 3:
             tol = sv.FORCE_TOL if i in (1, 2) else sv.SOLVE_TOL
-            assert rel_err(p, kk) < tol, i
+            assert rel_err(p, kk, length) < tol, i
     # qfrc_constraint under the iteration-count rule (the f32 acceptance
     # test can stop the two one Newton step apart)
     row_scale = sv.row_force_scale(so_p) if kw["cone"] else 0.0
@@ -719,3 +723,127 @@ def test_env_replays_draw_fresh_numbers(cuda):
     assert float((noise[0] == noise[1]).double().mean()) < 0.01
     assert float((poses[0] == poses[1]).all(1).double().mean()) < 0.01
     assert float(noise[0].abs().max()) <= 1.5 + 1e-6
+
+
+# -- rough terrain (the height-field families) and the Go1 -------------------
+
+
+def _rough_envs(cuda, task="Mjlab-Velocity-Rough-Unitree-G1", E=256, seed=5,
+                captures=(False, True)):
+    """Envs of a rough task on one seed and one generated terrain (seed 0):
+    the same generator state, so the same draws."""
+    from mjlab_tpu_torch.envs import ManagerBasedRlEnv
+    from mjlab_tpu_torch.tasks import load_env_cfg
+
+    out = []
+    for capture in captures:
+        cfg = load_env_cfg(task)
+        cfg.scene.num_envs = E
+        cfg.seed = seed
+        cfg.scene.terrain.terrain_generator.seed = 0
+        env = ManagerBasedRlEnv(cfg, device=cuda, capture=capture)
+        env.reset()
+        out.append(env)
+    return out
+
+
+def test_captured_rough_env_matches_eager_across_a_promotion(cuda):
+    """The rough G1 env, captured against its eager twin over 3 steps, the
+    first resetting timed-out envs of which some were moved 5 m from their
+    origin (promoted by the terrain curriculum) and others left near it
+    (demoted where their command asks for it): terrain levels and origins
+    equal bit for bit, the outputs within the env tolerances."""
+    eager, cap = _rough_envs(cuda)
+    terrain = cap.scene.terrain
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    act = 0.5 * torch.randn(256, 29, generator=gen, device=cuda)
+    cap.step(act)
+    eager.step(act)
+    idx = torch.arange(256, device=cuda)
+    late, shift = idx % 11 == 3, idx % 22 == 3
+    old = terrain.levels.clone()
+    for env in (eager, cap):
+        _tip_and_time_out(env, idx % 7 == 0, late)
+        qpos = env.sim.data.qpos.clone()
+        qpos[shift, :3] += torch.tensor([5.0, 0.0, 1.3], device=cuda)
+        env.sim.data = env.sim.data.replace(qpos=qpos)
+    for i in range(3):
+        act = 0.5 * torch.randn(256, 29, generator=gen, device=cuda)
+        oe = [t.clone() if isinstance(t, torch.Tensor) else {k: v.clone() for k, v in t.items()}
+              for t in eager.step(act)[:4]]
+        oc = cap.step(act)
+        torch.cuda.synchronize()
+        for k in ("policy", "critic"):
+            assert rel_err(oe[0][k], oc[0][k]) < _ENV_TOL[k], (i, k)
+        assert rel_err(oe[1], oc[1]) < _ENV_TOL["reward"], i
+        assert torch.equal(oe[2], oc[2]) and torch.equal(oe[3], oc[3]), i
+        for name in ("levels", "types", "origins"):
+            assert torch.equal(getattr(eager.scene.terrain, name), getattr(terrain, name)), name
+        _assert_steps_agree(eager.sim.data, cap.sim.data, "g1")
+        if i == 0:
+            up = shift & ~(idx % 7 == 0)
+            rows = terrain.max_terrain_level
+            assert bool(torch.where(old[up] + 1 < rows, terrain.levels[up] == old[up] + 1,
+                                    terrain.levels[up] < rows).all())
+            assert bool((terrain.levels[late & ~shift] <= old[late & ~shift]).all())
+
+
+@pytest.mark.parametrize("task", ["Mjlab-Velocity-Rough-Unitree-G1",
+                                  "Mjlab-Velocity-Rough-Unitree-Go1"])
+def test_hfield_narrowphase_on_card_matches_cpu(task, cuda):
+    """collision_lm's height-field slots on the card against the CPU port at
+    float32, every robot geom at random poses over the whole terrain, a
+    quarter on or past its four edges: finite, within chip_smoke.py's
+    HFIELD_TOL (a few float32 steps of a coordinate at 100 m and of a grid
+    coordinate at 2000 cells)."""
+    from mjlab_tpu_torch.phys.lm import collision as pcol
+
+    (env,) = _rough_envs(cuda, task, E=8, captures=(False,))
+    m = env.sim.model
+    cpu = pm.model_from_numpy(*pm.model_to_numpy(m), dtype=torch.float32, device="cpu")
+    E, G = 2048, m.ngeom
+    rs = np.random.default_rng(3)
+    hf = m.geom_names.index("terrain/terrain")
+    sx, sy, sz = (float(v) for v in m.hfield_size[0, :3].cpu())
+    x = np.where(rs.random((G, E)) < 0.25, rs.choice([-sx - 0.5, -sx, sx, sx + 0.5], (G, E)),
+                 rs.uniform(-sx, sx, (G, E)))
+    y = np.where(rs.random((G, E)) < 0.25, rs.choice([-sy - 0.5, -sy, sy, sy + 0.5], (G, E)),
+                 rs.uniform(-sy, sy, (G, E)))
+    gx = np.stack([x, y, rs.uniform(-0.2, sz + 0.3, (G, E))], 1)
+    gx += m.geom_pos[hf].cpu().numpy()[None, :, None]
+    q = rs.standard_normal((G, 4, E))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w, a, b, c = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    gm = np.stack([1 - 2 * (b * b + c * c), 2 * (a * b - w * c), 2 * (a * c + w * b),
+                   2 * (a * b + w * c), 1 - 2 * (a * a + c * c), 2 * (b * c - w * a),
+                   2 * (a * c - w * b), 2 * (b * c + w * a), 1 - 2 * (a * a + b * b)], 1)
+    gx[hf] = m.geom_pos[hf].cpu().numpy()[:, None]
+    gm[hf] = np.eye(3).reshape(9, 1)
+    outs = []
+    for mm, dev in ((m, cuda), (cpu, "cpu")):
+        k = pcol.collision_lm(mm, Params(mm, E),
+                              torch.as_tensor(gx, dtype=torch.float32, device=dev),
+                              torch.as_tensor(gm, dtype=torch.float32, device=dev), {})
+        outs.append(k)
+    slots = torch.as_tensor(m.pairs.con_geom1 == hf)
+    for key, tol in (("con_dist", 2e-5), ("con_pos", 5e-5), ("con_frame", 1e-4)):
+        got, want = outs[0][key].cpu()[slots], outs[1][key][slots]
+        assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all()), key
+        assert float((got.double() - want.double()).abs().max()) < tol, key
+
+
+def test_go1_kernels_match_plain_versions(cuda):
+    """Kernels 1-4 on the Go1's shape (nq 19, nv 18, 15 bodies, 17 slots:
+    the height-field families) against their plain versions, on the rough
+    Go1 env's state after 3 steps, 300 envs (the smooth kernels' ragged
+    edge). The robots stand up to ~100 m from the world origin: errors
+    relative to max(1, |plain|max, their coordinate scale)."""
+    (env,) = _rough_envs(cuda, "Mjlab-Velocity-Rough-Unitree-Go1", E=300, captures=(False,))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for _ in range(3):
+        env.step(0.5 * torch.randn(300, 12, generator=gen, device=cuda))
+    m = env.sim.model
+    assert (m.nq, m.nv, m.nbody, m.pairs.ncon) == (19, 18, 15, 17)
+    length = float(env.sim.data.xpos.abs().max())
+    assert length > 10
+    _check_kernels(m, env.sim.data, cuda, length=length)

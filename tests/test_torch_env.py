@@ -25,22 +25,26 @@ the builtin actuators pass through, 1e-6; all relative to max(1,
 
 The file also checks the quantities the terms read of the two Models
 (the port's from g1_velocity_flat.npz, the JAX env's from MuJoCo), that
-the port env builds with MuJoCo blocked and runs on CUDA unless asked for
-the CPU, the registry and the learner's config, the ONNX deployment
-metadata, and what is not ported (rough terrain, the NaN guard).
+the port env of each of the four velocity tasks, with its play variant,
+builds, resets and steps with MuJoCo blocked, that it runs on CUDA unless
+asked for the CPU, the registry and the learners' configs, the ONNX
+deployment metadata, and what is not ported (the NaN guard; a terrain
+type other than plane and generator). The rough G1 and the Go1 envs are
+held against the JAX package in tests/test_torch_env_rough.py and
+tests/test_torch_env_go1.py.
 """
 
-import math
 import os
 import subprocess
 import sys
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from torch_port_common import G1_TASK, g1_env_pair, rel_err
+from torch_port_common import (
+    G1_TASK, collapse_velocity_ranges, rel_err, run_velocity_env_pair, tip_and_time_out,
+)
 
 E = 4
 STEPS = 5
@@ -52,77 +56,10 @@ TERMS = ("track_linear_velocity", "track_angular_velocity", "upright", "pose",
          "self_collisions")
 
 
-def collapse(cfg):
-    """Every random range of the config at a point."""
-    ev = cfg.events
-    ev["reset_base"].params["pose_range"] = {}
-    ev["reset_base"].params["velocity_range"] = {}
-    ev["push_robot"].interval_range_s = (0.05, 0.05)
-    ev["push_robot"].params["velocity_range"] = {"x": (0.3, 0.3), "y": (-0.2, -0.2)}
-    ev["foot_friction"].params["ranges"] = (0.7, 0.7)
-    c = cfg.commands["twist"]
-    c.resampling_time_range = (0.05, 0.05)
-    c.rel_standing_envs = 0.0
-    c.rel_heading_envs = 1.0
-    c.ranges.lin_vel_x = (0.4, 0.4)
-    c.ranges.lin_vel_y = (0.1, 0.1)
-    c.ranges.heading = (0.3, 0.3)  # ang_vel_z: the heading controller's
-    cfg.curriculum["command_vel"].params["velocity_stages"] = [
-        {"step": 0, "lin_vel_x": (0.4, 0.4), "ang_vel_z": (-0.5, 0.5)}]
-    cfg.observations["policy"].enable_corruption = False
-
-
-def _np(x):
-    return np.array(x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x,
-                    np.float64)
-
-
 @pytest.fixture(scope="module")
 def run():
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("MJLAB_TPU_ENGINE", "hybrid")
-        jenv, penv = g1_env_pair(E, "float32", edit=collapse)
-        jenv.reset()
-        penv.reset()
-        # env 0 tipped past fell_over's limit, env 1 one step before its
-        # time-out
-        a = math.radians(80.0) / 2
-        q = np.array([math.cos(a), math.sin(a), 0.0, 0.0], np.float32)
-        st = jenv._state
-        jenv._state = st.replace(
-            data=st.data.replace(qpos=st.data.qpos.at[0, 3:7].set(q)),
-            episode_length=st.episode_length.at[1].set(jenv.max_episode_length - 1))
-        qpos = penv.sim.data.qpos.clone()
-        qpos[0, 3:7] = torch.as_tensor(q)
-        penv.sim.data = penv.sim.data.replace(qpos=qpos)
-        penv.episode_length_buf[1] = penv.max_episode_length - 1
-        rs = np.random.default_rng(0)
-        out = {"jax": [], "port": []}
-        for _ in range(STEPS):
-            act = (0.3 * rs.standard_normal((E, 29))).astype(np.float32)
-            jo, jr, jterm, jtrunc, jex = jenv.step(jnp.asarray(act))
-            po, pr, pterm, ptrunc, pex = penv.step(torch.as_tensor(act))
-            js = jenv._state
-            out["jax"].append(dict(
-                policy=_np(jo["policy"]), critic=_np(jo["critic"]), reward=_np(jr),
-                terminated=np.asarray(jterm), truncated=np.asarray(jtrunc),
-                episode_length=np.asarray(js.episode_length),
-                command=_np(js.command_state["twist"]["command"]),
-                qpos=_np(js.data.qpos), qvel=_np(js.data.qvel), ctrl=_np(js.data.ctrl),
-                sums={k: _np(v) for k, v in js.reward_state["episode_sums"].items()},
-                log={k: _np(v) for k, v in jex["log"].items()}))
-            rm = penv.reward_manager
-            out["port"].append(dict(
-                policy=_np(po["policy"]), critic=_np(po["critic"]), reward=_np(pr),
-                terminated=pterm.numpy().copy(), truncated=ptrunc.numpy().copy(),
-                episode_length=penv.episode_length_buf.numpy().copy(),
-                command=_np(penv.command_manager.get_command("twist")),
-                qpos=_np(penv.sim.data.qpos), qvel=_np(penv.sim.data.qvel),
-                ctrl=_np(penv.sim.data.ctrl),
-                sums={k: _np(v) for k, v in rm.episode_sums.items()},
-                step_values={k: _np(v) for k, v in rm.step_values.items()},
-                log={k: _np(v) for k, v in pex["log"].items()}))
-        yield jenv, penv, out
+    yield run_velocity_env_pair(G1_TASK, E, STEPS, edit=collapse_velocity_ranges,
+                                prepare=tip_and_time_out)
 
 
 @pytest.mark.parametrize("step", range(STEPS))
@@ -251,27 +188,38 @@ def test_dims_match_jax(run):
     assert penv.step_dt == jenv.step_dt
 
 
-def test_env_builds_and_steps_without_mujoco():
-    """The port's env, from its registry, in a Python where importing
-    mujoco fails (the card's machine has none): the Model comes from
-    g1_velocity_flat.npz."""
+VELOCITY_TASKS = ("Mjlab-Velocity-Flat-Unitree-G1", "Mjlab-Velocity-Rough-Unitree-G1",
+                  "Mjlab-Velocity-Flat-Unitree-Go1", "Mjlab-Velocity-Rough-Unitree-Go1")
+
+
+@pytest.mark.parametrize("task", VELOCITY_TASKS)
+def test_env_builds_and_steps_without_mujoco(task):
+    """The port's env of each velocity task and its play variant, from its
+    registry, in a Python where importing mujoco fails (the card's machine
+    has none): the Model comes from the task's model file, a rough task's
+    height field from the terrain the env generates."""
     code = (
         "import sys; sys.modules['mujoco'] = None\n"
         "import torch\n"
         "from mjlab_tpu_torch.tasks import load_env_cfg\n"
         "from mjlab_tpu_torch.envs import ManagerBasedRlEnv\n"
-        f"cfg = load_env_cfg({G1_TASK!r}); cfg.scene.num_envs = 2\n"
-        "env = ManagerBasedRlEnv(cfg, device='cpu')\n"
-        "obs, _ = env.reset()\n"
-        "obs, rew, term, trunc, ex = env.step(torch.zeros(2, 29))\n"
-        "assert obs['policy'].shape == (2, 99) and bool(torch.isfinite(rew).all())\n"
+        "for play in (False, True):\n"
+        f"    cfg = load_env_cfg({task!r}, play=play); cfg.scene.num_envs = 2\n"
+        "    env = ManagerBasedRlEnv(cfg, device='cpu')\n"
+        "    A = env.action_manager.total_action_dim\n"
+        "    obs, _ = env.reset()\n"
+        "    obs, rew, term, trunc, ex = env.step(torch.zeros(2, A))\n"
+        "    assert bool(torch.isfinite(obs['policy']).all() and torch.isfinite(rew).all())\n"
+        "    assert (env.sim.model.nhfield == 1) == ('rough' in env.cfg.scene.model_file.name)\n"
         "assert sys.modules['mujoco'] is None\n"
-        "print('ok')\n"
+        "print('ok', A, obs['policy'].shape[1])\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                        text=True, timeout=300, env={**os.environ, "MJLAB_QUIET": "1"})
-    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stderr[-2000:]
+    assert r.returncode == 0 and r.stdout.strip().startswith("ok"), r.stderr[-2000:]
+    want = (29, 99) if "G1" in task else (12, 48)
+    assert tuple(int(x) for x in r.stdout.split()[1:3]) == want
 
 
 def test_env_defaults_to_cuda():
@@ -294,12 +242,15 @@ def test_registry_matches_jax():
     from mjlab_tpu_torch import tasks
 
     assert set(tasks.list_tasks()) <= set(jtasks.list_tasks())
-    assert G1_TASK in tasks.list_tasks()
-    play = tasks.load_env_cfg(G1_TASK, play=True)
-    assert play.episode_length_s > 1e6
-    assert play.observations["policy"].enable_corruption is False
-    assert "push_robot" not in play.events and "randomize_terrain" not in play.events
-    assert tasks.load_env_cfg(G1_TASK) is not tasks.load_env_cfg(G1_TASK)
+    assert set(tasks.list_tasks()) >= set(VELOCITY_TASKS)
+    assert [t for t in jtasks.list_tasks() if "Velocity" in t] == sorted(VELOCITY_TASKS)
+    for task in VELOCITY_TASKS:
+        play = tasks.load_env_cfg(task, play=True)
+        assert play.episode_length_s > 1e6
+        assert play.observations["policy"].enable_corruption is False
+        assert "push_robot" not in play.events
+        assert ("randomize_terrain" in play.events) == ("Rough" in task)
+        assert tasks.load_env_cfg(task) is not tasks.load_env_cfg(task)
     # the learner's config and runner: the JAX task's, field for field, but
     # for the checkpoint file the port writes
     import dataclasses
@@ -307,12 +258,13 @@ def test_registry_matches_jax():
     from mjlab_tpu_torch.tasks import registry
     from mjlab_tpu_torch.tasks.velocity.rl import VelocityOnPolicyRunner
 
-    want = dataclasses.asdict(jtasks.load_rl_cfg(G1_TASK))
-    got = dataclasses.asdict(tasks.load_rl_cfg(G1_TASK))
-    assert want.pop("load_checkpoint") == "model_.*.ckpt"
-    assert got.pop("load_checkpoint") == "model_.*.pt"
-    assert got == want
-    assert tasks.load_runner_cls(G1_TASK) is VelocityOnPolicyRunner
+    for task in VELOCITY_TASKS:
+        want = dataclasses.asdict(jtasks.load_rl_cfg(task))
+        got = dataclasses.asdict(tasks.load_rl_cfg(task))
+        assert want.pop("load_checkpoint") == "model_.*.ckpt"
+        assert got.pop("load_checkpoint") == "model_.*.pt"
+        assert got == want, task
+        assert tasks.load_runner_cls(task) is VelocityOnPolicyRunner
     # a task registered without a PPO config
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(registry._REGISTRY, "No-Learner",
@@ -322,11 +274,22 @@ def test_registry_matches_jax():
 
 
 def test_rough_terrain_and_nan_guard_raise():
+    """What the port's env refuses: a terrain type other than plane and
+    generator, a model file whose terrain is not the scene's, and an
+    enabled NaN guard. (Rough terrain itself builds: the rough tasks run
+    in tests/test_torch_env_rough.py.)"""
     from mjlab_tpu_torch.envs import ManagerBasedRlEnv
     from mjlab_tpu_torch.tasks import load_env_cfg
 
     cfg = load_env_cfg("Mjlab-Velocity-Rough-Unitree-G1")
-    with pytest.raises(NotImplementedError, match="terrain"):
+    cfg.scene.num_envs = 2
+    cfg.scene.terrain.terrain_type = "mesh"
+    with pytest.raises(NotImplementedError, match="terrain type 'mesh'"):
+        ManagerBasedRlEnv(cfg, device="cpu")
+    cfg = load_env_cfg("Mjlab-Velocity-Rough-Unitree-G1")
+    cfg.scene.num_envs = 2
+    cfg.scene.model_file = load_env_cfg(G1_TASK).scene.model_file
+    with pytest.raises(ValueError, match="height fields"):
         ManagerBasedRlEnv(cfg, device="cpu")
 
     class _Guard:

@@ -1,6 +1,8 @@
 """The port's MDP terms and the G1 velocity task's terms, command and
 curriculum (mjlab_tpu_torch/envs/mdp/, tasks/velocity/mdp/) against the
-JAX package's on one float64 state of the G1 flat-velocity env.
+JAX package's on one float64 state of the G1 flat-velocity env, and the
+terrain curriculum (terrain_levels_vel) and terrain event
+(randomize_terrain) on a generated terrain.
 
 The port's env (float64 Simulation, CPU) is reset and stepped with random
 actions, so that the feet touch the ground, air times run and commands,
@@ -21,7 +23,7 @@ import pytest
 import torch
 
 from torch_port_common import (
-    JaxDraws, ReplayRng, g1_env_pair, jax_data_from_port, rel_err, sync_jax_env, tnp,
+    G1_TASK, JaxDraws, ReplayRng, env_pair, jax_data_from_port, rel_err, sync_jax_env, tnp,
 )
 
 E = 4
@@ -45,7 +47,7 @@ TERMINATION_TERMS = ("time_out", "fell_over")
 
 @pytest.fixture(scope="module")
 def envs():
-    jenv, penv = g1_env_pair(E, "float64")
+    jenv, penv = env_pair(G1_TASK, E, "float64")
     penv.reset()
     rs = np.random.default_rng(0)
     for _ in range(STEPS):
@@ -296,10 +298,20 @@ def test_reset_scene_to_default_matches_jax(envs):
                                   "randomize_effort_limits", "randomize_encoder_bias",
                                   "sync_actuator_delays", "randomize_terrain"])
 def test_unported_event_raises_naming_itself(envs, name):
+    """Each event term not ported raises naming itself. randomize_terrain is
+    ported (test_randomize_terrain_matches_jax): on the flat env's plane it
+    draws nothing and changes no state, as the JAX term does there."""
     from mjlab_tpu_torch.envs.mdp import events
 
+    penv = envs[1]
+    if name == "randomize_terrain":
+        state = torch.get_rng_state(), penv.rng.generator.get_state()
+        events.randomize_terrain(penv, torch.ones(E, dtype=torch.bool))
+        assert penv.scene.terrain.generator is None
+        assert torch.equal(penv.rng.generator.get_state(), state[1])
+        return
     with pytest.raises(NotImplementedError, match=name):
-        getattr(events, name)(envs[1], torch.ones(E, dtype=torch.bool))
+        getattr(events, name)(penv, torch.ones(E, dtype=torch.bool))
 
 
 def _command_state(env, jax_side):
@@ -441,3 +453,162 @@ def test_joint_action_term_matches_jax(envs, kind):
     got = {"processed": pt.processed_actions,
            "target": getattr(penv.scene["robot"].state, target)}
     _close(want, got)
+
+
+# -- the terrain curriculum and the terrain event, on a generated terrain --
+#
+# These two terms read only the terrain, the robot's root position and the
+# command, so both packages run them on a small stand-in env (a generated
+# terrain of 3 x 4 sub-terrains, 32 envs), the port's with the JAX draws
+# played back; levels, types and origins are equal, the mean level within
+# 1e-6.
+
+
+class _Robot:
+    def __init__(self, pos):
+        self.data = type("D", (), {"root_link_pos_w": pos})()
+
+
+class _TerrainEnv:
+    """The parts of an env the terrain terms read."""
+
+    def __init__(self, terrain, pos, command, rng=None):
+        env = self
+
+        class _Scene:
+            def __getitem__(self, key):
+                return env._robot
+
+            @property
+            def env_origins(self):
+                return env.scene.terrain.env_origins
+
+        self.scene = _Scene()
+        self.scene.terrain = terrain
+        self._robot = _Robot(pos)
+        self._command = command
+        self.command_manager = self
+        self.max_episode_length_s = 20.0
+        self.rng = rng
+        self.ctx = self  # the JAX terms draw env.ctx.next_key()
+        self._key = jax.random.PRNGKey(7)
+
+    def get_command(self, name):
+        return self._command
+
+    def next_key(self):
+        self._key, k = jax.random.split(self._key)
+        return k
+
+
+def _terrain_pair(E=32):
+    import mjlab_tpu.terrains as jt_
+    import mjlab_tpu_torch.terrains as pt_
+
+    def cfg(pkg):
+        subs = {"flat": pkg.BoxFlatTerrainCfg(proportion=0.5),
+                "stairs": pkg.BoxPyramidStairsTerrainCfg(
+                    proportion=0.5, step_height_range=(0.0, 0.1), step_width=0.3,
+                    platform_width=1.0, border_width=0.5)}
+        return pkg.TerrainImporterCfg(
+            terrain_type="generator", max_init_terrain_level=None,
+            terrain_generator=pkg.TerrainGeneratorCfg(
+                size=(4.0, 4.0), border_width=2.0, num_rows=3, num_cols=4, seed=3,
+                curriculum=True, sub_terrains=subs))
+
+    class _Ctx:
+        terrain_state = {}
+
+    ctx = _Ctx()
+    jimp = jt_.TerrainImporter(cfg(jt_), E)
+    jimp.initialize(E, ctx)
+    pimp = pt_.TerrainImporter(cfg(pt_))
+    pimp.initialize(E, torch.device("cpu"))
+    return jimp, ctx, pimp
+
+
+def _terrain_inputs(rs, origins, E=32):
+    """Root positions at distances from the origins across both thresholds
+    (half a sub-terrain, 2 m; half the commanded distance), commands and a
+    reset mask."""
+    ang = rs.uniform(0, 2 * np.pi, E)
+    dist = rs.choice([0.3, 1.5, 2.5, 4.0], E)
+    pos = np.array(origins, np.float64)
+    pos[:, 0] += dist * np.cos(ang)
+    pos[:, 1] += dist * np.sin(ang)
+    cmd = np.stack([rs.uniform(-0.3, 0.3, E), rs.uniform(-0.2, 0.2, E), rs.uniform(-1, 1, E)], 1)
+    mask = rs.random(E) < 0.7
+    return pos.astype(np.float32), cmd.astype(np.float32), mask
+
+
+def test_terrain_levels_vel_matches_jax():
+    """Three rounds of the curriculum on the resetting envs: promotions
+    (past the top row to a random level), demotions, envs held; JAX's
+    draws played back."""
+    from mjlab_tpu.tasks.velocity.mdp import curriculums as jcur
+    from mjlab_tpu_torch.tasks.velocity.mdp import curriculums as pcur
+
+    E = 32
+    jimp, ctx, pimp = _terrain_pair(E)
+    rounds = []
+    with JaxDraws() as draws:
+        ctx.terrain_state = jimp.init_state(E, jax.random.PRNGKey(0))
+        rs = np.random.default_rng(4)
+        for _ in range(3):
+            pos, cmd, mask = _terrain_inputs(rs, np.asarray(ctx.terrain_state["origins"]))
+            env = _TerrainEnv(jimp, jnp.asarray(pos), jnp.asarray(cmd))
+            mean = jcur.terrain_levels_vel(env, jnp.asarray(mask), command_name="twist")
+            rounds.append((pos, cmd, mask, float(mean),
+                           {k: np.asarray(v).copy() for k, v in ctx.terrain_state.items()}))
+    rng = ReplayRng(draws)
+    pimp.init_state(rng)
+    for pos, cmd, mask, mean, state in rounds:
+        env = _TerrainEnv(pimp, torch.as_tensor(pos), torch.as_tensor(cmd), rng)
+        got = pcur.terrain_levels_vel(env, torch.as_tensor(mask), command_name="twist")
+        assert abs(float(got) - mean) < 1e-6
+        np.testing.assert_array_equal(state["levels"], pimp.levels.numpy())
+        np.testing.assert_array_equal(state["origins"], pimp.origins.numpy())
+    assert rng.done()
+    moved = [r[4]["levels"] for r in rounds]
+    assert any((a != b).any() for a, b in zip(moved, moved[1:]))
+
+
+def test_randomize_terrain_matches_jax():
+    """The play variants' reset event: a random level and type for the
+    masked envs, two draws (levels, then types), JAX's played back."""
+    from mjlab_tpu.envs.mdp import events as jev
+    from mjlab_tpu_torch.envs.mdp import events as pev
+
+    E = 32
+    jimp, ctx, pimp = _terrain_pair(E)
+    mask = np.arange(E) % 4 != 0
+    with JaxDraws() as draws:
+        ctx.terrain_state = jimp.init_state(E, jax.random.PRNGKey(1))
+        jev.randomize_terrain(_TerrainEnv(jimp, None, None), jnp.asarray(mask))
+    rng = ReplayRng(draws)
+    pimp.init_state(rng)
+    pev.randomize_terrain(_TerrainEnv(pimp, None, None, rng), torch.as_tensor(mask))
+    assert rng.done()
+    for k in ("levels", "types", "origins"):
+        np.testing.assert_array_equal(np.asarray(ctx.terrain_state[k]),
+                                      getattr(pimp, k).numpy(), err_msg=k)
+    assert (pimp.types.numpy()[mask] != np.arange(E)[mask] * 4 // E).any()
+
+
+def test_terrain_terms_on_a_plane():
+    """On a plane the curriculum returns 0 and the event changes nothing,
+    in both packages."""
+    from mjlab_tpu.tasks.velocity.mdp import curriculums as jcur
+    from mjlab_tpu_torch.tasks.velocity.mdp import curriculums as pcur
+
+    import mjlab_tpu.terrains as jt_
+    import mjlab_tpu_torch.terrains as pt_
+
+    jimp = jt_.TerrainImporter(jt_.TerrainImporterCfg(), 4)
+    pimp = pt_.TerrainImporter(pt_.TerrainImporterCfg())
+    pimp.initialize(4, torch.device("cpu"))
+    env = _TerrainEnv(pimp, None, None)
+    env.const = lambda v: torch.tensor(v)
+    assert float(jcur.terrain_levels_vel(_TerrainEnv(jimp, None, None), None, "twist")) == 0
+    assert float(pcur.terrain_levels_vel(env, None, "twist")) == 0
+    assert pimp.state_tensors() == []

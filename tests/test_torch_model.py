@@ -277,13 +277,17 @@ _WELD_XML = _TENDON_XML.replace(
     "case", ["tendon", "hfield_pair", "weld_equality", "activation"]
 )
 def test_simulation_raises_on_uncovered_models(case):
-    """What the port does not carry yet: tendons, the heightfield pair
-    families, weld (and connect) equalities, activation states."""
+    """What the port does not carry yet: tendons, more than one height
+    field (the port's height-field pair families take the one terrain, as
+    the JAX package's), weld (and connect) equalities, activation
+    states."""
     cfg = SimulationCfg(nconmax=8)
     if case == "tendon":
         mj = mujoco.MjModel.from_xml_string(_TENDON_XML)
     elif case == "hfield_pair":
-        mj = mujoco.MjModel.from_xml_string(_HFIELD_XML)
+        mj = mujoco.MjModel.from_xml_string(_HFIELD_XML.replace(
+            "<asset>", '<asset><hfield name="h2" nrow="3" ncol="3" size="1 1 0.1 0.1"/>')
+            .replace("<worldbody>", '<worldbody><geom type="hfield" hfield="h2" pos="3 0 0"/>'))
     elif case == "weld_equality":
         mj = mujoco.MjModel.from_xml_string(_WELD_XML)
     else:
@@ -295,10 +299,11 @@ def test_simulation_raises_on_uncovered_models(case):
         Simulation(2, cfg, mj, device="cpu")
 
 
-@pytest.mark.parametrize("case", ["box_pair", "elliptic", "equality_mocap"])
+@pytest.mark.parametrize("case", ["box_pair", "elliptic", "equality_mocap", "hfield_pair"])
 def test_simulation_accepts_ported_features(case):
-    """The box pair families, the elliptic cone, joint equalities and
-    mocap bodies step on the CPU and stay finite."""
+    """The box pair families, the elliptic cone, joint equalities, mocap
+    bodies and the height-field pair families step on the CPU and stay
+    finite."""
     from torch_port_common import yam_mj
 
     cfg = SimulationCfg(nconmax=TOY_NCONMAX)
@@ -307,6 +312,8 @@ def test_simulation_accepts_ported_features(case):
     elif case == "elliptic":
         mj = toy_mj()
         cfg.mujoco.cone = "elliptic"
+    elif case == "hfield_pair":
+        mj = mujoco.MjModel.from_xml_string(_HFIELD_XML)
     else:
         mj = yam_mj()
         cfg = SimulationCfg(nconmax=55, mujoco=dataclasses.replace(
@@ -370,6 +377,51 @@ def test_saved_g1_model_matches_fresh_conversion():
         assert getattr(m.opt, n) == getattr(saved.opt, n), n
     np.testing.assert_array_equal(key_qpos, mj.key_qpos[0])
     np.testing.assert_array_equal(key_ctrl, mj.key_ctrl[0])
+
+
+def _new_model_files():
+    from mjlab_tpu_torch.tasks.velocity.config.g1 import physics as g1
+    from mjlab_tpu_torch.tasks.velocity.config.go1 import physics as go1
+
+    return {"g1_rough": ("Mjlab-Velocity-Rough-Unitree-G1", g1.ROUGH_MODEL),
+            "go1_flat": ("Mjlab-Velocity-Flat-Unitree-Go1", go1.FLAT_MODEL),
+            "go1_rough": ("Mjlab-Velocity-Rough-Unitree-Go1", go1.ROUGH_MODEL)}
+
+
+@pytest.mark.parametrize("name", ["g1_rough", "go1_flat", "go1_rough"])
+def test_saved_velocity_model_files_match_fresh_conversions(name):
+    """The rough G1 and the Go1 model files are the conversion of their
+    task's scene compiled now (a rough scene with the smallest generated
+    terrain, scene.model_file_scene_cfg), array for array, with the
+    keyframe and the XML sensors."""
+    from mjlab_tpu_torch.scene.scene import (
+        Scene, model_file_scene_cfg, xml_sensors, xml_sensors_from_arrays,
+    )
+    from mjlab_tpu_torch.tasks import load_env_cfg
+
+    task, path = _new_model_files()[name]
+    cfg = load_env_cfg(task)
+    assert cfg.scene.model_file == path
+    mj = Scene(model_file_scene_cfg(cfg.scene)).compile()
+    cfg.sim.mujoco.apply(mj)
+    m = pm.put_model(mj, dtype=torch.float64, nconmax=cfg.sim.nconmax, device="cpu")
+    saved, extra = pm.load_model(path, dtype=torch.float64, device="cpu")
+    for n in pm.tensor_fields():
+        assert torch.equal(getattr(m, n), getattr(saved, n)), n
+    for n in pm.static_fields():
+        if n != "pairs":
+            _assert_static_equal(getattr(m, n), getattr(saved, n), n)
+    for f in dataclasses.fields(pm.PairTable):
+        _assert_static_equal(getattr(m.pairs, f.name), getattr(saved.pairs, f.name), f.name)
+    for n in pm.OPTION_TENSOR_FIELDS:
+        assert torch.equal(getattr(m.opt, n), getattr(saved.opt, n)), n
+    for n in pm.OPTION_STATIC_FIELDS:
+        assert getattr(m.opt, n) == getattr(saved.opt, n), n
+    np.testing.assert_array_equal(extra["key_qpos"], mj.key_qpos[0])
+    np.testing.assert_array_equal(extra["key_ctrl"], mj.key_ctrl[0])
+    assert xml_sensors_from_arrays(extra) == xml_sensors(mj)
+    assert saved.nhfield == ("rough" in name)
+    assert (saved.nq, saved.nu) == ((36, 29) if name.startswith("g1") else (19, 12))
 
 
 def test_simulation_from_saved_model_matches_mjmodel_route():

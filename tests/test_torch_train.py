@@ -498,12 +498,35 @@ def _override_cases():
             T._apply_overrides(
                 cfg, ["observations.policy.terms.base_ang_vel.noise=NopeCfg(std=1.0)"])
 
+    def terrain_generator():
+        """--env.scene.terrain.terrain-generator.* reach the rough task's
+        generator config as they reach the JAX CLI's."""
+        import mjlab_tpu.scripts.train as JT
+        import mjlab_tpu.tasks as jtasks
+
+        ovs = ["scene.terrain.terrain-generator.num-rows=4",
+               "scene.terrain.terrain-generator.curriculum=false",
+               "scene.terrain.terrain-generator.border-width=5.5",
+               "scene.terrain.terrain-generator.seed=3",
+               "scene.terrain.terrain-generator.sub-terrains.flat.proportion=0.1",
+               "scene.terrain.max-init-terrain-level=2"]
+        task = "Mjlab-Velocity-Rough-Unitree-G1"
+        cfg, jcfg = tasks.load_env_cfg(task), jtasks.load_env_cfg(task)
+        T._apply_overrides(cfg, ovs)
+        JT._apply_overrides(jcfg, ovs)
+        gen, jgen = cfg.scene.terrain.terrain_generator, jcfg.scene.terrain.terrain_generator
+        for f in ("num_rows", "num_cols", "curriculum", "border_width", "seed", "size"):
+            assert getattr(gen, f) == getattr(jgen, f), f
+        assert (gen.num_rows, gen.curriculum, gen.border_width, gen.seed) == (4, False, 5.5, 3)
+        assert gen.sub_terrains["flat"].proportion == jgen.sub_terrains["flat"].proportion == 0.1
+        assert cfg.scene.terrain.max_init_terrain_level == 2
+
     return {f.__name__: f for f in (nested, bool_and_dict, tuple_list_enum_union, bad_path,
-                                    variant_dataclass)}
+                                    variant_dataclass, terrain_generator)}
 
 
 @pytest.mark.parametrize("case", ["nested", "bool_and_dict", "tuple_list_enum_union",
-                                  "bad_path", "variant_dataclass"])
+                                  "bad_path", "variant_dataclass", "terrain_generator"])
 def test_cli_overrides(case):
     _override_cases()[case]()
 

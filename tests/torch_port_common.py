@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import mujoco
 import numpy as np
+import pytest
 import torch
 
 from mjlab_tpu.phys import constraint as _jax_constraint
@@ -354,10 +355,10 @@ class ReplayRng:
 G1_TASK = "Mjlab-Velocity-Flat-Unitree-G1"
 
 
-def g1_env_pair(E: int, dtype: str = "float32", edit=None):
-    """(JAX env, port env on the CPU) of the G1 flat-velocity task, each
-    from its own registry, with ``edit(cfg)`` applied to both configs; the
-    JAX env at its float32 default, the port's Simulation at ``dtype``."""
+def env_pair(task: str, E: int, dtype: str = "float32", edit=None):
+    """(JAX env, port env on the CPU) of ``task``, each from its own
+    registry, with ``edit(cfg)`` applied to both configs; the JAX env at
+    its float32 default, the port's Simulation at ``dtype``."""
     import os
 
     os.environ.setdefault("MJLAB_QUIET", "1")
@@ -366,13 +367,114 @@ def g1_env_pair(E: int, dtype: str = "float32", edit=None):
     from mjlab_tpu_torch.envs import ManagerBasedRlEnv as PortEnv
     from mjlab_tpu_torch.tasks import load_env_cfg
 
-    cfgs = [jtasks.load_env_cfg(G1_TASK), load_env_cfg(G1_TASK)]
+    cfgs = [jtasks.load_env_cfg(task), load_env_cfg(task)]
     for cfg in cfgs:
         cfg.scene.num_envs = E
         if edit is not None:
             edit(cfg)
     cfgs[1].sim.dtype = dtype
     return JaxEnv(cfgs[0]), PortEnv(cfgs[1], device="cpu")
+
+
+def collapse_velocity_ranges(cfg, terrain_rows: int = 2, terrain_cols: int = 2):
+    """Every random range of a velocity task's config at a point (reset
+    poses, the command's ranges with rel_standing_envs 0 and
+    rel_heading_envs 1, the curriculum's stage, the push, the friction;
+    the policy group's corruption off), the resampling and push intervals
+    short enough that a resample and a push fire within 5 steps; a
+    generated terrain cut to terrain_rows x terrain_cols sub-terrains with
+    seed 0."""
+    ev = cfg.events
+    ev["reset_base"].params["pose_range"] = {}
+    ev["reset_base"].params["velocity_range"] = {}
+    ev["push_robot"].interval_range_s = (0.05, 0.05)
+    ev["push_robot"].params["velocity_range"] = {"x": (0.3, 0.3), "y": (-0.2, -0.2)}
+    ev["foot_friction"].params["ranges"] = (0.7, 0.7)
+    c = cfg.commands["twist"]
+    c.resampling_time_range = (0.05, 0.05)
+    c.rel_standing_envs = 0.0
+    c.rel_heading_envs = 1.0
+    c.ranges.lin_vel_x = (0.4, 0.4)
+    c.ranges.lin_vel_y = (0.1, 0.1)
+    c.ranges.heading = (0.3, 0.3)  # ang_vel_z: the heading controller's
+    cfg.curriculum["command_vel"].params["velocity_stages"] = [
+        {"step": 0, "lin_vel_x": (0.4, 0.4), "ang_vel_z": (-0.5, 0.5)}]
+    cfg.observations["policy"].enable_corruption = False
+    gen = cfg.scene.terrain.terrain_generator
+    if gen is not None:
+        gen.num_rows, gen.num_cols, gen.seed = terrain_rows, terrain_cols, 0
+
+
+def tip_and_time_out(jenv, penv) -> None:
+    """Env 0 tipped 80 degrees (past fell_over's 70), env 1 one step before
+    its time-out, in both envs: the next step resets both."""
+    import math
+
+    a = math.radians(80.0) / 2
+    q = np.array([math.cos(a), math.sin(a), 0.0, 0.0], np.float32)
+    st = jenv._state
+    jenv._state = st.replace(
+        data=st.data.replace(qpos=st.data.qpos.at[0, 3:7].set(q)),
+        episode_length=st.episode_length.at[1].set(jenv.max_episode_length - 1))
+    qpos = penv.sim.data.qpos.clone()
+    qpos[0, 3:7] = torch.as_tensor(q)
+    penv.sim.data = penv.sim.data.replace(qpos=qpos)
+    penv.episode_length_buf[1] = penv.max_episode_length - 1
+
+
+def _f64(x):
+    return np.array(x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x, np.float64)
+
+
+def run_velocity_env_pair(task: str, E: int, steps: int, edit=None, prepare=None):
+    """A velocity task's JAX env (the env-last hybrid physics,
+    MJLAB_TPU_ENGINE=hybrid, whose substep the port's step is held against
+    in tests/test_torch_step.py) and the port's, both float32 with
+    ``edit`` applied, reset, ``prepare(jenv, penv)`` applied, then the same
+    ``steps`` seeded actions (0.3 N(0, 1)): (jenv, penv, {"jax": [...],
+    "port": [...]}), each step's outputs, state, episode sums, logs and,
+    on a generated terrain, the terrain levels and origins."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MJLAB_TPU_ENGINE", "hybrid")
+        jenv, penv = env_pair(task, E, "float32", edit=edit)
+        jenv.reset()
+        penv.reset()
+        if prepare is not None:
+            prepare(jenv, penv)
+        A = penv.action_manager.total_action_dim
+        terrain = penv.scene.terrain
+        generated = terrain is not None and terrain.generator is not None
+        rs = np.random.default_rng(0)
+        out = {"jax": [], "port": []}
+        for _ in range(steps):
+            act = (0.3 * rs.standard_normal((E, A))).astype(np.float32)
+            jo, jr, jterm, jtrunc, jex = jenv.step(jnp.asarray(act))
+            po, pr, pterm, ptrunc, pex = penv.step(torch.as_tensor(act))
+            js = jenv._state
+            out["jax"].append(dict(
+                policy=_f64(jo["policy"]), critic=_f64(jo["critic"]), reward=_f64(jr),
+                terminated=np.asarray(jterm), truncated=np.asarray(jtrunc),
+                episode_length=np.asarray(js.episode_length),
+                command=_f64(js.command_state["twist"]["command"]),
+                qpos=_f64(js.data.qpos), qvel=_f64(js.data.qvel), ctrl=_f64(js.data.ctrl),
+                sums={k: _f64(v) for k, v in js.reward_state["episode_sums"].items()},
+                log={k: _f64(v) for k, v in jex["log"].items()},
+                **({"levels": np.asarray(js.terrain_state["levels"]),
+                    "origins": np.asarray(js.terrain_state["origins"])} if generated else {})))
+            rm = penv.reward_manager
+            out["port"].append(dict(
+                policy=_f64(po["policy"]), critic=_f64(po["critic"]), reward=_f64(pr),
+                terminated=pterm.numpy().copy(), truncated=ptrunc.numpy().copy(),
+                episode_length=penv.episode_length_buf.numpy().copy(),
+                command=_f64(penv.command_manager.get_command("twist")),
+                qpos=_f64(penv.sim.data.qpos), qvel=_f64(penv.sim.data.qvel),
+                ctrl=_f64(penv.sim.data.ctrl),
+                sums={k: _f64(v) for k, v in rm.episode_sums.items()},
+                step_values={k: _f64(v) for k, v in rm.step_values.items()},
+                log={k: _f64(v) for k, v in pex["log"].items()},
+                **({"levels": terrain.levels.numpy().copy(),
+                    "origins": terrain.origins.numpy().copy()} if generated else {})))
+    return jenv, penv, out
 
 
 def sync_jax_env(jenv, penv) -> None:
@@ -524,3 +626,92 @@ def jax_learner_payload(state, noise_std_type="scalar") -> dict:
            ["model_state_dict"] for k in ("mu", "nu")}
     return {"model": sd, "mu": mom["mu"], "nu": mom["nu"], "count": int(adam.count),
             "lr": float(state.lr)}
+
+
+def promote_demote_and_fall(jenv, penv) -> None:
+    """On a generated terrain of 2 x 2 sub-terrains and 4 envs (types 0, 0,
+    1, 1: a flat column and a stairs column), in both envs: the levels set
+    to 0, 1, 0, 1 with their origins; env 0 placed 4.5 m along +x from its
+    origin (past half a sub-terrain, on the flat row above) and env 1 0.3 m
+    from its origin, both one step before their time-out, so that the
+    terrain curriculum promotes env 0 and demotes env 1 as they reset; env
+    2 tipped 80 degrees on its stairs (it falls over and resets, level 0
+    held at 0); env 3 stays on level 1 of the stairs. Each root at its
+    origin plus the robot's default position plus the offset, as float32
+    numbers computed once."""
+    import math
+
+    jt, pt = jenv.scene.terrain, penv.scene.terrain
+    table = np.asarray(jt.terrain_origins)
+    np.testing.assert_array_equal(table, pt.terrain_origins.numpy())
+    types = np.asarray(jenv._state.terrain_state["types"])
+    np.testing.assert_array_equal(types, pt.types.numpy())
+    assert types.tolist() == [0, 0, 1, 1]
+    levels = np.array([0, 1, 0, 1], np.int32)
+    origins = table[levels, types].astype(np.float32)
+    default = penv.scene["robot"].data.default_root_state[0, :3].numpy().astype(np.float32)
+    root = origins + default + np.array([[4.5, 0, 0], [0.3, 0, 0], [0, 0, 0], [0, 0, 0]],
+                                        np.float32)
+    a = math.radians(80.0) / 2
+    tip = np.array([math.cos(a), math.sin(a), 0.0, 0.0], np.float32)
+    late = np.array([True, True, False, False])
+
+    st = jenv._state
+    qpos = st.data.qpos.at[:, 0:3].set(jnp.asarray(root)).at[2, 3:7].set(jnp.asarray(tip))
+    ep = jnp.where(jnp.asarray(late), jenv.max_episode_length - 1, st.episode_length)
+    jenv._state = st.replace(
+        data=st.data.replace(qpos=qpos), episode_length=ep,
+        terrain_state={"levels": jnp.asarray(levels), "types": jnp.asarray(types),
+                       "origins": jnp.asarray(origins)})
+
+    pt.levels.copy_(torch.as_tensor(levels))
+    pt.origins.copy_(torch.as_tensor(origins))
+    q = penv.sim.data.qpos.clone()
+    q[:, 0:3] = torch.as_tensor(root)
+    q[2, 3:7] = torch.as_tensor(tip)
+    penv.sim.data = penv.sim.data.replace(qpos=q)
+    penv.episode_length_buf[torch.as_tensor(late)] = penv.max_episode_length - 1
+
+
+# the env-pair tolerances (tests/test_torch_env.py, by what each output
+# reads): qpos 1e-4, qvel 1e-3; the policy observations 1e-3; the critic
+# observations and the logs 5e-3 (the feet's contact forces); the reward,
+# each term's step value and the episode sums 1e-3; the command 1e-4; ctrl
+# 1e-6; all relative to max(1, |JAX|max)
+VELOCITY_ENV_TOL = {"qpos": 1e-4, "qvel": 1e-3, "ctrl": 1e-6, "policy": 1e-3, "critic": 5e-3,
+                    "reward": 1e-3, "step_value": 1e-3, "episode_sum": 1e-3, "command": 1e-4,
+                    "log": 5e-3}
+
+
+def check_env_output(out, what: str, step: int) -> None:
+    """One output of run_velocity_env_pair's step within VELOCITY_ENV_TOL."""
+    want, got = out["jax"][step][what], out["port"][step][what]
+    assert want.shape == got.shape
+    assert rel_err(want, got) < VELOCITY_ENV_TOL[what], rel_err(want, got)
+
+
+def check_env_equal(out, step: int, keys) -> None:
+    for k in keys:
+        np.testing.assert_array_equal(out["jax"][step][k], out["port"][step][k], err_msg=k)
+
+
+def check_reward_term(out, term: str) -> None:
+    """A reward term's value in every step (the JAX episode sum's
+    increment, in the envs that did not reset), and its episode sum."""
+    jax_out, port_out = out["jax"], out["port"]
+    prev = np.zeros_like(jax_out[0]["sums"][term])
+    for t in range(len(jax_out)):
+        kept = ~(jax_out[t]["terminated"] | jax_out[t]["truncated"])
+        inc = jax_out[t]["sums"][term] - prev
+        got = port_out[t]["step_values"][term]
+        assert rel_err(inc[kept], got[kept]) < VELOCITY_ENV_TOL["step_value"], t
+        assert rel_err(jax_out[t]["sums"][term], port_out[t]["sums"][term]) < \
+            VELOCITY_ENV_TOL["episode_sum"]
+        prev = jax_out[t]["sums"][term]
+
+
+def check_env_logs(out, step: int) -> None:
+    want, got = out["jax"][step]["log"], out["port"][step]["log"]
+    assert set(want) == set(got)
+    for k in want:
+        assert rel_err(want[k], got[k]) < VELOCITY_ENV_TOL["log"], k
