@@ -3,11 +3,28 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py --only-rough   # this slice's three paths, no result line
+    python3 chip_smoke.py --only-yam     # this slice's two paths, no result line
+    python3 chip_smoke.py --only-rough   # the rough-terrain paths, no result line
 
-Ten main paths, each driven at 4096 envs through its public entry
+Twelve main paths, each driven at 4096 envs through its public entry
 points, and the six kernels they run. This slice's main path is training
-on rough terrain:
+the YAM arm's cube lift, the one task on the elliptic cone:
+
+- yam_train: PPO on the Mjlab-Lift-Cube-Yam env (the task's full config:
+  nconmax 55, the elliptic cone at impratio 10, a joint equality, a mocap
+  base, the fingertips' friction per env) through OnPolicyRunner (the
+  task registers no runner class) with the task's PPO config, three
+  learn() iterations: kin_com (with the mocap frames), crb_packed,
+  vel_smooth and newton_assemble_solve cone 1 (kernel 5) inside the env's
+  graph; the checkpoint round trip and the deployment ONNX;
+- yam_env: the lift-cube env, captured against an eager twin bit for bit
+  across forced resets (arms lowered into the table: the ground-contact
+  termination; time-outs; commands run out mid-episode: the lifting
+  command's resample writes the cube's free joint inside the graph);
+  eager and captured env-steps/s; kernels 1-3 and 5 against their plain
+  versions on the env's state; 64 envs on the card against the CPU port;
+
+and the paths of the slices before. Training on rough terrain:
 
 - g1_rough_train: PPO on the Mjlab-Velocity-Rough-Unitree-G1 env (the
   full ROUGH_TERRAINS_CFG: 10 x 20 sub-terrains of 8 m and a 20 m border,
@@ -162,7 +179,7 @@ checkpoint saved on the card (model_<it>.pt and the ONNX policy) and
 loaded with the optimiser into a fresh runner: every learner tensor and
 the generator state equal bit for bit.
 
-The rough paths run last (run_rough_paths): g1_rough_env, go1_rough_env
+The rough paths follow (run_rough_paths): g1_rough_env, go1_rough_env
 (run_env_path on a generated terrain, whose seed is pinned to SEED so
 that twins and the CPU env stand on one terrain), then g1_rough_train
 (run_train_path without the learner checks, which g1_train makes: the
@@ -170,9 +187,22 @@ learner is the task's own, the same code), whose launch counts the
 kernel rows 1-4 carry; its profiled rollout step gives kernel 4's ms per
 launch on stairs.
 
+The YAM paths run last (run_yam_paths): yam_env (run_env_path on the
+lift-cube task: ENV_KINDS says what it reads of the task; every 7th env's
+arm lowered into the table, every 11th at its time-out, every 13th's
+command run out with its cube moved, then the outputs, qpos and qvel of
+the captured env equal to its eager twin's bit for bit; the resampled
+envs' targets, cubes and time left inside the command's ranges; kernels
+1-3 and 5 on the env's state, the solve on its stable envs), then
+yam_train (run_train_path with the checkpoint round trip and the ONNX
+export, which rl/exporter.py writes for the generic runner), whose
+launch counts kernel row 5 carries; its profiled rollout step gives
+kernel 5's ms per launch.
+
 The line before the last is the card's name and power limit (nvidia-smi);
 the lines before hold the kernels, the captured steps, the env, the
-training runs and the rough paths (JSON each), the substep breakdowns and
+training runs, the rough paths and the YAM paths (JSON each), the
+substep breakdowns and
 the physics throughputs. The last line is {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when there is no CUDA card (2) and when
 mjlab_tpu_torch is not importable, e.g. the script copied alone into an
@@ -642,17 +672,18 @@ def stable_envs(args, kw, so_p) -> torch.Tensor:
     return keep
 
 
-def check_kernels(sim, path: str, rough: bool = False) -> dict:
+def check_kernels(sim, path: str, env_state: bool = False) -> dict:
     """Each kernel of the path against its plain version on the settled
-    state: {kernel name: its numbers at the path's shapes}. ``rough``: a
-    rough env's state, robots up to 100 m from the origin with feet on
-    stair edges: errors relative to max(1, |plain|max, the coordinate
-    scale) (coordinate_scale), and the solve held in the envs whose plain
-    solve is stable (stable_envs), at least STABLE_SHARE of them, its
-    errors over all envs printed; the kernels timed as CUDA graphs of
-    their calls (graph_ms: these checks run minutes into the process,
-    where the profiler kept 0-1 of 10 records in every session of a full
-    run)."""
+    state: {kernel name: its numbers at the path's shapes}. ``env_state``:
+    an env's state after its run (the rough envs' robots up to 100 m from
+    the origin with feet on stair edges, the YAM's arms on a grid of env
+    origins 32 m across): errors relative to max(1, |plain|max, the
+    coordinate scale) (coordinate_scale), and the solve held in the envs
+    whose plain solve is stable (stable_envs), at least STABLE_SHARE of
+    them, its errors over all envs printed; the kernels timed as CUDA
+    graphs of their calls (graph_ms: these checks run minutes into the
+    process, where the profiler kept 0-1 of 10 records in every session of
+    a full run)."""
     from mjlab_tpu_torch.phys import smooth_kernels as sk
     from mjlab_tpu_torch.phys import solver_kernels as sv
     from mjlab_tpu_torch.phys.hybrid import (
@@ -676,7 +707,7 @@ def check_kernels(sim, path: str, rough: bool = False) -> dict:
             log(f"[check] {path} {name} {label}: rel err {err:.3e} (tol {tol:.0e})")
             if not err < tol:
                 raise AssertionError(f"{path} {name} {label}: {err:.3e} >= {tol:.0e}")
-        ms = graph_ms(fn_k, reps) if rough else kernel_ms(fn_k, KERNEL_NAMES[name], reps)
+        ms = graph_ms(fn_k, reps) if env_state else kernel_ms(fn_k, KERNEL_NAMES[name], reps)
         wrapper_ms = cuda_ms(fn_k, reps)
         plain_ms = cuda_ms(fn_p, 2)
         b_ms, b_by = bound(outs_in_bytes, flops * E)
@@ -686,15 +717,15 @@ def check_kernels(sim, path: str, rough: bool = False) -> dict:
             max_abs_err=abs_err, max_rel_err=max(e for e, _ in errs.values()),
         )
         log(f"[time] {path} {name}: kernel {ms:.4f} ms (device, "
-            f"{'a CUDA graph of the calls' if rough else 'profiler'}), wrapper "
+            f"{'a CUDA graph of the calls' if env_state else 'profiler'}), wrapper "
             f"{wrapper_ms:.4f} ms (back to back, CUDA events), plain {plain_ms:.3f} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
 
     # kernel 1: kin_com (with the mocap frames where the model has them)
     outs_k = sk.kin_com(m, qT, mcT, mcqT)
     outs_p = sk.kin_com_plain(m, qT, mcT, mcqT)
-    L = coordinate_scale(outs_p[7]) if rough else 1.0
-    if rough:
+    L = coordinate_scale(outs_p[7]) if env_state else 1.0
+    if env_state:
         log(f"[check] {path}: coordinate scale {L:.3f} m (errors relative to max(1, "
             "|plain|max, this))")
     names = ("gxpos", "gxmat", "subcom", "cdof", "cinA", "cinc", "xipos",
@@ -738,7 +769,7 @@ def check_kernels(sim, path: str, rough: bool = False) -> dict:
            lambda: sk.crb_dense(m, cdof, cinA, cinc, mh),
            lambda: sk.crb_dense_plain(m, cdof, cinA, cinc, mh), 20,
            max(max_abs(p, kk) for p, kk in zip((qM_cm, Mh_cm), crb_k) if p is not None))
-    if not rough:
+    if not env_state:
         # the wrapper's structure, whatever the state: counted on the
         # physics paths (the profiler, late in a full run, keeps no record
         # of sessions like this one)
@@ -765,12 +796,12 @@ def check_kernels(sim, path: str, rough: bool = False) -> dict:
     S, F = sv.SOLVE_TOL, sv.FORCE_TOL
     tols = (S, F, F, S, S, S)
     all_p, all_k, all_it_p, all_it_k = so_p, so_k, it_p, it_k
-    if rough:
+    if env_state:
         keep = stable_envs(args, kw, so_p)
         share = float(keep.double().mean())
         full = {n: rel_err(p, kk, L) for n, p, kk in zip(names, so_p, so_k)}
         cap = kw["iterations"]
-        log(f"[check] {path} {KERNEL_NAMES['newton_assemble_solve']}: envs whose plain solve "
+        log(f"[check] {path} solve: envs whose plain solve "
             f"moves less than a third of its tolerance under ulp nudges of qvel, qfrc_smooth "
             f"and the warmstart: {int(keep.sum())} of {E} ({share:.4f}, at least "
             f"{STABLE_SHARE}); the others at the {cap}-iteration cap: "
@@ -1438,10 +1469,42 @@ ENV_TOL = {"policy": 1e-3, "critic": 5e-3, "reward": 1e-3, "command": 1e-4}
 ENV_CHECK_STEPS = 3
 # the card's env against the CPU port's on the same draws, 64 envs
 ENV_CPU_ENVS = 64
-# the policy group's terms with noise (base velocities, gravity, joint
-# positions and velocities): its first 67 columns, which the critic group
-# repeats without noise
-NOISY_POLICY_COLUMNS = 3 + 3 + 3 + 29 + 29
+
+YAM_TASK = "Mjlab-Lift-Cube-Yam"
+# what an env path reads of its task, by kind (the velocity tasks, the
+# lift-cube task): the physics path whose step tolerances (E2E_TOL) hold
+# its state; its outputs' tolerances card against CPU (the YAM's: the
+# elliptic multistep qvel's for the joint velocities the observations and
+# the hinge reward read, qpos's for the target and cube of the command);
+# the command term and the state entry read as "command"; the termination
+# the forced resets fire besides the time-out; the solve kernel of its
+# cone; the policy group's noisy columns, which the critic group repeats
+# without noise (velocity: base velocities, gravity, joint positions and
+# velocities; YAM: joint positions and velocities, end effector to cube,
+# cube to goal); the qpos columns of the xy a reset draws (the robot's
+# root; the cube's)
+ENV_KINDS = {
+    "velocity": dict(physics="g1", tol=ENV_TOL, command=("twist", "command"),
+                     terminate="fell_over", solve="newton_assemble_solve",
+                     noisy=lambda joints: 3 + 3 + 3 + 2 * joints, pose=slice(0, 2)),
+    "yam": dict(physics="yam", tol={"policy": 2e-2, "critic": 2e-2, "reward": 2e-2,
+                                    "command": 2e-4},
+                command=("lift_height", "target_pos"), terminate="ee_ground_collision",
+                solve="newton_assemble_solve_elliptic",
+                noisy=lambda joints: 2 * joints + 3 + 3, pose=slice(8, 10)),
+}
+# the YAM's forced resets: an arm lowered into the table (link_6's subtree
+# meets it: the ground sensor fires), and a cube moved along x before its
+# command's resample (tests/test_torch_env_yam.py)
+YAM_GROUND_ARM = {1: 1.75, 2: 0.8}
+YAM_CUBE_QPOS = 8
+YAM_CUBE_SHIFT = 0.05
+
+
+def env_kind(env) -> dict:
+    """The env's ENV_KINDS entry: the lift-cube task's by its command."""
+    return ENV_KINDS["yam" if "lift_height" in env.command_manager.active_terms
+                     else "velocity"]
 
 
 def make_env(num_envs: int, device: str, capture: bool = True, seed: int = SEED,
@@ -1490,41 +1553,69 @@ def force_resets(env, tip: torch.Tensor, late: torch.Tensor, shift=None) -> None
     env.episode_length_buf[late] = env.max_episode_length - 1
 
 
+def force_lift_resets(env, ground: torch.Tensor, late: torch.Tensor,
+                      resample: torch.Tensor) -> None:
+    """Lower the ``ground`` envs' arms into the table (YAM_GROUND_ARM), set
+    the ``late`` envs one step before their time-out, and move the
+    ``resample`` envs' cubes by YAM_CUBE_SHIFT along x with their lifting
+    command's time left at 0.01 s: the next step terminates the first set
+    (illegal_contact), times out the second and resets both, and resamples
+    the third's target and cube pose mid-episode."""
+    qpos = env.sim.data.qpos.clone()
+    for j, v in YAM_GROUND_ARM.items():
+        qpos[ground, j] = v
+    qpos[resample, YAM_CUBE_QPOS] += YAM_CUBE_SHIFT
+    env.sim.data = env.sim.data.replace(qpos=qpos)
+    env.episode_length_buf[late] = env.max_episode_length - 1
+    env.command_manager.get_term("lift_height").state["time_left"][resample] = 0.01
+
+
 def env_outputs(env, out) -> dict:
-    """The step's outputs, cloned; on a generated terrain also the terrain
-    levels and origins."""
+    """The step's outputs, cloned, with the Data's qpos and qvel; on a
+    generated terrain also the terrain levels and origins."""
     obs, rew, term, trunc, extras = out
+    name, key = env_kind(env)["command"]
     res = {"policy": obs["policy"].clone(), "critic": obs["critic"].clone(),
            "reward": rew.clone(), "terminated": term.clone(), "truncated": trunc.clone(),
            "episode_length": env.episode_length_buf.clone(),
-           "command": env.command_manager.get_command("twist").clone()}
+           "command": env.command_manager.get_term(name).state[key].clone(),
+           "qpos": env.sim.data.qpos.clone(), "qvel": env.sim.data.qvel.clone()}
     terrain = env.scene.terrain
     if terrain is not None and terrain.generator is not None:
         res.update(levels=terrain.levels.clone(), origins=terrain.origins.clone())
     return res
 
 
-def assert_envs_agree(label: str, a_env, a: dict, b_env, b: dict, path: str = "g1_env") -> dict:
+def assert_envs_agree(label: str, a_env, a: dict, b_env, b: dict, path: str = "g1_env",
+                      bitwise: bool = False) -> dict:
     """Two envs' outputs and Data: equal flags, episode lengths and terrain
-    levels and origins, the observations and rewards within ENV_TOL, the
-    state within E2E_TOL and the same active contact slots
-    (assert_twins_agree)."""
+    levels and origins, the observations and rewards within the kind's
+    tolerances (ENV_KINDS), the state within E2E_TOL and the same active
+    contact slots (assert_twins_agree). ``bitwise``: every output, qpos and
+    qvel equal bit for bit besides."""
+    kind = env_kind(a_env)
+    tols = kind["tol"]
     for k in ("terminated", "truncated", "episode_length", "levels", "origins"):
         if k in a and not torch.equal(a[k].cpu(), b[k].cpu()):
             raise AssertionError(f"{path} {label}: {k} differ")
+    if bitwise:
+        differ = [k for k in a if not torch.equal(a[k].cpu(), b[k].cpu())]
+        if differ:
+            raise AssertionError(f"{path} {label}: {differ} not equal bit for bit")
     errs = {}
-    for k, tol in ENV_TOL.items():
+    for k, tol in tols.items():
         errs[k] = rel_err(a[k].cpu(), b[k].cpu())
         if not errs[k] < tol:
             raise AssertionError(f"{path} {label}: {k} rel err {errs[k]:.3e} >= {tol:.0e}")
-    log(f"[env] {path} {label}: " + ", ".join(f"{k} rel err {v:.3e} (tol {ENV_TOL[k]:.0e})"
+    log(f"[env] {path} {label}: " + ", ".join(f"{k} rel err {v:.3e} (tol {tols[k]:.0e})"
                                               for k, v in errs.items())
         + f"; terminated {int(a['terminated'].sum())}, truncated "
         f"{int(a['truncated'].sum())} in both"
-        + (", terrain levels and origins equal" if "levels" in a else ""))
+        + (", terrain levels and origins equal" if "levels" in a else "")
+        + (f"; {sorted(a)} equal bit for bit" if bitwise else ""))
     da, db = a_env.sim.data, b_env.sim.data
     if da.qpos.device == db.qpos.device:
-        errs.update(assert_twins_agree("g1", f"env {label}", da, db))
+        errs.update(assert_twins_agree(kind["physics"], f"env {label}", da, db))
     return errs
 
 
@@ -1576,7 +1667,7 @@ def env_on_card_matches_cpu(seed: int, task: str = ENV_TASK, path: str = "g1_env
     errs = assert_envs_agree(f"card vs CPU, {ENV_CPU_ENVS} envs, reset and one step",
                              cpu, outs[1], card, outs[0], path)
     dc, dp = card.sim.data, cpu.sim.data
-    for f, tol in E2E_TOL["g1"]:
+    for f, tol in E2E_TOL[env_kind(card)["physics"]]:
         errs[f] = err = rel_err(getattr(dp, f), getattr(dc, f).cpu())
         log(f"[env] {path} card vs CPU, {ENV_CPU_ENVS} envs, reset and one step: {f} rel err "
             f"{err:.3e} (tol {tol:.0e})")
@@ -1585,7 +1676,47 @@ def env_on_card_matches_cpu(seed: int, task: str = ENV_TASK, path: str = "g1_env
     return errs
 
 
-def run_env_path(g1_capture_kernels: int | None, task: str = ENV_TASK,
+def expected_launches(solve: str) -> dict:
+    """Each kernel's launches per control step of an env or trainer: the
+    smooth kernels per substep, kin_com once more in the refresh, the solve
+    of the task's cone per substep, the others never."""
+    out = {"kin_com": DECIMATION + 1, "crb_packed": DECIMATION, "vel_smooth": DECIMATION,
+           "newton_assemble_solve": 0, "newton_assemble_solve_elliptic": 0,
+           "newton_solve_dense": 0}
+    out[solve] = DECIMATION
+    return out
+
+
+def resampled(path: str, env, mask: torch.Tensor) -> None:
+    """After a step in which the ``mask`` envs' lifting command ran out:
+    their time left drawn anew in the resampling range, their targets and
+    cubes inside the command's boxes about their env origins, the cubes
+    at rest (the resample wrote the free joint mid-episode)."""
+    term = env.command_manager.get_term("lift_height")
+    cfg = term.cfg
+    origins = env.scene.env_origins[mask]
+    rel_target = term.state["target_pos"][mask] - origins
+    qpos = env.sim.data.qpos[mask]
+    rel_cube = qpos[:, YAM_CUBE_QPOS:YAM_CUBE_QPOS + 3] - origins
+    tl = term.state["time_left"][mask]
+    lo_t, hi_t = cfg.resampling_time_range
+
+    def inside(x, r):
+        lo = torch.tensor([r.x[0], r.y[0], r.z[0]], device=x.device, dtype=x.dtype)
+        hi = torch.tensor([r.x[1], r.y[1], r.z[1]], device=x.device, dtype=x.dtype)
+        return bool(((x >= lo - 1e-6) & (x <= hi + 1e-6)).all())
+
+    ok = (inside(rel_target, cfg.target_position_range)
+          and inside(rel_cube, cfg.object_pose_range)
+          and bool(((tl >= lo_t) & (tl <= hi_t)).all()))
+    log(f"[env] {path} step 1: the lifting command resampled {int(mask.sum())} envs "
+        f"mid-episode: time left in [{float(tl.min()):.3f}, {float(tl.max()):.3f}] s, targets "
+        f"and cubes inside the command's boxes about their origins: {ok}")
+    if not ok:
+        raise AssertionError(f"{path}: the resampled envs' command or cube is off")
+
+
+def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
                  path: str = "g1_env") -> tuple[dict, dict]:
     """The env's step of ``task`` at NUM_ENVS envs, captured as one CUDA
     graph: (launches, summary). The launch counts are set to 0 just
@@ -1596,7 +1727,11 @@ def run_env_path(g1_capture_kernels: int | None, task: str = ENV_TASK,
     resets also promote and demote envs through the terrain curriculum,
     and the path then holds kernels 1-4 against their plain versions on
     the env's state and the height-field narrowphase on the card against
-    the CPU (summary["kernel_checks"], summary["hfield_card_vs_cpu"])."""
+    the CPU (summary["kernel_checks"], summary["hfield_card_vs_cpu"]). The
+    lift-cube task's forced resets are its own (force_lift_resets), its
+    twins must agree bit for bit, and the path holds kernels 1-3 and 5 on
+    the env's state. ``capture_kernels``: the CUDA kernels of the task's
+    captured physics path's replay, to count what the env adds."""
     t0 = time.perf_counter()
     eager = make_env(NUM_ENVS, "cuda", capture=False, task=task)
     cap = make_env(NUM_ENVS, "cuda", task=task)
@@ -1635,9 +1770,9 @@ def run_env_path(g1_capture_kernels: int | None, task: str = ENV_TASK,
     capture_s = time.perf_counter() - t0
     launches = read_launches()
     per_step = {k: v / (CAPTURE_WARMUP + 1) for k, v in launches.items()}
-    expected = {"kin_com": DECIMATION + 1, "crb_packed": DECIMATION,
-                "vel_smooth": DECIMATION, "newton_assemble_solve": DECIMATION,
-                "newton_assemble_solve_elliptic": 0, "newton_solve_dense": 0}
+    kind = env_kind(cap)
+    yam = kind is ENV_KINDS["yam"]
+    expected = expected_launches(kind["solve"])
     log(f"[env] {path}: the first step() captured the env step and replayed it in "
         f"{capture_s:.2f} s ({CAPTURE_WARMUP} warm-up steps, the last with host "
         f"synchronisation an error); launches {launches}, per control step {per_step}, "
@@ -1645,26 +1780,34 @@ def run_env_path(g1_capture_kernels: int | None, task: str = ENV_TASK,
     if not cap.captured or per_step != expected:
         raise AssertionError(f"{path} launches per control step {per_step} != {expected}")
     errs = assert_envs_agree("captured vs eager, the capturing step", eager,
-                             env_outputs(eager, eager.step(first)), cap, oc, path)
+                             env_outputs(eager, eager.step(first)), cap, oc, path, bitwise=yam)
 
     # captured against eager: ENV_CHECK_STEPS steps, the first after
-    # tipping some envs and bringing others to their time-out (on a
-    # generated terrain half of those moved past half a sub-terrain)
+    # tipping some envs (the YAM: lowering their arms into the table) and
+    # bringing others to their time-out (on a generated terrain half of
+    # those moved past half a sub-terrain; the YAM: others' commands to
+    # their resample, mid-episode)
     E = NUM_ENVS
     idx = torch.arange(E, device="cuda")
     tip, late = idx % 7 == 0, idx % 11 == 3
     shift = (idx % 22 == 3) & ~tip if rough else None
+    resample = (idx % 13 == 5) & ~tip & ~late if yam else None
     before = (terrain.levels.clone(), terrain.origins.clone()) if rough else None
     for e in (eager, cap):
-        force_resets(e, tip, late, shift)
+        if yam:
+            force_lift_resets(e, tip, late, resample)
+        else:
+            force_resets(e, tip, late, shift)
     for i, act in enumerate(check):
         oe = env_outputs(eager, eager.step(act))
         oc = env_outputs(cap, cap.step(act))
         torch.cuda.synchronize()
         if i == 0:
-            fell = cap.termination_manager.get_term("fell_over")
+            if yam:
+                resampled(path, cap, resample)
+            fell = cap.termination_manager.get_term(kind["terminate"])
             timed_out = cap.termination_manager.get_term("time_out")
-            log(f"[env] {path} step 1: fell_over in {int(fell.sum())} envs (tipped "
+            log(f"[env] {path} step 1: {kind['terminate']} in {int(fell.sum())} envs (forced "
                 f"{int(tip.sum())}), time_out in {int(timed_out.sum())} (set {int(late.sum())}); "
                 f"their episode lengths after the reset: "
                 f"{int(cap.episode_length_buf[fell | timed_out].max())}")
@@ -1675,7 +1818,8 @@ def run_env_path(g1_capture_kernels: int | None, task: str = ENV_TASK,
             if rough:
                 curriculum_moves(path, terrain, before, shift, late & ~tip & ~shift,
                                  fell | timed_out)
-        errs = assert_envs_agree(f"captured vs eager, step {i + 1}", eager, oe, cap, oc, path)
+        errs = assert_envs_agree(f"captured vs eager, step {i + 1}", eager, oe, cap, oc, path,
+                                 bitwise=yam)
     for k in ("policy", "critic", "reward"):
         if not bool(torch.isfinite(oc[k]).all()):
             raise AssertionError(f"{path}: non-finite {k}")
@@ -1684,17 +1828,20 @@ def run_env_path(g1_capture_kernels: int | None, task: str = ENV_TASK,
         raise AssertionError(f"{path}: obs shapes {oc['policy'].shape}, {oc['critic'].shape}")
 
     # fresh draws per replay: the policy group's noise (policy obs minus
-    # the noise-free critic terms it shares: base velocities, gravity,
-    # joint positions and velocities) and the reset poses of envs reset in
-    # two consecutive replays
+    # the noise-free critic terms it shares, ENV_KINDS) and the reset poses
+    # (the robot's root; the YAM's cube) of envs reset in two consecutive
+    # replays
     noise, poses = [], []
     reset_all = torch.ones(E, dtype=torch.bool, device="cuda")
-    noisy = 3 + 3 + 3 + 2 * A
+    noisy = kind["noisy"](cap.scene["robot"].num_joints)
     for _ in range(2):
-        force_resets(cap, ~reset_all, reset_all)
+        if yam:
+            force_lift_resets(cap, ~reset_all, reset_all, ~reset_all)
+        else:
+            force_resets(cap, ~reset_all, reset_all)
         o = cap.step(timed[0])[0]
         noise.append((o["policy"][:, :noisy] - o["critic"][:, :noisy]).clone())
-        poses.append(cap.sim.data.qpos[:, :2].clone() - cap.scene.env_origins[:, :2])
+        poses.append(cap.sim.data.qpos[:, kind["pose"]].clone() - cap.scene.env_origins[:, :2])
     torch.cuda.synchronize()
     same_noise = float((noise[0] == noise[1]).double().mean())
     same_pose = float((poses[0] == poses[1]).all(1).double().mean())
@@ -1741,19 +1888,24 @@ def run_env_path(g1_capture_kernels: int | None, task: str = ENV_TASK,
                 for n, v in prof["by_kernel"].items()))
         log(f"[env] {path} {k}: the CUDA kernels with the most device time: " + "; ".join(
             f"{t['name'][:60]} {t['launches']} x, {t['ms']:.3f} ms" for t in prof["top"]))
-    added = (None if g1_capture_kernels is None
-             else profiles["captured"]["kernels"] - g1_capture_kernels)
-    if g1_capture_kernels is not None:
+    added = (None if capture_kernels is None
+             else profiles["captured"]["kernels"] - capture_kernels)
+    if capture_kernels is not None:
         log(f"[env] {path}: the managers, terms and resets add {added} CUDA kernels per "
-            f"control step over g1_capture's replay ({g1_capture_kernels})")
+            f"control step over the captured physics path's replay ({capture_kernels})")
     summary = {"task": task, "env_steps_per_s": med, "env_steps_per_s_repeats": rates,
                "ms_per_control_step": {k: float(np.median(v)) for k, v in ms.items()},
                "device_ms_per_control_step": {k: p["busy_ms"] for k, p in profiles.items()},
                "idle_share": {k: p["idle_share"] for k, p in profiles.items()},
                "cuda_kernels_per_control_step": {k: p["kernels"] for k, p in profiles.items()},
-               "kernels_added_over_g1_capture": added, "capture_s": capture_s,
+               "kernels_added_over_physics_capture": added, "capture_s": capture_s,
                "launches_per_control_step": per_step, "check_rel_err": errs,
                "equal_noise_share": same_noise, "equal_reset_pose_share": same_pose}
+    if yam:
+        # the kernels on the env's state after the timed steps: arms
+        # reaching on random actions, cubes on the table, envs reset among
+        # them
+        summary["kernel_checks"] = check_kernels(cap.sim, path, env_state=True)
     if rough:
         # the kernels on the env's state after the timed steps: the robots
         # on the terrain's flat patches and stairs up and down
@@ -1761,7 +1913,7 @@ def run_env_path(g1_capture_kernels: int | None, task: str = ENV_TASK,
         log(f"[check] {path}: kernels 1-4 on the env's state: envs by sub-terrain column "
             f"{torch.bincount(on_stairs, minlength=terrain.terrain_origins.shape[1]).tolist()}, "
             f"levels {torch.bincount(terrain.levels.long()).tolist()}")
-        summary["kernel_checks"] = check_kernels(cap.sim, path, rough=True)
+        summary["kernel_checks"] = check_kernels(cap.sim, path, env_state=True)
         summary["hfield_card_vs_cpu"] = hfield_card_matches_cpu(m, path, SEED + 7)
     del eager, cap
     torch.cuda.empty_cache()
@@ -1886,20 +2038,22 @@ TRAIN_TOL = {"params": 1e-5, "outlier_share": 1e-3, "outlier_step": 0.1, "moment
 
 
 def make_train_runner(env=None, task: str = ENV_TASK):
-    """The task's runner from the port's registry on the card: the task's
-    env at NUM_ENVS envs (or ``env``), its PPO config in full."""
+    """The task's runner from the port's registry on the card (OnPolicyRunner
+    where the task registers none, as the train CLI): the task's env at
+    NUM_ENVS envs (or ``env``), its PPO config in full."""
     import os
 
     os.environ.setdefault("MJLAB_QUIET", "1")
-    from mjlab_tpu_torch.rl import RslRlVecEnvWrapper
+    from mjlab_tpu_torch.rl import OnPolicyRunner, RslRlVecEnvWrapper
     from mjlab_tpu_torch.tasks import load_rl_cfg, load_runner_cls
 
     agent = load_rl_cfg(task)
     agent.seed = SEED
     if env is None:
         env = make_env(NUM_ENVS, "cuda", task=task)
-    return load_runner_cls(task)(RslRlVecEnvWrapper(env, clip_actions=agent.clip_actions),
-                                 agent, log_dir=None, device="cuda")
+    runner_cls = load_runner_cls(task) or OnPolicyRunner
+    return runner_cls(RslRlVecEnvWrapper(env, clip_actions=agent.clip_actions),
+                      agent, log_dir=None, device="cuda")
 
 
 def learner_snapshot(ppo, envs: int) -> dict:
@@ -1983,35 +2137,46 @@ def update_card_matches_cpu(runner, snap: dict) -> dict:
     return errs
 
 
-def checkpoint_round_trip(runner) -> dict:
-    """Save on the card (the task's runner: model_<it>.pt and the ONNX
-    policy), load with the optimiser into a fresh runner on the same env:
-    every learner tensor and the generator state equal bit for bit."""
+def checkpoint_round_trip(runner, task: str = ENV_TASK) -> dict:
+    """Save on the card (the task's runner: model_<it>.pt, and the ONNX
+    policy beside it where the runner exports one; else the deployment
+    ONNX through rl/exporter.py, as a user exports a checkpoint of the
+    generic runner), load with the optimiser into a fresh runner on the same
+    env: every learner tensor and the generator state equal bit for bit."""
     import os
     import tempfile
+
+    from mjlab_tpu_torch.rl.exporter import export_policy_as_onnx, get_base_metadata
 
     with tempfile.TemporaryDirectory() as d:
         run = os.path.join(d, "run")
         path = os.path.join(run, f"model_{runner.iteration}.pt")
         runner.save(path)
+        if not any(f.endswith(".onnx") for f in os.listdir(run)):
+            export_policy_as_onnx(runner.ppo, os.path.join(run, "run.onnx"),
+                                  metadata=get_base_metadata(runner.env, run))
         files = sorted(os.listdir(run))
         size = os.path.getsize(path)
-        fresh = make_train_runner(runner.env)
+        onnx = sum(os.path.getsize(os.path.join(run, f)) for f in files if f.endswith(".onnx"))
+        if not onnx:
+            raise AssertionError(f"{task}: no ONNX policy written")
+        fresh = make_train_runner(runner.env, task)
         fresh.load(path, load_optimizer=True)
     want, got = runner.ppo.learner_tensors(), fresh.ppo.learner_tensors()
     differ = [k for k in want if not torch.equal(want[k], got[k])]
     same_gen = torch.equal(runner.ppo.rng.generator.get_state(),
                            fresh.ppo.rng.generator.get_state())
-    log(f"[train] checkpoint round trip: wrote {files} ({size} bytes), {len(want)} learner "
+    log(f"[train] {task} checkpoint round trip: wrote {files} (checkpoint {size} bytes, ONNX "
+        f"{onnx} bytes), {len(want)} learner "
         f"tensors, {len(differ)} differ after load; generator state equal: {same_gen}")
     if differ or not same_gen or fresh.iteration != runner.iteration:
         raise AssertionError(f"g1_train checkpoint round trip: {differ[:5]} differ, generator "
                              f"equal {same_gen}")
-    return {"files": files, "bytes": size, "tensors": len(want)}
+    return {"files": files, "bytes": size, "onnx_bytes": onnx, "tensors": len(want)}
 
 
 def run_train_path(task: str = ENV_TASK, path: str = "g1_train",
-                   learner_checks: bool = True) -> tuple[dict, dict]:
+                   learner_checks: bool = True, checkpoint: bool = True) -> tuple[dict, dict]:
     """PPO on the task's env at NUM_ENVS envs with the task's full PPO
     config, through the task's runner: (launches, summary). The launch
     counts are set to 0 just before learn() and read after it: its
@@ -2020,8 +2185,8 @@ def run_train_path(task: str = ENV_TASK, path: str = "g1_train",
     kernel through its wrapper once per control step; replays do not pass
     the wrappers (the profile of one rollout step shows the graph
     launching them). ``learner_checks``: the update on the card against
-    the CPU and the checkpoint round trip (the learner is the same on
-    every task)."""
+    the CPU (the learner is the same on every task); ``checkpoint``: the
+    checkpoint round trip and the ONNX export."""
     t0 = time.perf_counter()
     runner = make_train_runner(task=task)
     ppo, cfg = runner.ppo, runner.cfg
@@ -2072,9 +2237,8 @@ def run_train_path(task: str = ENV_TASK, path: str = "g1_train",
     # once, eagerly
     reset = {"kin_com": 1}
     per_step = {k: (v - reset.get(k, 0)) / (CAPTURE_WARMUP + 1) for k, v in launches.items()}
-    expected = {"kin_com": DECIMATION + 1, "crb_packed": DECIMATION,
-                "vel_smooth": DECIMATION, "newton_assemble_solve": DECIMATION,
-                "newton_assemble_solve_elliptic": 0, "newton_solve_dense": 0}
+    solve = env_kind(runner.env)["solve"]
+    expected = expected_launches(solve)
     log(f"[train] {path}: learn({TRAIN_ITERATIONS}): launches {launches} (the reset's refresh "
         f"{reset}, then the capture), per control step of the capture {per_step}, "
         f"expected {expected}")
@@ -2123,15 +2287,13 @@ def run_train_path(task: str = ENV_TASK, path: str = "g1_train",
         log(f"[train] {path} {k}: the CUDA kernels with the most device time: " + "; ".join(
             f"{t['name'][:60]} {t['launches']} x, {t['ms']:.3f} ms" for t in prof["top"]))
 
-    k4 = profiles["rollout_step"]["by_kernel"]["newton_assemble_solve"]["ms_per_launch"]
-    log(f"[train] {path}: kernel 4 (newton_assemble_solve) in one rollout step: "
-        f"{k4:.4f} ms per launch")
-    if learner_checks:
-        card_vs_cpu = update_card_matches_cpu(runner, snaps[0])
-        ckpt = checkpoint_round_trip(runner)
-    else:
-        card_vs_cpu = ckpt = None
-    summary = {"task": task, "env_steps_per_s": rate, "kernel4_ms_per_launch": k4, "rollout_ms": rollout_ms, "update_ms": update_ms,
+    solve_ms = profiles["rollout_step"]["by_kernel"][solve]["ms_per_launch"]
+    log(f"[train] {path}: the solve kernel ({solve}) in one rollout step: "
+        f"{solve_ms:.4f} ms per launch")
+    card_vs_cpu = update_card_matches_cpu(runner, snaps[0]) if learner_checks else None
+    ckpt = checkpoint_round_trip(runner, task) if checkpoint else None
+    summary = {"task": task, "env_steps_per_s": rate, "solve_kernel": solve,
+               "solve_ms_per_launch": solve_ms, "rollout_ms": rollout_ms, "update_ms": update_ms,
                "rollout_ms_per_control_step": rollout_ms / T, "timings": timings,
                "iterations": per_iter, "launches_per_control_step": per_step,
                "profile": {k: {kk: p[kk] for kk in ("kernels", "busy_ms", "span_ms",
@@ -2404,16 +2566,17 @@ def run_forward_path() -> tuple[dict, dict, dict]:
 
 # the kernel rows' numbers: the kernel checks of the path that runs the
 # kernel (the G1 physics for kernels 1-4, the YAM for 5, g1_forward for 6;
-# every path's checks, the rough envs' included, under "per_path"), and
-# the launches of this slice's main path, the rough-terrain training run
-# (g1_rough_train: the env's capture in the first rollout step; kernel 5:
-# yam_capture; kernel 6: g1_forward)
+# every path's checks, the rough envs' and the YAM env's included, under
+# "per_path"), and the launches of the main paths: the rough-terrain
+# training run for kernels 1-4 (g1_rough_train: the env's capture in the
+# first rollout step), the YAM's training run for kernel 5 (yam_train),
+# g1_forward for kernel 6
 CHECK_PATH = {"kin_com": "g1", "crb_packed": "g1", "vel_smooth": "g1",
               "newton_assemble_solve": "g1", "newton_assemble_solve_elliptic": "yam",
               "newton_solve_dense": "g1_forward"}
 LAUNCH_PATH = {"kin_com": "g1_rough_train", "crb_packed": "g1_rough_train",
                "vel_smooth": "g1_rough_train", "newton_assemble_solve": "g1_rough_train",
-               "newton_assemble_solve_elliptic": "yam_capture",
+               "newton_assemble_solve_elliptic": "yam_train",
                "newton_solve_dense": "g1_forward"}
 
 
@@ -2452,6 +2615,18 @@ ROUGH_ENV_PATHS = {"g1_rough_env": "Mjlab-Velocity-Rough-Unitree-G1",
 ROUGH_TRAIN_TASK = "Mjlab-Velocity-Rough-Unitree-G1"
 
 
+def run_yam_paths(yam_capture_kernels: int | None = None) -> tuple[dict, dict]:
+    """yam_env and yam_train, the lift-cube task (the elliptic cone inside
+    an env's graph and a PPO iteration): (launches by path, summary by
+    path)."""
+    launches, summary = {}, {}
+    launches["yam_env"], summary["yam_env"] = run_env_path(
+        yam_capture_kernels, YAM_TASK, "yam_env")
+    launches["yam_train"], summary["yam_train"] = run_train_path(
+        YAM_TASK, "yam_train", learner_checks=False)
+    return launches, summary
+
+
 def run_rough_paths() -> tuple[dict, dict]:
     """g1_rough_env, go1_rough_env and g1_rough_train: (launches by path,
     summary by path)."""
@@ -2459,7 +2634,7 @@ def run_rough_paths() -> tuple[dict, dict]:
     for p, task in ROUGH_ENV_PATHS.items():
         launches[p], summary[p] = run_env_path(None, task, p)
     launches["g1_rough_train"], summary["g1_rough_train"] = run_train_path(
-        ROUGH_TRAIN_TASK, "g1_rough_train", learner_checks=False)
+        ROUGH_TRAIN_TASK, "g1_rough_train", learner_checks=False, checkpoint=False)
     return launches, summary
 
 
@@ -2499,6 +2674,13 @@ def main() -> int:
         log(json.dumps({"rough": rough, "num_envs": NUM_ENVS}))
         log("[partial] --only-rough: the other paths did not run; no result")
         return 0
+    if sys.argv[1:2] == ["--only-yam"]:
+        # a quick run of the lift-cube env and training paths alone: no
+        # result line
+        launches, yam = run_yam_paths()
+        log(json.dumps({"yam": yam, "num_envs": NUM_ENVS}))
+        log("[partial] --only-yam: the other paths did not run; no result")
+        return 0
     per_path, launches, summary = {}, {}, {}
     for path in PATHS:
         per_path[path], launches[path], summary[path] = run_path(path)
@@ -2518,6 +2700,10 @@ def main() -> int:
     for p in ROUGH_ENV_PATHS:
         per_path[p] = rough[p]["kernel_checks"]
     per_step.update({p: rough[p]["launches_per_control_step"] for p in rough})
+    yam_launches, yam = run_yam_paths(capture["yam"]["cuda_kernels_per_control_step"]["captured"])
+    launches.update(yam_launches)
+    per_path["yam_env"] = yam["yam_env"]["kernel_checks"]
+    per_step.update({p: yam[p]["launches_per_control_step"] for p in yam})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2528,6 +2714,7 @@ def main() -> int:
     log(json.dumps({"g1_env": env, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"g1_train": train, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"rough": rough, "num_envs": NUM_ENVS, "power_limit": smi}))
+    log(json.dumps({"yam": yam, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"paths": summary, "num_envs": NUM_ENVS,
                     "control_steps": CONTROL_STEPS,
                     "seconds": time.perf_counter() - t_start}))

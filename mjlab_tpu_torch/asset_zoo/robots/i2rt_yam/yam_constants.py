@@ -2,10 +2,11 @@
 
 PyTorch-package counterpart of
 mjlab_tpu/asset_zoo/robots/i2rt_yam/yam_constants.py: the three actuator
-groups, the home keyframe and the gripper-only collision preset the
-lift-cube task uses. The YAM XML and meshes
-are read in place from the JAX package's asset folder (data files, not
-code).
+groups, the home keyframe, the gripper-only collision preset and the
+action scale the lift-cube task uses. MuJoCo is imported only to build
+the spec, so that the runtime path imports this module without it. The
+YAM XML and meshes are read in place from the JAX package's asset folder
+(data files, not code).
 
 Actuator parameters come from the DM-4340 / DM-4310 motor data; the crank
 gripper's rotary motor is reflected to the linear finger joint through the
@@ -19,8 +20,7 @@ from __future__ import annotations
 
 import math
 from pathlib import Path
-
-import mujoco
+from typing import TYPE_CHECKING
 
 from mjlab_tpu_torch.actuator.builtin import BuiltinPositionActuatorCfg
 from mjlab_tpu_torch.entity.entity import EntityCfg, InitialStateCfg
@@ -29,13 +29,18 @@ from mjlab_tpu_torch.utils.actuator import (
 )
 from mjlab_tpu_torch.utils.spec_config import CollisionCfg
 
+if TYPE_CHECKING:
+    import mujoco
+
 YAM_XML: Path = (
     Path(__file__).resolve().parents[4]
     / "mjlab_tpu" / "asset_zoo" / "robots" / "i2rt_yam" / "xmls" / "yam.xml"
 )
 
 
-def get_spec() -> mujoco.MjSpec:
+def get_spec() -> "mujoco.MjSpec":
+    import mujoco
+
     return mujoco.MjSpec.from_file(str(YAM_XML))
 
 
@@ -110,6 +115,12 @@ YAM_ACTUATORS = (
     ACTUATOR_DM_4340, ACTUATOR_DM_4310, ACTUATOR_DM_4310_LINEAR_CRANK,
 )
 
+# the joint-position action scale per joint: 0.25 effort limit / stiffness
+YAM_ACTION_SCALE: dict[str, float] = {}
+for _a in YAM_ACTUATORS:
+    for _n in _a.joint_names_expr:
+        YAM_ACTION_SCALE[_n] = 0.25 * _a.effort_limit / _a.stiffness
+
 HOME_KEYFRAME = InitialStateCfg(
     pos=(0.0, 0.0, 0.01),
     joint_pos={
@@ -135,10 +146,12 @@ GRIPPER_ONLY_COLLISION = CollisionCfg(
 
 def get_yam_robot_cfg() -> EntityCfg:
     """The YAM as the lift-cube task builds it: home keyframe, collisions
-    on the gripper only, the three actuator groups."""
+    on the gripper only, the three actuator groups, soft joint limits at
+    0.9 of the range."""
     return EntityCfg(
         spec_fn=get_spec,
         init_state=HOME_KEYFRAME,
         collisions=(GRIPPER_ONLY_COLLISION,),
         actuators=YAM_ACTUATORS,
+        soft_joint_pos_limit_factor=0.9,
     )

@@ -45,8 +45,11 @@ def _rand(rng, distribution, lo, hi, shape):
     if distribution == "uniform":
         return rng.uniform(shape, lo, hi)
     if distribution == "log_uniform":
+        # the logs and their difference in float32, as the JAX term takes
+        # them at its float32 default
+        log_lo, log_hi = np.log(np.float32(lo)), np.log(np.float32(hi))
         u = rng.uniform(shape)
-        return torch.exp(np.log(lo) + u * (np.log(hi) - np.log(lo)))
+        return torch.exp(float(log_lo) + u * float(log_hi - log_lo))
     if distribution == "gaussian":
         return lo + hi * rng.normal(shape)
     raise ValueError(distribution)

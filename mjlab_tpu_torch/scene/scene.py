@@ -356,17 +356,18 @@ def model_file_scene_cfg(cfg: SceneCfg) -> SceneCfg:
     return cfg
 
 
-def save_scene_model(path, cfg: SceneCfg, sim_cfg) -> None:
+def save_scene_model(path, cfg: SceneCfg, sim_cfg, extra=None) -> None:
     """Compile the scene (model_file_scene_cfg) with MuJoCo, apply the
     simulation options, convert it at float64 and write ``path`` (phys/
-    model.py save_model) with its first keyframe and its XML sensors."""
+    model.py save_model) with its first keyframe, its XML sensors and the
+    arrays ``extra(mj)`` returns (by name)."""
     from mjlab_tpu_torch.phys.model import put_model, save_model
 
     mj = Scene(model_file_scene_cfg(cfg)).compile()
     sim_cfg.mujoco.apply(mj)
     m = put_model(mj, dtype=torch.float64, nconmax=sim_cfg.nconmax, device="cpu")
     save_model(path, m, key_qpos=mj.key_qpos[0], key_ctrl=mj.key_ctrl[0],
-               **xml_sensor_arrays(xml_sensors(mj)))
+               **xml_sensor_arrays(xml_sensors(mj)), **(extra(mj) if extra else {}))
 
 
 def g1_velocity_flat_scene_cfg() -> SceneCfg:
@@ -386,17 +387,12 @@ def g1_velocity_flat_model() -> "mujoco.MjModel":
 
 
 def yam_lift_cube_model() -> "mujoco.MjModel":
-    """The compiled scene of Mjlab-Lift-Cube-Yam: a ground plane, the YAM
-    arm as "robot/" (fixed base, wrapped in a mocap body) and a free cube
-    as "cube/" (options as compiled; Simulation applies the task's
-    MujocoCfg)."""
-    from mjlab_tpu_torch.asset_zoo.robots.i2rt_yam.yam_constants import (
-        get_yam_robot_cfg,
-    )
-    from mjlab_tpu_torch.tasks.manipulation.config.yam.physics import (
-        cube_entity_cfg,
+    """The compiled scene of Mjlab-Lift-Cube-Yam (its env config's): a
+    ground plane, the YAM arm as "robot/" (fixed base, wrapped in a mocap
+    body) and a free cube as "cube/" (options as compiled; Simulation
+    applies the task's MujocoCfg)."""
+    from mjlab_tpu_torch.tasks.manipulation.config.yam.env_cfgs import (
+        yam_lift_cube_env_cfg,
     )
 
-    return Scene(SceneCfg(terrain=TerrainImporterCfg(), entities={
-        "robot": get_yam_robot_cfg(), "cube": cube_entity_cfg(),
-    })).compile()
+    return Scene(yam_lift_cube_env_cfg().scene).compile()

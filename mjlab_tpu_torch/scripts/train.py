@@ -10,6 +10,12 @@ Usage (the card by default; --device cpu runs the plain PyTorch versions):
 
   python -m mjlab_tpu_torch.scripts.train Mjlab-Velocity-Flat-Unitree-G1 \
       --env.scene.num-envs 4096 --max-iterations 1000
+  python -m mjlab_tpu_torch.scripts.train Mjlab-Lift-Cube-Yam --num-envs 4096
+
+The tasks it trains are the port's registered ones: the four velocity
+tasks (Mjlab-Velocity-{Flat,Rough}-Unitree-{G1,Go1}) and the YAM arm's
+cube lift (Mjlab-Lift-Cube-Yam, which registers no runner class: it
+trains with OnPolicyRunner).
 
 Checkpoints are rsl-rl ``model_<it>.pt`` files in the run's log dir (with
 ``<run>.onnx`` beside them for the velocity tasks), the configs are dumped
@@ -292,8 +298,10 @@ def _print_cfg_help(task: str):
 
 
 def main():
+    from mjlab_tpu_torch.tasks import list_tasks
+
     parser = argparse.ArgumentParser(description="Train a task of the PyTorch port")
-    parser.add_argument("task")
+    parser.add_argument("task", help="a registered task: " + ", ".join(list_tasks()))
     parser.add_argument("--num-envs", type=int, default=None)
     parser.add_argument("--max-iterations", type=int, default=None)
     parser.add_argument("--seed", type=int, default=None)

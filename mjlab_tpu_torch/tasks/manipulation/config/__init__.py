@@ -1,0 +1,1 @@
+from mjlab_tpu_torch.tasks.manipulation.config import yam  # noqa: F401

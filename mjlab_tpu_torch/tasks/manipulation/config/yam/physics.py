@@ -9,11 +9,12 @@ iterations, implicitfast, elliptic cone with impratio 10), and the task's
 physics traffic: the reset state of its events and lifting command, and
 its joint-position actions.
 
-yam_lift_cube.npz beside this file holds the scene (scene/scene.py
-yam_lift_cube_model) as the port's Model (float64 values) with the task's
-initial state: the YAM at its home keyframe, its mocap base at the home
-pose, the cube resting at (0.3, 0, 0.02). Regenerate it, on a machine
-with MuJoCo, with
+yam_lift_cube.npz beside this file holds the env's scene (scene/scene.py
+yam_lift_cube_model: a plane, the arm, the cube) as the port's Model
+(float64 values), with the scene's keyframe and XML sensor rows that the
+env reads (scene.save_scene_model) and the physics paths' initial state:
+the YAM at its home keyframe, its mocap base at the home pose, the cube
+resting at (0.3, 0, 0.02). Regenerate it, on a machine with MuJoCo, with
 
     python -m mjlab_tpu_torch.tasks.manipulation.config.yam.physics
 
@@ -27,8 +28,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mjlab_tpu_torch.phys.model import Model, load_model, put_model, save_model
-from mjlab_tpu_torch.sim.sim import MujocoCfg, SimulationCfg
+from mjlab_tpu_torch.phys.model import Model, load_model
+from mjlab_tpu_torch.sim.sim import SimulationCfg
 
 SAVED_MODEL = Path(__file__).resolve().parent / "yam_lift_cube.npz"
 CUBE_POS = (0.3, 0.0, 0.02)
@@ -71,15 +72,10 @@ def cube_entity_cfg() -> "EntityCfg":
 
 
 def sim_cfg() -> SimulationCfg:
-    """The lift-cube task's simulation options."""
-    return SimulationCfg(
-        nconmax=55,
-        njmax=600,
-        mujoco=MujocoCfg(
-            timestep=0.005, iterations=10, ls_iterations=20, impratio=10,
-            cone="elliptic",
-        ),
-    )
+    """The lift-cube task's simulation options (its env config's)."""
+    from mjlab_tpu_torch.tasks.manipulation.lift_cube_env_cfg import make_lift_cube_env_cfg
+
+    return make_lift_cube_env_cfg().sim
 
 
 def initial_state(mj: "mujoco.MjModel") -> dict[str, np.ndarray]:
@@ -179,19 +175,19 @@ def load_saved_model(
     """(Model, initial state) from yam_lift_cube.npz; the state holds
     qpos, ctrl, mocap_pos and mocap_quat of one env."""
     m, extra = load_model(SAVED_MODEL, dtype=dtype, device=device)
-    return m, {k[len("init_"):]: v for k, v in extra.items()}
+    return m, {k[len("init_"):]: v for k, v in extra.items() if k.startswith("init_")}
 
 
 def save_model_file(path: Path = SAVED_MODEL) -> None:
-    """Compile the scene with MuJoCo, convert it and write ``path``."""
-    from mjlab_tpu_torch.scene.scene import yam_lift_cube_model
+    """Compile the env's scene with MuJoCo, convert it and write ``path``
+    with the scene's keyframe and XML sensors (what the env reads) and the
+    physics paths' initial state."""
+    from mjlab_tpu_torch.scene.scene import save_scene_model
+    from mjlab_tpu_torch.tasks.manipulation.config.yam.env_cfgs import yam_lift_cube_env_cfg
 
-    mj = yam_lift_cube_model()
-    cfg = sim_cfg()
-    cfg.mujoco.apply(mj)
-    m = put_model(mj, dtype=torch.float64, nconmax=cfg.nconmax, device="cpu")
-    state = initial_state(mj)
-    save_model(path, m, **{f"init_{k}": v for k, v in state.items()})
+    cfg = yam_lift_cube_env_cfg()
+    save_scene_model(path, cfg.scene, cfg.sim, extra=lambda mj: {
+        f"init_{k}": v for k, v in initial_state(mj).items()})
 
 
 if __name__ == "__main__":

@@ -16,6 +16,7 @@ from mjlab_tpu_torch.phys.math import conj_quat, mul_quat, normalize_quat, rot_v
 # the reference's names and argument order (quat_apply(q, v) rotates v by q)
 quat_mul = mul_quat
 quat_conjugate = conj_quat
+quat_inv = conj_quat  # unit quaternions
 
 
 def quat_apply(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -847,3 +847,122 @@ def test_go1_kernels_match_plain_versions(cuda):
     length = float(env.sim.data.xpos.abs().max())
     assert length > 10
     _check_kernels(m, env.sim.data, cuda, length=length)
+
+
+# -- the lift-cube env (the elliptic cone inside an env's graph) -------------
+
+YAM_TASK = "Mjlab-Lift-Cube-Yam"
+
+
+def _yam_envs(cuda, E=256, seed=5, captures=(False, True)):
+    """Envs of the lift-cube task on one seed: the same generator state,
+    so the same draws."""
+    from mjlab_tpu_torch.envs import ManagerBasedRlEnv
+    from mjlab_tpu_torch.tasks import load_env_cfg
+
+    out = []
+    for capture in captures:
+        cfg = load_env_cfg(YAM_TASK)
+        cfg.scene.num_envs = E
+        cfg.seed = seed
+        env = ManagerBasedRlEnv(cfg, device=cuda, capture=capture)
+        env.reset()
+        out.append(env)
+    return out
+
+
+def _ground_late_and_resample(env, ground, late, resample):
+    """chip_smoke.force_lift_resets: arms lowered into the table, envs one
+    step before their time-out, commands run out with their cubes moved."""
+    qpos = env.sim.data.qpos.clone()
+    qpos[ground, 1], qpos[ground, 2] = 1.75, 0.8
+    qpos[resample, 8] += 0.05
+    env.sim.data = env.sim.data.replace(qpos=qpos)
+    env.episode_length_buf[late] = env.max_episode_length - 1
+    env.command_manager.get_term("lift_height").state["time_left"][resample] = 0.01
+
+
+def test_captured_yam_env_matches_eager_bit_for_bit(cuda):
+    """The lift-cube env captured against its eager twin over 3 steps: the
+    first terminates envs on the ground contact, times out others and
+    resamples others' commands mid-episode; the step counter is set past
+    both curriculum stages between steps. Every output, qpos and qvel are
+    equal bit for bit; the capture recorded kernels 1-3 and kernel 5 at
+    their per-control-step counts and kernel 4 never."""
+    eager, cap = _yam_envs(cuda)
+    E = 256
+    wrappers = (sk.kin_com, sk.crb_dense, sk.vel_smooth)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    act = torch.randn(E, 7, generator=gen, device=cuda)
+    before = [w.launches for w in wrappers]
+    by_cone = list(sv.newton_assemble_solve.launches_by_cone)
+    cap.step(act)  # captures (two warm-up steps and the capture), replays
+    per_step = [(w.launches - b) / 3 for w, b in zip(wrappers, before)]
+    per_cone = [(a - b) / 3 for a, b in zip(sv.newton_assemble_solve.launches_by_cone, by_cone)]
+    assert cap.captured and per_step == [5, 4, 4] and per_cone == [0, 4]
+    eager.step(act)
+    idx = torch.arange(E, device=cuda)
+    ground, late = idx % 7 == 0, idx % 11 == 3
+    resample = (idx % 13 == 5) & ~ground & ~late
+    for env in (eager, cap):
+        _ground_late_and_resample(env, ground, late, resample)
+    for i, counter in enumerate((24000, 36000, 36001)):
+        for env in (eager, cap):
+            env.common_step_counter.fill_(counter)
+        act = torch.randn(E, 7, generator=gen, device=cuda)
+        oe = [t.clone() if isinstance(t, torch.Tensor) else {k: v.clone() for k, v in t.items()}
+              for t in eager.step(act)[:4]]
+        oc = cap.step(act)
+        torch.cuda.synchronize()
+        for k in ("policy", "critic"):
+            assert torch.equal(oe[0][k], oc[0][k]), (i, k)
+        for a, b in zip(oe[1:], oc[1:4]):
+            assert torch.equal(a, b), i
+        for f in ("qpos", "qvel", "qacc"):
+            assert torch.equal(getattr(eager.sim.data, f), getattr(cap.sim.data, f)), (i, f)
+        assert torch.equal(eager.episode_length_buf, cap.episode_length_buf), i
+        if i == 0:
+            assert bool(oc[2][ground].all()) and bool(oc[3][late].all())
+            tl = cap.command_manager.get_term("lift_height").state["time_left"][resample]
+            assert bool((tl >= 8.0).all())
+        w = float(cap.reward_manager.weights["joint_vel_hinge"])
+        assert w == np.float32(-0.1 if counter == 24000 else -1.0), (i, w)
+
+
+def test_yam_env_solve_matches_plain_with_per_env_friction(cuda):
+    """Kernel 5 and kernels 1-3 on the lift-cube env's state, 300 envs (the
+    smooth kernels' ragged edge): after 3 env steps, half the envs pinch
+    their cube (yam.task_states about each env's origin), with the
+    fingertips' spin and roll friction drawn per env (log-uniform in the
+    task's ranges; the env's startup events leave the roll axis per env),
+    settled for 10 physics steps. The arms stand on a grid of origins
+    about 17 m across: errors relative to max(1, |plain|max, the
+    coordinate scale); the solve on the envs whose plain solve is stable
+    under ulp nudges (a pinch is ill-conditioned)."""
+    (env,) = _yam_envs(cuda, E=300, captures=(False,))
+    E = 300
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for _ in range(3):
+        env.step(torch.randn(E, 7, generator=gen, device=cuda))
+    sim, m = env.sim, env.sim.model
+    _, st = yam.load_saved_model(device="cpu")
+    b = yam.task_states(m, st, E, seed=3)
+    origins = env.scene.env_origins.cpu().numpy()
+    b["qpos"][:, 8:10] += origins[:, :2]
+    b["mocap_pos"][:, 0, :2] += origins[:, :2]
+    sim.data = sim.data.replace(**{
+        k: torch.as_tensor(v, dtype=torch.float32, device=cuda) for k, v in b.items()})
+    fingertips = env.scene["robot"].indexing.geom_ids[
+        env.event_manager._modes["startup"][0][1].params["asset_cfg"].geom_ids]
+    rng = np.random.default_rng(4)
+    fr = m.geom_friction
+    for axis, (lo, hi) in ((1, (1e-4, 2e-2)), (2, (1e-5, 5e-3))):
+        draw = np.exp(rng.uniform(np.log(lo), np.log(hi), (E, len(fingertips))))
+        fr[:, fingertips, axis] = torch.as_tensor(draw, dtype=fr.dtype, device=cuda)
+    assert float(fr[:, fingertips, 1].std(0).min()) > 0
+    for _ in range(10):
+        sim.step()
+    length = float(sim.data.xpos.abs().max())
+    assert length > 5 and int(m.opt.cone) == 1
+    it_k, kw = _check_kernels(m, sim.data, cuda, stable_only=True, length=length)
+    assert kw["cone"] == 1 and kw["R"] == 6

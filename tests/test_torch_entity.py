@@ -15,6 +15,7 @@
   blocked, as on the card's machine.
 """
 
+import os
 import subprocess
 import sys
 import textwrap
@@ -31,7 +32,7 @@ from mjlab_tpu.utils import string as jstring
 from mjlab_tpu_torch.utils import math as pmath
 from mjlab_tpu_torch.utils import string as pstring
 
-from torch_port_common import g1_scenes, rel_err, tnp
+from torch_port_common import CHILD_THREADS, CHILD_TIMEOUT_S, g1_scenes, rel_err, tnp
 
 E = 6
 NAMES = ["hip_l", "hip_r", "knee_l", "knee_r", "ankle"]
@@ -241,6 +242,7 @@ def test_g1_runtime_path_runs_without_mujoco():
         print("ok", sorted(scene.sensors), bool(torch.isfinite(sim.data.qpos).all()))
     """)
     r = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
-                       text=True, timeout=600)
+                       text=True, timeout=CHILD_TIMEOUT_S,
+                       env={**os.environ, **CHILD_THREADS})
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.startswith("ok") and r.stdout.strip().endswith("True"), r.stdout

@@ -43,7 +43,8 @@ import pytest
 import torch
 
 from torch_port_common import (
-    G1_TASK, collapse_velocity_ranges, rel_err, run_velocity_env_pair, tip_and_time_out,
+    CHILD_THREADS, CHILD_TIMEOUT_S, G1_TASK, collapse_velocity_ranges, rel_err,
+    run_velocity_env_pair, tip_and_time_out,
 )
 
 E = 4
@@ -190,14 +191,19 @@ def test_dims_match_jax(run):
 
 VELOCITY_TASKS = ("Mjlab-Velocity-Flat-Unitree-G1", "Mjlab-Velocity-Rough-Unitree-G1",
                   "Mjlab-Velocity-Flat-Unitree-Go1", "Mjlab-Velocity-Rough-Unitree-Go1")
+YAM_TASK = "Mjlab-Lift-Cube-Yam"
+# (action dim, policy obs dim) of each task's env, the JAX env's
+# (tests/test_torch_env_yam.py holds the YAM's against it)
+TASK_DIMS = {"G1": (29, 99), "Go1": (12, 48), "Yam": (7, 29)}
 
 
-@pytest.mark.parametrize("task", VELOCITY_TASKS)
+@pytest.mark.parametrize("task", VELOCITY_TASKS + (YAM_TASK,))
 def test_env_builds_and_steps_without_mujoco(task):
-    """The port's env of each velocity task and its play variant, from its
+    """The port's env of each ported task and its play variant, from its
     registry, in a Python where importing mujoco fails (the card's machine
-    has none): the Model comes from the task's model file, a rough task's
-    height field from the terrain the env generates."""
+    has none) and jax is never imported: the Model comes from the task's
+    model file, a rough task's height field from the terrain the env
+    generates."""
     code = (
         "import sys; sys.modules['mujoco'] = None\n"
         "import torch\n"
@@ -211,14 +217,15 @@ def test_env_builds_and_steps_without_mujoco(task):
         "    obs, rew, term, trunc, ex = env.step(torch.zeros(2, A))\n"
         "    assert bool(torch.isfinite(obs['policy']).all() and torch.isfinite(rew).all())\n"
         "    assert (env.sim.model.nhfield == 1) == ('rough' in env.cfg.scene.model_file.name)\n"
-        "assert sys.modules['mujoco'] is None\n"
+        "assert sys.modules['mujoco'] is None and 'jax' not in sys.modules\n"
         "print('ok', A, obs['policy'].shape[1])\n"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
-                       text=True, timeout=300, env={**os.environ, "MJLAB_QUIET": "1"})
+                       text=True, timeout=CHILD_TIMEOUT_S,
+                       env={**os.environ, "MJLAB_QUIET": "1", **CHILD_THREADS})
     assert r.returncode == 0 and r.stdout.strip().startswith("ok"), r.stderr[-2000:]
-    want = (29, 99) if "G1" in task else (12, 48)
+    want = TASK_DIMS[task.rsplit("-", 1)[1]]
     assert tuple(int(x) for x in r.stdout.split()[1:3]) == want
 
 
@@ -242,15 +249,21 @@ def test_registry_matches_jax():
     from mjlab_tpu_torch import tasks
 
     assert set(tasks.list_tasks()) <= set(jtasks.list_tasks())
-    assert set(tasks.list_tasks()) >= set(VELOCITY_TASKS)
+    assert set(tasks.list_tasks()) == set(VELOCITY_TASKS) | {YAM_TASK}
     assert [t for t in jtasks.list_tasks() if "Velocity" in t] == sorted(VELOCITY_TASKS)
-    for task in VELOCITY_TASKS:
+    for task in VELOCITY_TASKS + (YAM_TASK,):
         play = tasks.load_env_cfg(task, play=True)
         assert play.episode_length_s > 1e6
         assert play.observations["policy"].enable_corruption is False
+        assert tasks.load_env_cfg(task).observations["policy"].enable_corruption is True
         assert "push_robot" not in play.events
         assert ("randomize_terrain" in play.events) == ("Rough" in task)
         assert tasks.load_env_cfg(task) is not tasks.load_env_cfg(task)
+    # the YAM's play variant changes nothing else of the JAX package's
+    jplay, play = jtasks.load_env_cfg(YAM_TASK, play=True), tasks.load_env_cfg(YAM_TASK, play=True)
+    assert play.episode_length_s == jplay.episode_length_s == int(1e9)
+    assert sorted(play.events) == sorted(jplay.events)
+    assert play.observations["critic"].enable_corruption is False
     # the learner's config and runner: the JAX task's, field for field, but
     # for the checkpoint file the port writes
     import dataclasses
@@ -258,13 +271,16 @@ def test_registry_matches_jax():
     from mjlab_tpu_torch.tasks import registry
     from mjlab_tpu_torch.tasks.velocity.rl import VelocityOnPolicyRunner
 
-    for task in VELOCITY_TASKS:
+    for task in VELOCITY_TASKS + (YAM_TASK,):
         want = dataclasses.asdict(jtasks.load_rl_cfg(task))
         got = dataclasses.asdict(tasks.load_rl_cfg(task))
         assert want.pop("load_checkpoint") == "model_.*.ckpt"
         assert got.pop("load_checkpoint") == "model_.*.pt"
         assert got == want, task
-        assert tasks.load_runner_cls(task) is VelocityOnPolicyRunner
+        # the YAM registers no runner class (the train CLI's OnPolicyRunner)
+        assert tasks.load_runner_cls(task) is (
+            None if task == YAM_TASK else VelocityOnPolicyRunner)
+        assert jtasks.load_runner_cls(task) is not None or task == YAM_TASK
     # a task registered without a PPO config
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(registry._REGISTRY, "No-Learner",

@@ -612,3 +612,224 @@ def test_terrain_terms_on_a_plane():
     assert float(jcur.terrain_levels_vel(_TerrainEnv(jimp, None, None), None, "twist")) == 0
     assert float(pcur.terrain_levels_vel(env, None, "twist")) == 0
     assert pimp.state_tensors() == []
+
+
+# ---------------------------------------------------------------------------
+# the lift-cube task (Mjlab-Lift-Cube-Yam): its terms, command, curriculum
+# and fingertip friction events
+# ---------------------------------------------------------------------------
+
+YAM_TASK = "Mjlab-Lift-Cube-Yam"
+YAM_OBS_TERMS = ("joint_pos", "joint_vel", "ee_to_cube", "cube_to_goal", "actions")
+YAM_REWARD_TERMS = ("lift", "lift_precise", "action_rate_l2", "joint_pos_limits",
+                    "joint_vel_hinge")
+YAM_FRICTION_EVENTS = ("fingertip_friction_slide", "fingertip_friction_spin",
+                       "fingertip_friction_roll")
+
+
+@pytest.fixture(scope="module")
+def yam_envs():
+    """The YAM env pair, the port's at float64: reset, 3 steps of N(0, 1)
+    actions (joint speeds past the hinge's 0.5 rad/s), then env 1's arm
+    lowered into the table (joint2 1.75, joint3 0.8) and one more step,
+    whose last substep's contacts the ground sensor reads (env 1 reset
+    after it), env 2's cube lifted 0.2 m toward its target and env 3's
+    joint1 0.05 past its soft limit (0.9 of the range)."""
+    jenv, penv = env_pair(YAM_TASK, E, "float64")
+    penv.reset()
+    rs = np.random.default_rng(1)
+    for _ in range(STEPS):
+        penv.step(torch.as_tensor(rs.standard_normal((E, 7)), dtype=torch.float32))
+    q = penv.sim.data.qpos.clone()
+    q[1, 1], q[1, 2] = 1.75, 0.8
+    penv.sim.data = penv.sim.data.replace(qpos=q)
+    penv.step(torch.as_tensor(rs.standard_normal((E, 7)), dtype=torch.float32))
+    q = penv.sim.data.qpos.clone()
+    q[2, 10] += 0.2
+    q[3, 0] = penv.scene["robot"].data.soft_joint_pos_limits[0, 0, 1] + 0.05
+    penv.sim.data = penv.sim.data.replace(qpos=q)
+    penv.sim.refresh()
+    yield jenv, penv
+
+
+@pytest.mark.parametrize("name", YAM_OBS_TERMS)
+def test_yam_observation_term_matches_jax(yam_envs, name):
+    def call(env):
+        c = _cfg_term(env, "observation_manager", "critic", name)
+        return c.func(env, **c.params)
+    want, got = _both(yam_envs, call, call)
+    _close(want, got)
+    assert np.abs(want).max() > 1e-3
+
+
+@pytest.mark.parametrize("name", YAM_REWARD_TERMS)
+def test_yam_reward_term_matches_jax(yam_envs, name):
+    def call(env):
+        c = _cfg_term(env, "reward_manager", None, name)
+        return c.func(env, **c.params)
+    want, got = _both(yam_envs, call, call)
+    _close(want, got)
+    assert np.isfinite(want).all()
+    # the cube is far from its target
+    assert name == "lift_precise" or np.abs(want).max() > 1e-6, want
+
+
+@pytest.mark.parametrize("name", ["time_out", "ee_ground_collision"])
+def test_yam_termination_term_matches_jax(yam_envs, name):
+    def call(env):
+        c = _cfg_term(env, "termination_manager", None, name)
+        return c.func(env, **c.params)
+    want, got = _both(yam_envs, call, call)
+    np.testing.assert_array_equal(want, tnp(got).astype(bool))
+    if name == "ee_ground_collision":
+        assert want.tolist() == [False, True, False, False]
+
+
+@pytest.mark.parametrize("counter", [0, 24000, 24001, 36001])
+def test_yam_reward_weight_curriculum_matches_jax(yam_envs, counter):
+    """The joint_vel_hinge weight's stages by the global step count (past
+    0: -0.01, past 24,000: -0.1, past 36,000: -1.0), written into the
+    reward manager in place; the logged value."""
+    from mjlab_tpu.tasks.manipulation.mdp import reward_weight as jw
+    from mjlab_tpu_torch.tasks.manipulation.mdp import reward_weight as pw
+
+    jenv, penv = yam_envs
+    cfg = _cfg_term(penv, "curriculum_manager", None, "joint_vel_hinge_weight")
+    mask = np.ones(E, bool)
+    penv.common_step_counter.fill_(counter)
+    try:
+        def run_j(e):
+            v = jw(e, jnp.asarray(mask), **cfg.params)
+            return {"value": v, "weight": e.ctx.reward_state["weights"]["joint_vel_hinge"]}
+
+        def run_p(e):
+            v = pw(e, torch.as_tensor(mask), **cfg.params)
+            return {"value": v.clone(),
+                    "weight": e.reward_manager.weights["joint_vel_hinge"].clone()}
+        want, got = _both(yam_envs, run_j, run_p)
+    finally:
+        penv.common_step_counter.fill_(STEPS + 1)
+        penv.reward_manager.set_weight("joint_vel_hinge", -0.01)
+    _close(want, got)
+    stage = -0.01 if counter <= 24000 else (-0.1 if counter <= 36000 else -1.0)
+    assert float(got["weight"]) == np.float32(stage)
+
+
+def _lift_state(env, jax_side):
+    s = env.command_manager.get_term("lift_height").state
+    out = {k: s[k] for k in ("target_pos", "episode_success", "time_left")}
+    out.update({f"metric/{k}": v for k, v in s["metrics"].items()})
+    d = env.ctx.data if jax_side else env.sim.data
+    out.update(qpos=d.qpos, qvel=d.qvel)
+    return out if jax_side else {k: v.clone() for k, v in out.items()}
+
+
+@pytest.mark.parametrize("what", ["resample", "compute", "reset"])
+def test_lifting_command_matches_jax(yam_envs, what):
+    """The lifting command's _resample on a mask (the target, then the
+    cube's position and yaw, written to its free joint at rest), its
+    per-step compute (the metrics, the time-based resample of the envs
+    whose time ran out: 0 and 2 here) and its reset (with the Metrics/
+    logs), with JAX's draws played back."""
+    mask = np.array([True, False, True, True])
+    jenv, penv = yam_envs
+    term = penv.command_manager.get_term("lift_height")
+    saved = _lift_state(penv, False)
+    term.state["time_left"][0] = 0.01
+    term.state["time_left"][2] = 0.01
+    term.state["episode_success"][1] = 1.0
+
+    def run(e, jax_side):
+        t = e.command_manager.get_term("lift_height")
+        m = jnp.asarray(mask) if jax_side else torch.as_tensor(mask)
+        logs = {}
+        if what == "resample":
+            if jax_side:
+                t.state = t._resample(dict(t.state), m, e.ctx.next_key())
+            else:
+                t._resample(m)
+        elif what == "compute":
+            t.compute(e.step_dt)
+        else:
+            logs = t.reset(m)
+        out = _lift_state(e, jax_side)
+        out.update(logs)
+        return out
+    try:
+        want, got = _draws_pair(yam_envs, lambda e: run(e, True), lambda e: run(e, False))
+    finally:
+        for k in ("target_pos", "episode_success", "time_left"):
+            term.state[k].copy_(saved[k])
+        penv.sim.data = penv.sim.data.replace(qpos=saved["qpos"], qvel=saved["qvel"])
+    _close(want, got, atol=DRAW_ATOL)
+    moved = np.abs(want["qpos"][:, 8:15] - tnp(saved["qpos"])[:, 8:15]).max(1) > 0
+    assert moved.tolist() == ([True, False, True, True] if what != "compute"
+                              else [True, False, True, False])
+
+
+FRICTION_RANGES = {"fingertip_friction_slide": (0, 0.3, 1.5),
+                   "fingertip_friction_spin": (1, 1e-4, 2e-2),
+                   "fingertip_friction_roll": (2, 1e-5, 5e-3)}
+
+
+def _friction_events_f32(yam_envs, names):
+    """The startup events ``names`` in order on every env, in the JAX
+    env's float32 arithmetic (no x64) and in the port with JAX's draws
+    played back: (JAX geom_friction, the port's as float32, the fingertip
+    geoms, the defaults)."""
+    jenv, penv = yam_envs
+    mask = np.ones(E, bool)
+
+    def run(e, jax_side):
+        for name in names:
+            c = next(c for mode in e.event_manager._modes.values() for n, c in mode
+                     if n == name)
+            c.func(e, jnp.asarray(mask) if jax_side else torch.as_tensor(mask), **c.params)
+        return np.array(e.ctx.model.geom_friction if jax_side
+                        else tnp(e.sim.model.geom_friction))
+
+    with JaxDraws() as draws:
+        want = run(jenv, True)
+    rng = penv.rng
+    penv.rng = ReplayRng(draws)
+    try:
+        got = run(penv, False).astype(np.float32)
+        assert penv.rng.done(), "the port drew fewer numbers than JAX"
+    finally:
+        penv.rng = rng
+    assert want.dtype == np.float32 and want.shape == got.shape
+    cfg = penv.event_manager._modes["startup"][0][1].params["asset_cfg"]
+    geoms = penv.scene["robot"].indexing.geom_ids[cfg.geom_ids].numpy()
+    default = penv.sim.get_default_field("geom_friction").numpy().astype(np.float32)
+    return want, got, geoms, default
+
+
+@pytest.mark.parametrize("name", YAM_FRICTION_EVENTS)
+def test_yam_friction_event_matches_jax_float32(yam_envs, name):
+    """Each fingertip friction event alone: slide uniform in [0.3, 1.5) on
+    axis 0, spin and roll log_uniform in [1e-4, 2e-2) and [1e-5, 5e-3) on
+    axes 1 and 2, on the 12 fingertip geoms of every env, everything else
+    at its default. Within one float32 ulp of JAX's: the log_uniform's exp
+    rounds differently in XLA and torch in about a tenth of the entries
+    (the logs and their difference are float32 in both)."""
+    want, got, geoms, default = _friction_events_f32(yam_envs, (name,))
+    np.testing.assert_array_max_ulp(got, want, maxulp=1)
+    axis, lo, hi = FRICTION_RANGES[name]
+    assert len(geoms) == 12
+    v = got[:, geoms, axis]
+    assert lo <= v.min() and v.max() <= hi and np.unique(v).size == v.size
+    rest = got.copy()
+    rest[:, geoms, axis] = default[geoms, axis]
+    np.testing.assert_array_equal(rest, np.broadcast_to(default, got.shape))
+
+
+def test_yam_friction_events_in_order_keep_the_last_axis(yam_envs):
+    """The three events in the task's order, as the JAX package applies
+    them: each writes its axis and puts the field's other axes back at
+    their defaults, so after the three only the roll axis (the last
+    event's) is drawn per env; slide and spin read their defaults. The
+    port keeps this (ROADMAP queue 3)."""
+    want, got, geoms, default = _friction_events_f32(yam_envs, YAM_FRICTION_EVENTS)
+    np.testing.assert_array_max_ulp(got, want, maxulp=1)
+    np.testing.assert_array_equal(got[:, :, :2], np.broadcast_to(default[:, :2], got[:, :, :2].shape))
+    assert np.unique(got[:, geoms, 2]).size == E * len(geoms)

@@ -54,7 +54,8 @@ from mjlab_tpu.tasks.velocity.config.g1.rl_cfg import unitree_g1_ppo_runner_cfg 
 from mjlab_tpu_torch.rl import ppo as pppo_mod
 from mjlab_tpu_torch.rl.interop import load_model_state, params_from_numpy
 from torch_port_common import (
-    G1_TASK, DrawsIntoJax, RecordingRng, jax_learn_iteration, jax_learner_payload, rel_err, tnp,
+    CHILD_THREADS, CHILD_TIMEOUT_S, G1_TASK, DrawsIntoJax, RecordingRng, jax_learn_iteration,
+    jax_learner_payload, rel_err, tnp,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -571,23 +572,26 @@ CLI_ARGS = [G1_TASK, "--device", "cpu", "--num-envs", "4", "--max-iterations", "
             "--agent.num-steps-per-env", "2", "--log-dir", "run_cli"]
 
 
-@pytest.fixture(scope="module")
-def cli_run(tmp_path_factory):
-    """One run of the port's train CLI in a Python where importing mujoco
-    fails; it reports whether jax was imported."""
-    cwd = tmp_path_factory.mktemp("cli")
+def _run_cli(cwd, args):
+    """One run of the port's train CLI with ``args`` in a Python where
+    importing mujoco fails; it reports whether jax was imported."""
     code = (
         "import runpy, sys\n"
         "sys.modules['mujoco'] = None\n"
-        f"sys.argv = ['train'] + {CLI_ARGS!r}\n"
+        f"sys.argv = ['train'] + {args!r}\n"
         "runpy.run_module('mjlab_tpu_torch.scripts.train', run_name='__main__')\n"
         "print('jax imported:', 'jax' in sys.modules)\n"
     )
-    env = {**os.environ, "MJLAB_QUIET": "1", "PYTHONPATH": ROOT}
+    env = {**os.environ, "MJLAB_QUIET": "1", "PYTHONPATH": ROOT, **CHILD_THREADS}
     r = subprocess.run([sys.executable, "-c", code], cwd=cwd, capture_output=True, text=True,
-                       timeout=300, env=env)
+                       timeout=CHILD_TIMEOUT_S, env=env)
     assert r.returncode == 0, r.stderr[-3000:]
-    return cwd / "run_cli", r.stdout
+    return cwd / args[args.index("--log-dir") + 1], r.stdout
+
+
+@pytest.fixture(scope="module")
+def cli_run(tmp_path_factory):
+    return _run_cli(tmp_path_factory.mktemp("cli"), CLI_ARGS)
 
 
 def test_cli_run_writes_checkpoint_onnx_and_configs(cli_run):
@@ -624,6 +628,89 @@ def test_cli_checkpoint_loads_into_jax(cli_run):
     load_model_state(p, torch.load(cli_run[0] / "model_1.pt", weights_only=True))
     err, _ = _inference_matches_jax(str(cli_run[0] / "model_1.pt"), p, jax_cfg_fn(), dims)
     assert err < TOL_INFERENCE, err
+
+
+YAM_TASK = "Mjlab-Lift-Cube-Yam"
+YAM_CLI_ARGS = [YAM_TASK, "--device", "cpu", "--num-envs", "4", "--max-iterations", "1",
+                "--agent.num-steps-per-env", "2", "--log-dir", "run_yam"]
+YAM_DIMS = (7, 29, 29)
+
+
+@pytest.fixture(scope="module")
+def yam_cli_run(tmp_path_factory):
+    return _run_cli(tmp_path_factory.mktemp("cli_yam"), YAM_CLI_ARGS)
+
+
+def test_yam_cli_run_writes_checkpoint_and_configs(yam_cli_run):
+    """The train CLI on the lift-cube task: its env from the model file,
+    the task's PPO config, one iteration through OnPolicyRunner (the task
+    registers no runner class, as in the JAX package, whose generic runner
+    writes no ONNX beside the checkpoint)."""
+    from mjlab_tpu_torch.tasks import load_rl_cfg
+    from mjlab_tpu_torch.utils.os import to_plain
+
+    run, out = yam_cli_run
+    assert "jax imported: False" in out and "it=1" in out
+    assert sorted(os.listdir(run)) == ["model_1.pt", "params"]
+    payload = torch.load(run / "model_1.pt", weights_only=True)
+    # 5 epochs x 4 minibatches
+    assert payload["iter"] == 1 and int(payload["optimizer_state_dict"]["count"]) == 20
+    agent = load_rl_cfg(YAM_TASK)
+    agent.max_iterations, agent.num_steps_per_env = 1, 2
+    assert yaml.safe_load((run / "params" / "agent.yaml").read_text()) == to_plain(agent)
+    assert agent.algorithm.entropy_coef == 0.005 and agent.experiment_name == "yam_lift_cube"
+
+
+def _yam_jax_stand_in(path):
+    from mjlab_tpu.rl.interop import load_rslrl_checkpoint as jax_load
+    from mjlab_tpu.tasks.manipulation.config.yam.rl_cfg import yam_lift_cube_ppo_runner_cfg
+
+    r = _JaxStandIn(yam_lift_cube_ppo_runner_cfg(), YAM_DIMS)
+    jax_load(str(path), r)
+    return r
+
+
+def test_train_defaults_to_cuda(tmp_path):
+    """Without a device the trainer runs on the card; with none it refuses
+    rather than moving to the CPU."""
+    from mjlab_tpu_torch.scripts.train import run_train
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs there")
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_train(YAM_TASK, num_envs=2, max_iterations=1, log_dir=str(tmp_path / "run"))
+
+
+def test_yam_cli_checkpoint_loads_into_jax(yam_cli_run):
+    from mjlab_tpu.tasks.manipulation.config.yam.rl_cfg import yam_lift_cube_ppo_runner_cfg
+    from mjlab_tpu_torch.tasks import load_rl_cfg
+
+    p = pppo_mod.PPO(load_rl_cfg(YAM_TASK), None, E, *YAM_DIMS, device="cpu")
+    load_model_state(p, torch.load(yam_cli_run[0] / "model_1.pt", weights_only=True))
+    err, r = _inference_matches_jax(str(yam_cli_run[0] / "model_1.pt"), p,
+                                    yam_lift_cube_ppo_runner_cfg(), YAM_DIMS)
+    assert err < TOL_INFERENCE, err
+    assert r.iteration == 1
+
+
+def test_yam_onnx_export_is_byte_equal_to_jax(yam_cli_run, tmp_path):
+    """The deployment ONNX of the CLI's YAM checkpoint (the learned
+    normaliser fused), from the port's exporter and from the JAX package's
+    on the same params and metadata."""
+    from mjlab_tpu.rl.exporter import export_policy_as_onnx as jax_export
+    from mjlab_tpu_torch.rl.exporter import export_policy_as_onnx
+    from mjlab_tpu_torch.tasks import load_rl_cfg
+
+    path = yam_cli_run[0] / "model_1.pt"
+    p = pppo_mod.PPO(load_rl_cfg(YAM_TASK), None, E, *YAM_DIMS, device="cpu")
+    load_model_state(p, torch.load(path, weights_only=True))
+    r = _yam_jax_stand_in(path)
+    meta = {"run_path": "r", "joint_names": [f"joint{i}" for i in range(1, 7)]
+            + ["left_finger", "right_finger"], "command_names": ["lift_height"]}
+    jax_export(r.ppo.ac, r.ppo_state, str(tmp_path / "jax.onnx"), metadata=meta)
+    export_policy_as_onnx(p, str(tmp_path / "port.onnx"), metadata=meta)
+    a, b = (tmp_path / "jax.onnx").read_bytes(), (tmp_path / "port.onnx").read_bytes()
+    assert len(a) > 100_000 and a == b
 
 
 def test_yaml_emitter_round_trips_edge_values(tmp_path):

@@ -135,3 +135,20 @@ def test_yam_steps_match_step_hybrid_pure_f32(runs):
     )
     assert int(d.ncheck_reset.sum()) == 0
     assert bool(torch.isfinite(d.qpos).all())
+
+
+@pytest.mark.parametrize("step", range(STEPS))
+@pytest.mark.parametrize("field", ["qpos", "qvel", "con_found"])
+def test_yam_trajectory_step_matches_step_hybrid_pure_f32(runs, field, step):
+    """Every step of the trajectory, not only the last: qpos and qvel
+    within the trajectory's tolerances (the error grows with the steps, so
+    the last step's tolerance holds at each), the same contacts found."""
+    m, port, ref = runs
+    d, dj = port[step], ref[step]
+    if field == "con_found":
+        np.testing.assert_array_equal(np.asarray(dj.con_found), d.con_found.numpy())
+        return
+    tol = {"qpos": 2e-4, "qvel": 2e-2}[field]
+    err = rel_err(getattr(dj, field), tnp(getattr(d, field)))
+    assert err < tol, f"step {step + 1} {field}: {err:.2e}"
+

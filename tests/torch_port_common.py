@@ -31,6 +31,21 @@ from test_hybrid_parity import TOY_XML
 
 from test_pallas2_solver import ELL_XML
 
+# One CPU thread for the port's torch ops, here and in the child processes
+# the tests start (CHILD_THREADS). The tests run in several pytest-xdist
+# workers at once, and torch's OpenMP pool (8 threads per process) spins
+# at its barriers: six processes stepping the YAM's 128 envs with 8
+# threads each did not finish 5 steps in 180 s, with one thread each all
+# six took 7.2-8.3 s, as one process alone with 8 (7.5 s). The shapes of
+# these tests are small: one thread loses nothing.
+torch.set_num_threads(1)
+CHILD_THREADS = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+# the limit of a child process the tests start: each takes 5-10 s alone
+# (a MuJoCo-blocked env build and step, one train CLI iteration), so a
+# stuck child fails its test in 2 minutes rather than hold a worker for
+# half the suite's time
+CHILD_TIMEOUT_S = 120
+
 # The toy's foot is a box. The port's narrowphase carries the pair families
 # of the G1 velocity task (plane/sphere/capsule); the box family waits for a
 # later slice, so the contact, solver and step gates use the toy with a
@@ -426,14 +441,18 @@ def _f64(x):
     return np.array(x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x, np.float64)
 
 
-def run_velocity_env_pair(task: str, E: int, steps: int, edit=None, prepare=None):
-    """A velocity task's JAX env (the env-last hybrid physics,
-    MJLAB_TPU_ENGINE=hybrid, whose substep the port's step is held against
-    in tests/test_torch_step.py) and the port's, both float32 with
-    ``edit`` applied, reset, ``prepare(jenv, penv)`` applied, then the same
-    ``steps`` seeded actions (0.3 N(0, 1)): (jenv, penv, {"jax": [...],
-    "port": [...]}), each step's outputs, state, episode sums, logs and,
-    on a generated terrain, the terrain levels and origins."""
+def run_velocity_env_pair(task: str, E: int, steps: int, edit=None, prepare=None,
+                          between=None, command=("twist", "command"), action_std=0.3):
+    """A task's JAX env (the env-last hybrid physics, MJLAB_TPU_ENGINE=
+    hybrid, whose substep the port's step is held against in
+    tests/test_torch_step.py) and the port's, both float32 with ``edit``
+    applied, reset, ``prepare(jenv, penv)`` applied, then the same
+    ``steps`` seeded actions (action_std N(0, 1)), ``between(t, jenv,
+    penv)`` after step t: (jenv, penv, {"jax": [...], "port": [...]}),
+    each step's outputs, state, episode sums, logs, the command term's
+    state entry ``command`` (term name, key) and, on a generated terrain,
+    the terrain levels and origins."""
+    cname, ckey = command
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("MJLAB_TPU_ENGINE", "hybrid")
         jenv, penv = env_pair(task, E, "float32", edit=edit)
@@ -447,7 +466,7 @@ def run_velocity_env_pair(task: str, E: int, steps: int, edit=None, prepare=None
         rs = np.random.default_rng(0)
         out = {"jax": [], "port": []}
         for _ in range(steps):
-            act = (0.3 * rs.standard_normal((E, A))).astype(np.float32)
+            act = (action_std * rs.standard_normal((E, A))).astype(np.float32)
             jo, jr, jterm, jtrunc, jex = jenv.step(jnp.asarray(act))
             po, pr, pterm, ptrunc, pex = penv.step(torch.as_tensor(act))
             js = jenv._state
@@ -455,7 +474,7 @@ def run_velocity_env_pair(task: str, E: int, steps: int, edit=None, prepare=None
                 policy=_f64(jo["policy"]), critic=_f64(jo["critic"]), reward=_f64(jr),
                 terminated=np.asarray(jterm), truncated=np.asarray(jtrunc),
                 episode_length=np.asarray(js.episode_length),
-                command=_f64(js.command_state["twist"]["command"]),
+                command=_f64(js.command_state[cname][ckey]),
                 qpos=_f64(js.data.qpos), qvel=_f64(js.data.qvel), ctrl=_f64(js.data.ctrl),
                 sums={k: _f64(v) for k, v in js.reward_state["episode_sums"].items()},
                 log={k: _f64(v) for k, v in jex["log"].items()},
@@ -466,7 +485,7 @@ def run_velocity_env_pair(task: str, E: int, steps: int, edit=None, prepare=None
                 policy=_f64(po["policy"]), critic=_f64(po["critic"]), reward=_f64(pr),
                 terminated=pterm.numpy().copy(), truncated=ptrunc.numpy().copy(),
                 episode_length=penv.episode_length_buf.numpy().copy(),
-                command=_f64(penv.command_manager.get_command("twist")),
+                command=_f64(penv.command_manager.get_term(cname).state[ckey]),
                 qpos=_f64(penv.sim.data.qpos), qvel=_f64(penv.sim.data.qvel),
                 ctrl=_f64(penv.sim.data.ctrl),
                 sums={k: _f64(v) for k, v in rm.episode_sums.items()},
@@ -474,6 +493,8 @@ def run_velocity_env_pair(task: str, E: int, steps: int, edit=None, prepare=None
                 log={k: _f64(v) for k, v in pex["log"].items()},
                 **({"levels": terrain.levels.numpy().copy(),
                     "origins": terrain.origins.numpy().copy()} if generated else {})))
+            if between is not None:
+                between(len(out["port"]) - 1, jenv, penv)
     return jenv, penv, out
 
 
