@@ -3,12 +3,37 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py --only-yam     # this slice's two paths, no result line
+    python3 chip_smoke.py --only-tracking  # this slice's two paths, no result line
+    python3 chip_smoke.py --only-yam     # the lift-cube paths, no result line
     python3 chip_smoke.py --only-rough   # the rough-terrain paths, no result line
 
-Twelve main paths, each driven at 4096 envs through its public entry
+Fourteen main paths, each driven at 4096 envs through its public entry
 points, and the six kernels they run. This slice's main path is training
-the YAM arm's cube lift, the one task on the elliptic cone:
+the G1 to track a motion, with the torso's body_ipos carried per env (the
+task's base_com event), which kernels 1-3 read from the Model's (E, ...)
+tensor in place of their table's constant:
+
+- tracking_train: PPO on the Mjlab-Tracking-Flat-Unitree-G1 env (the
+  G1 flat scene, nconmax 35, the pyramidal cone; the motion
+  evidence/tracking_r4/motion.npz: 400 frames at 50 fps; adaptive start
+  frames) through the task's runner (MotionTrackingOnPolicyRunner) with
+  its PPO config, three learn() iterations: kin_com, crb_packed,
+  vel_smooth and newton_assemble_solve cone 0 inside the env's graph; the
+  checkpoint round trip and the motion-embedded ONNX;
+- tracking_env: the tracking env, captured against an eager twin bit for
+  bit (outputs, qpos, qvel, the command's time steps, failure counts and
+  metrics) across forced resets (roots lifted: the anchor-height
+  termination; rolled: the anchor-orientation one; arms raised: the
+  end-effector one; time-outs; motions run past their end), whose failed
+  envs the adaptive sampler counts; a base_com write of new body_ipos
+  values between replays, which the next replay reads; two replays that
+  draw different start frames; eager and captured env-steps/s; kernels
+  1-4 against their plain versions on the env's state (rows 1-4 of the
+  kernels line, with the per-env fields each read); 64 envs on the card
+  against the CPU port;
+
+and the paths of the slices before. Training the YAM arm's cube lift, the
+one task on the elliptic cone:
 
 - yam_train: PPO on the Mjlab-Lift-Cube-Yam env (the task's full config:
   nconmax 55, the elliptic cone at impratio 10, a joint equality, a mocap
@@ -187,7 +212,7 @@ learner is the task's own, the same code), whose launch counts the
 kernel rows 1-4 carry; its profiled rollout step gives kernel 4's ms per
 launch on stairs.
 
-The YAM paths run last (run_yam_paths): yam_env (run_env_path on the
+The YAM paths follow (run_yam_paths): yam_env (run_env_path on the
 lift-cube task: ENV_KINDS says what it reads of the task; every 7th env's
 arm lowered into the table, every 11th at its time-out, every 13th's
 command run out with its cube moved, then the outputs, qpos and qvel of
@@ -199,9 +224,17 @@ export, which rl/exporter.py writes for the generic runner), whose
 launch counts kernel row 5 carries; its profiled rollout step gives
 kernel 5's ms per launch.
 
+The tracking paths run last (run_tracking_paths): tracking_env
+(run_env_path on the tracking task, ENV_KINDS["tracking"]:
+force_tracking_resets and tracking_forced, then com_write between the
+first and second check steps and com_seen after the second), whose kernel
+checks give rows 1-4 their numbers; then tracking_train (run_train_path
+with the checkpoint round trip), whose launch counts rows 1-4 carry (kin_com
+16: the reset's refresh and 3 x 5 in the capture; the others 12).
+
 The line before the last is the card's name and power limit (nvidia-smi);
 the lines before hold the kernels, the captured steps, the env, the
-training runs, the rough paths and the YAM paths (JSON each), the
+training runs, the rough, YAM and tracking paths (JSON each), the
 substep breakdowns and
 the physics throughputs. The last line is {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when there is no CUDA card (2) and when
@@ -672,6 +705,17 @@ def stable_envs(args, kw, so_p) -> torch.Tensor:
     return keep
 
 
+# the model fields each smooth kernel reads per env where the Model carries
+# them so (phys/model.py PER_ENV_SMOOTH_FIELDS; csrc/smooth_tree.cuh mcv):
+# their (E, ...) tensors count among the bytes a launch must read
+KERNEL_PLANES = {
+    "kin_com": ("qpos0", "body_ipos", "body_mass", "body_inertia", "geom_pos"),
+    "crb_packed": ("body_mass", "dof_armature"),
+    "vel_smooth": ("body_mass", "dof_damping", "jnt_stiffness", "actuator_gainprm",
+                   "actuator_biasprm"),
+}
+
+
 def check_kernels(sim, path: str, env_state: bool = False) -> dict:
     """Each kernel of the path against its plain version on the settled
     state: {kernel name: its numbers at the path's shapes}. ``env_state``:
@@ -690,9 +734,16 @@ def check_kernels(sim, path: str, env_state: bool = False) -> dict:
         contact_stack, has_implicit, mocap_planes, solve_args,
     )
     from mjlab_tpu_torch.phys.lm.base import Params
+    from mjlab_tpu_torch.phys.model import per_env_smooth
 
     m, d = sim.model, sim.data
     E = d.qpos.shape[0]
+    planned = per_env_smooth(m)
+    if planned:
+        log(f"[check] {path}: the Model carries {list(planned)} per env: kernels 1-3 read "
+            "them from the Model's (E, ...) tensors (" + "; ".join(
+                f"{n}: {[f for f in fs if f in planned]}" for n, fs in KERNEL_PLANES.items())
+            + ")")
     nv = m.nv
     qT = d.qpos.T.contiguous()
     vT = d.qvel.T.contiguous()
@@ -710,11 +761,14 @@ def check_kernels(sim, path: str, env_state: bool = False) -> dict:
         ms = graph_ms(fn_k, reps) if env_state else kernel_ms(fn_k, KERNEL_NAMES[name], reps)
         wrapper_ms = cuda_ms(fn_k, reps)
         plain_ms = cuda_ms(fn_p, 2)
+        dr = [f for f in KERNEL_PLANES.get(name, ()) if f in planned]
+        outs_in_bytes += nbytes(*(getattr(m, f) for f in dr))
         b_ms, b_by = bound(outs_in_bytes, flops * E)
         out[name] = dict(
             ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, bytes=outs_in_bytes, flops=flops * E,
             max_abs_err=abs_err, max_rel_err=max(e for e, _ in errs.values()),
+            dr_planes=dr,
         )
         log(f"[time] {path} {name}: kernel {ms:.4f} ms (device, "
             f"{'a CUDA graph of the calls' if env_state else 'profiler'}), wrapper "
@@ -1486,12 +1540,20 @@ YAM_TASK = "Mjlab-Lift-Cube-Yam"
 ENV_KINDS = {
     "velocity": dict(physics="g1", tol=ENV_TOL, command=("twist", "command"),
                      terminate="fell_over", solve="newton_assemble_solve",
-                     noisy=lambda joints: 3 + 3 + 3 + 2 * joints, pose=slice(0, 2)),
+                     noisy=lambda joints: slice(0, 3 + 3 + 3 + 2 * joints), pose=slice(0, 2)),
     "yam": dict(physics="yam", tol={"policy": 2e-2, "critic": 2e-2, "reward": 2e-2,
                                     "command": 2e-4},
                 command=("lift_height", "target_pos"), terminate="ee_ground_collision",
                 solve="newton_assemble_solve_elliptic",
-                noisy=lambda joints: 2 * joints + 3 + 3, pose=slice(8, 10)),
+                noisy=lambda joints: slice(0, 2 * joints + 3 + 3), pose=slice(8, 10)),
+    # the tracking task: the command's time steps (equal), the anchor's
+    # position and orientation in the robot's anchor frame after the
+    # motion's joint positions and velocities (the columns the critic
+    # repeats without noise)
+    "tracking": dict(physics="g1", tol=ENV_TOL, command=("motion", "time_steps"),
+                     terminate="anchor_pos", solve="newton_assemble_solve",
+                     noisy=lambda joints: slice(2 * joints, 2 * joints + 3 + 6),
+                     pose=slice(0, 2)),
 }
 # the YAM's forced resets: an arm lowered into the table (link_6's subtree
 # meets it: the ground sensor fires), and a cube moved along x before its
@@ -1501,10 +1563,29 @@ YAM_CUBE_QPOS = 8
 YAM_CUBE_SHIFT = 0.05
 
 
+TRACKING_TASK = "Mjlab-Tracking-Flat-Unitree-G1"
+# the motion the tracking paths follow: 400 frames at 50 fps of the G1's 29
+# joints and 30 bodies, float32
+TRACKING_MOTION = "evidence/tracking_r4/motion.npz"
+# the tracking env's forced resets (tests/test_torch_env_tracking.py): the
+# root lifted (the anchor's height), rolled 90 degrees about x (the
+# anchor's orientation), the left arm raised (the end effectors; the
+# shoulder pitch's qpos address and value); a motion two frames from its
+# end
+TRACKING_LIFT = 0.4
+TRACKING_ARM = (22, -2.8)
+# the torso's com offsets a base_com write between replays adds (the
+# event's ranges: +-2.5, +-5 and +-5 cm)
+TRACKING_COM_SHIFT = (0.02, -0.04, 0.03)
+
+
 def env_kind(env) -> dict:
-    """The env's ENV_KINDS entry: the lift-cube task's by its command."""
-    return ENV_KINDS["yam" if "lift_height" in env.command_manager.active_terms
-                     else "velocity"]
+    """The env's ENV_KINDS entry: the lift-cube task's and the tracking
+    task's by their command."""
+    terms = env.command_manager.active_terms
+    if "lift_height" in terms:
+        return ENV_KINDS["yam"]
+    return ENV_KINDS["tracking" if "motion" in terms else "velocity"]
 
 
 def make_env(num_envs: int, device: str, capture: bool = True, seed: int = SEED,
@@ -1516,6 +1597,9 @@ def make_env(num_envs: int, device: str, capture: bool = True, seed: int = SEED,
     import os
 
     os.environ.setdefault("MJLAB_QUIET", "1")
+    # the tracking tasks' motion (the task config reads it from here)
+    os.environ.setdefault("MJLAB_TPU_MOTION_FILE", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), TRACKING_MOTION))
     from mjlab_tpu_torch.envs import ManagerBasedRlEnv
     from mjlab_tpu_torch.tasks import load_env_cfg
 
@@ -1570,9 +1654,73 @@ def force_lift_resets(env, ground: torch.Tensor, late: torch.Tensor,
     env.command_manager.get_term("lift_height").state["time_left"][resample] = 0.01
 
 
+def force_tracking_resets(env, lift, roll, arm, late, near_end) -> None:
+    """The tracking env's forced resets: the ``lift`` envs' roots raised by
+    TRACKING_LIFT (the anchor-height termination), the ``roll`` envs
+    rolled 90 degrees about x (the anchor's orientation), the ``arm``
+    envs' left arms raised (TRACKING_ARM: the end effectors), the ``late``
+    envs one step before their time-out, the ``near_end`` envs' motion two
+    frames from its end (the command's update runs past it in the next
+    step and resamples them)."""
+    import math
+
+    qpos = env.sim.data.qpos.clone()
+    qpos[lift, 2] += TRACKING_LIFT
+    a = math.radians(90.0) / 2
+    qpos[roll, 3:7] = torch.tensor([math.cos(a), math.sin(a), 0.0, 0.0], dtype=qpos.dtype,
+                                   device=qpos.device)
+    qpos[arm, TRACKING_ARM[0]] = TRACKING_ARM[1]
+    env.sim.data = env.sim.data.replace(qpos=qpos)
+    env.episode_length_buf[late] = env.max_episode_length - 1
+    term = env.command_manager.get_term("motion")
+    term.state["time_steps"][near_end] = term.motion.time_step_total - 2
+
+
+def tracking_forced(path: str, env, sets: dict, before: dict) -> dict:
+    """After the step of the tracking env's forced resets: each forced set
+    ended by its own termination and reset; the failed envs' bins counted
+    into the moving average; the resampled envs (failed, timed out, past
+    the motion's end) at frames the adaptive sampler drew, spread over the
+    motion."""
+    tm = env.termination_manager
+    term = env.command_manager.get_term("motion")
+    T = term.motion.time_step_total
+    fired = {name: tm.get_term(name) for name in ("anchor_pos", "anchor_ori", "ee_body_pos",
+                                                  "time_out")}
+    want = {"anchor_pos": sets["lift"], "anchor_ori": sets["roll"],
+            "ee_body_pos": sets["arm"], "time_out": sets["late"]}
+    done = fired["anchor_pos"] | fired["anchor_ori"] | fired["ee_body_pos"] | fired["time_out"]
+    ts = term.state["time_steps"]
+    resampled = done | sets["near_end"]
+    counts = term.state["bin_failed_count"]
+    m = term.state["metrics"]
+    info = {n: int(v.sum()) for n, v in fired.items()}
+    info.update(forced={n: int(v.sum()) for n, v in sets.items()},
+                frames=[int(ts[resampled].min()), int(ts[resampled].max())],
+                distinct_frames=int(torch.unique(ts[resampled]).numel()),
+                bin_failed_count=counts.tolist(),
+                sampling_entropy=float(m["sampling_entropy"][0]),
+                sampling_top1_bin=float(m["sampling_top1_bin"][0]))
+    log(f"[env] {path} step 1: terminations {[(n, info[n]) for n in fired]} (forced "
+        f"{info['forced']}); resampled {int(resampled.sum())} envs (the done ones and "
+        f"{int(sets['near_end'].sum())} past the motion's end) to frames in {info['frames']} "
+        f"({info['distinct_frames']} distinct of {T}); the failure counts' moving average "
+        f"{[round(x, 6) for x in info['bin_failed_count']]}; sampling entropy "
+        f"{info['sampling_entropy']:.4f}, top-1 bin {info['sampling_top1_bin']:.3f}")
+    ok = all(bool(fired[n][want[n]].all()) for n in want)
+    ok &= int(env.episode_length_buf[done].max()) == 0
+    ok &= bool((counts > before["bin_failed_count"]).any()) and bool(counts.sum() > 0)
+    ok &= bool((ts[sets["near_end"]] < T - 2).all()) and info["distinct_frames"] > 50
+    if not ok:
+        raise AssertionError(f"{path}: the forced resets did not end, count and resample as "
+                             f"forced: {info}")
+    return info
+
+
 def env_outputs(env, out) -> dict:
     """The step's outputs, cloned, with the Data's qpos and qvel; on a
-    generated terrain also the terrain levels and origins."""
+    generated terrain also the terrain levels and origins; for the
+    tracking task also the failure counts and the command's metrics."""
     obs, rew, term, trunc, extras = out
     name, key = env_kind(env)["command"]
     res = {"policy": obs["policy"].clone(), "critic": obs["critic"].clone(),
@@ -1583,6 +1731,10 @@ def env_outputs(env, out) -> dict:
     terrain = env.scene.terrain
     if terrain is not None and terrain.generator is not None:
         res.update(levels=terrain.levels.clone(), origins=terrain.origins.clone())
+    if name == "motion":
+        s = env.command_manager.get_term(name).state
+        res.update(bin_failed_count=s["bin_failed_count"].clone(),
+                   metrics=torch.stack(list(s["metrics"].values())))
     return res
 
 
@@ -1628,7 +1780,13 @@ class _HostRng:
         self.rs = np.random.default_rng(seed)
         self.device = torch.device(device)
 
-    def draw(self, kind, shape, dtype, low=0, high=1):
+    def draw(self, kind, shape, dtype, low=0, high=1, probs=None):
+        if kind == "categorical":
+            # the inverse CDF at host draws (Rng.draw's), on the device
+            cdf = torch.cumsum(probs, 0)
+            u = torch.as_tensor(self.rs.random(shape, dtype=np.float32), device=self.device)
+            idx = torch.searchsorted(cdf, (u.to(cdf.dtype) * cdf[-1]).contiguous(), right=True)
+            return idx.clamp_max(cdf.shape[0] - 1)
         if kind == "uniform":
             x = self.rs.random(shape, dtype=np.float32)
         elif kind == "normal":
@@ -1653,9 +1811,12 @@ def env_on_card_matches_cpu(seed: int, task: str = ENV_TASK, path: str = "g1_env
         envs.append(env)
     card, cpu = envs
     # the draws made at construction (the terrain levels, the startup
-    # friction, the interval timers) came from each env's own generator:
-    # the card's are copied
-    cpu.sim.model.geom_friction.copy_(card.sim.model.geom_friction.cpu())
+    # events' per-env model fields and encoder bias, the interval timers)
+    # came from each env's own generator: the card's are copied
+    for field in card.sim._default_fields:
+        getattr(cpu.sim.model, field).copy_(getattr(card.sim.model, field).cpu())
+    for name, ent in card.scene.entities.items():
+        cpu.scene[name].state.encoder_bias.copy_(ent.state.encoder_bias.cpu())
     for name, t in card.event_manager.interval_left.items():
         cpu.event_manager.interval_left[name].copy_(t.cpu())
     for a, b in zip(cpu.scene.state_tensors(), card.scene.state_tensors()):
@@ -1716,6 +1877,43 @@ def resampled(path: str, env, mask: torch.Tensor) -> None:
         raise AssertionError(f"{path}: the resampled envs' command or cube is off")
 
 
+def com_write(path: str, envs) -> dict:
+    """Shift the torso's com (body_ipos) of every env by TRACKING_COM_SHIFT
+    scaled by a ramp over the envs, in place in each env's Model (the
+    base_com event's write, after capture): the shifts written."""
+    out = {}
+    for env in envs:
+        m = env.sim.model
+        torso = m.body_names.index("robot/torso_link")
+        ramp = torch.linspace(-1.0, 1.0, env.num_envs, device=m.body_ipos.device)[:, None]
+        shift = ramp * torch.tensor(TRACKING_COM_SHIFT, device=ramp.device)
+        m.body_ipos[:, torso] += shift.to(m.body_ipos.dtype)
+        out = {"torso": torso, "max_shift_m": float(shift.abs().max())}
+    log(f"[env] {path}: base_com write between replays: the torso's body_ipos moved by up to "
+        f"{out['max_shift_m']:.3f} m per env, in place (per-env fields "
+        f"{list(envs[-1].sim._default_fields)})")
+    return out
+
+
+def com_seen(path: str, env, com: dict) -> None:
+    """After the replay that followed com_write: the refreshed torso com
+    (xipos) is its frame plus the new per-env body_ipos rotated, in every
+    env (kin_com read the written tensor, not a snapshot), within
+    TOL_FRAMES of the coordinate scale (the env origins' grid)."""
+    from mjlab_tpu_torch.utils.math import quat_apply
+
+    d, m = env.sim.data, env.sim.model
+    b = com["torso"]
+    want = d.xpos[:, b] + quat_apply(d.xquat[:, b], m.body_ipos[:, b])
+    err = float((want - d.xipos[:, b]).abs().max())
+    tol = TOL_FRAMES * max(1.0, coordinate_scale(d.xpos))
+    log(f"[env] {path}: the replay after the write: torso xipos - (xpos + R body_ipos) "
+        f"max |.| {err:.3e} m over {env.num_envs} envs (tol {tol:.1e})")
+    com["xipos_err_m"] = err
+    if not err < tol:
+        raise AssertionError(f"{path}: the replay did not read the written body_ipos ({err})")
+
+
 def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
                  path: str = "g1_env") -> tuple[dict, dict]:
     """The env's step of ``task`` at NUM_ENVS envs, captured as one CUDA
@@ -1772,6 +1970,8 @@ def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
     per_step = {k: v / (CAPTURE_WARMUP + 1) for k, v in launches.items()}
     kind = env_kind(cap)
     yam = kind is ENV_KINDS["yam"]
+    tracking = kind is ENV_KINDS["tracking"]
+    bitwise = yam or tracking
     expected = expected_launches(kind["solve"])
     log(f"[env] {path}: the first step() captured the env step and replayed it in "
         f"{capture_s:.2f} s ({CAPTURE_WARMUP} warm-up steps, the last with host "
@@ -1780,7 +1980,8 @@ def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
     if not cap.captured or per_step != expected:
         raise AssertionError(f"{path} launches per control step {per_step} != {expected}")
     errs = assert_envs_agree("captured vs eager, the capturing step", eager,
-                             env_outputs(eager, eager.step(first)), cap, oc, path, bitwise=yam)
+                             env_outputs(eager, eager.step(first)), cap, oc, path,
+                             bitwise=bitwise)
 
     # captured against eager: ENV_CHECK_STEPS steps, the first after
     # tipping some envs (the YAM: lowering their arms into the table) and
@@ -1793,16 +1994,28 @@ def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
     shift = (idx % 22 == 3) & ~tip if rough else None
     resample = (idx % 13 == 5) & ~tip & ~late if yam else None
     before = (terrain.levels.clone(), terrain.origins.clone()) if rough else None
+    if tracking:
+        roll = (idx % 17 == 2) & ~tip & ~late
+        arm = (idx % 19 == 4) & ~tip & ~late & ~roll
+        near_end = (idx % 13 == 5) & ~tip & ~late & ~roll & ~arm
+        forced_sets = {"lift": tip, "roll": roll, "arm": arm, "late": late,
+                       "near_end": near_end}
+        before = {"bin_failed_count": cap.command_manager.get_term(
+            "motion").state["bin_failed_count"].clone()}
     for e in (eager, cap):
         if yam:
             force_lift_resets(e, tip, late, resample)
+        elif tracking:
+            force_tracking_resets(e, tip, roll, arm, late, near_end)
         else:
             force_resets(e, tip, late, shift)
     for i, act in enumerate(check):
         oe = env_outputs(eager, eager.step(act))
         oc = env_outputs(cap, cap.step(act))
         torch.cuda.synchronize()
-        if i == 0:
+        if i == 0 and tracking:
+            forced = tracking_forced(path, cap, forced_sets, before)
+        elif i == 0:
             if yam:
                 resampled(path, cap, resample)
             fell = cap.termination_manager.get_term(kind["terminate"])
@@ -1819,7 +2032,14 @@ def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
                 curriculum_moves(path, terrain, before, shift, late & ~tip & ~shift,
                                  fell | timed_out)
         errs = assert_envs_agree(f"captured vs eager, step {i + 1}", eager, oe, cap, oc, path,
-                                 bitwise=yam)
+                                 bitwise=bitwise)
+        if tracking and i == 0:
+            # a base_com write between replays: the next replay reads the
+            # new torso offsets (kin_com reads the Model's (E, nbody, 3)
+            # tensor at every launch), as its eager twin does
+            com = com_write(path, (eager, cap))
+        elif tracking and i == 1:
+            com_seen(path, cap, com)
     for k in ("policy", "critic", "reward"):
         if not bool(torch.isfinite(oc[k]).all()):
             raise AssertionError(f"{path}: non-finite {k}")
@@ -1831,25 +2051,32 @@ def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
     # the noise-free critic terms it shares, ENV_KINDS) and the reset poses
     # (the robot's root; the YAM's cube) of envs reset in two consecutive
     # replays
-    noise, poses = [], []
+    noise, poses, frames = [], [], []
     reset_all = torch.ones(E, dtype=torch.bool, device="cuda")
+    none = ~reset_all
     noisy = kind["noisy"](cap.scene["robot"].num_joints)
     for _ in range(2):
         if yam:
-            force_lift_resets(cap, ~reset_all, reset_all, ~reset_all)
+            force_lift_resets(cap, none, reset_all, none)
+        elif tracking:
+            force_tracking_resets(cap, none, none, none, reset_all, none)
         else:
-            force_resets(cap, ~reset_all, reset_all)
+            force_resets(cap, none, reset_all)
         o = cap.step(timed[0])[0]
-        noise.append((o["policy"][:, :noisy] - o["critic"][:, :noisy]).clone())
+        noise.append((o["policy"][:, noisy] - o["critic"][:, noisy]).clone())
         poses.append(cap.sim.data.qpos[:, kind["pose"]].clone() - cap.scene.env_origins[:, :2])
+        if tracking:
+            frames.append(cap.command_manager.get_term("motion").state["time_steps"].clone())
     torch.cuda.synchronize()
     same_noise = float((noise[0] == noise[1]).double().mean())
     same_pose = float((poses[0] == poses[1]).all(1).double().mean())
+    same_frame = float((frames[0] == frames[1]).double().mean()) if tracking else 0.0
     log(f"[env] {path} two replays: share of equal policy-noise entries {same_noise:.4f}, of "
-        f"envs reset to equal xy offsets {same_pose:.4f}; noise range "
-        f"[{float(noise[0].min()):.3f}, {float(noise[0].max()):.3f}], reset xy offsets in "
-        f"[{float(poses[1].min()):.3f}, {float(poses[1].max()):.3f}]")
-    if same_noise > 0.01 or same_pose > 0.01:
+        f"envs reset to equal xy offsets {same_pose:.4f}"
+        + (f", of envs reset to equal start frames {same_frame:.4f}" if tracking else "")
+        + f"; noise range [{float(noise[0].min()):.3f}, {float(noise[0].max()):.3f}], reset "
+        f"xy offsets in [{float(poses[1].min()):.3f}, {float(poses[1].max()):.3f}]")
+    if same_noise > 0.01 or same_pose > 0.01 or same_frame > 0.01:
         raise AssertionError(f"{path}: two replays drew the same numbers")
 
     # throughput on bench.py's traffic: eager and captured, in turns
@@ -1901,6 +2128,13 @@ def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
                "kernels_added_over_physics_capture": added, "capture_s": capture_s,
                "launches_per_control_step": per_step, "check_rel_err": errs,
                "equal_noise_share": same_noise, "equal_reset_pose_share": same_pose}
+    if tracking:
+        summary.update(forced_resets=forced, equal_start_frame_share=same_frame,
+                       base_com_write=com)
+        # the kernels on the env's state after the timed steps: the robots
+        # following the motion from the frames the sampler drew, the
+        # torso's body_ipos per env (the base_com event and the write)
+        summary["kernel_checks"] = check_kernels(cap.sim, path, env_state=True)
     if yam:
         # the kernels on the env's state after the timed steps: arms
         # reaching on random actions, cubes on the table, envs reset among
@@ -2571,11 +2805,11 @@ def run_forward_path() -> tuple[dict, dict, dict]:
 # training run for kernels 1-4 (g1_rough_train: the env's capture in the
 # first rollout step), the YAM's training run for kernel 5 (yam_train),
 # g1_forward for kernel 6
-CHECK_PATH = {"kin_com": "g1", "crb_packed": "g1", "vel_smooth": "g1",
-              "newton_assemble_solve": "g1", "newton_assemble_solve_elliptic": "yam",
-              "newton_solve_dense": "g1_forward"}
-LAUNCH_PATH = {"kin_com": "g1_rough_train", "crb_packed": "g1_rough_train",
-               "vel_smooth": "g1_rough_train", "newton_assemble_solve": "g1_rough_train",
+CHECK_PATH = {"kin_com": "tracking_env", "crb_packed": "tracking_env",
+              "vel_smooth": "tracking_env", "newton_assemble_solve": "tracking_env",
+              "newton_assemble_solve_elliptic": "yam", "newton_solve_dense": "g1_forward"}
+LAUNCH_PATH = {"kin_com": "tracking_train", "crb_packed": "tracking_train",
+               "vel_smooth": "tracking_train", "newton_assemble_solve": "tracking_train",
                "newton_assemble_solve_elliptic": "yam_train",
                "newton_solve_dense": "g1_forward"}
 
@@ -2603,6 +2837,11 @@ def kernel_rows(per_path: dict, launches: dict, per_step: dict) -> list[dict]:
         )
         if "iteration_counts_differ" in r:
             row["iteration_counts_differ"] = r["iteration_counts_differ"]
+        if name in KERNEL_PLANES:
+            # the fields the kernel reads per env where the Model carries
+            # them so, and those it read so on its check state
+            row["per_env_fields"] = list(KERNEL_PLANES[name])
+            row["dr_planes"] = r.get("dr_planes", [])
         row["per_path"] = {p: dict(runs[p], launches=launches[p][name]) for p in runs}
         rows.append(row)
     return rows
@@ -2624,6 +2863,18 @@ def run_yam_paths(yam_capture_kernels: int | None = None) -> tuple[dict, dict]:
         yam_capture_kernels, YAM_TASK, "yam_env")
     launches["yam_train"], summary["yam_train"] = run_train_path(
         YAM_TASK, "yam_train", learner_checks=False)
+    return launches, summary
+
+
+def run_tracking_paths() -> tuple[dict, dict]:
+    """tracking_env and tracking_train, the G1 motion-tracking task (the
+    torso's body_ipos per env in kernels 1-3, inside an env's graph and a
+    PPO iteration): (launches by path, summary by path)."""
+    launches, summary = {}, {}
+    launches["tracking_env"], summary["tracking_env"] = run_env_path(
+        None, TRACKING_TASK, "tracking_env")
+    launches["tracking_train"], summary["tracking_train"] = run_train_path(
+        TRACKING_TASK, "tracking_train", learner_checks=False)
     return launches, summary
 
 
@@ -2674,6 +2925,13 @@ def main() -> int:
         log(json.dumps({"rough": rough, "num_envs": NUM_ENVS}))
         log("[partial] --only-rough: the other paths did not run; no result")
         return 0
+    if sys.argv[1:2] == ["--only-tracking"]:
+        # a quick run of the tracking env and training paths alone: no
+        # result line
+        launches, tracking = run_tracking_paths()
+        log(json.dumps({"tracking": tracking, "num_envs": NUM_ENVS}))
+        log("[partial] --only-tracking: the other paths did not run; no result")
+        return 0
     if sys.argv[1:2] == ["--only-yam"]:
         # a quick run of the lift-cube env and training paths alone: no
         # result line
@@ -2704,6 +2962,10 @@ def main() -> int:
     launches.update(yam_launches)
     per_path["yam_env"] = yam["yam_env"]["kernel_checks"]
     per_step.update({p: yam[p]["launches_per_control_step"] for p in yam})
+    tracking_launches, tracking = run_tracking_paths()
+    launches.update(tracking_launches)
+    per_path["tracking_env"] = tracking["tracking_env"]["kernel_checks"]
+    per_step.update({p: tracking[p]["launches_per_control_step"] for p in tracking})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2715,6 +2977,7 @@ def main() -> int:
     log(json.dumps({"g1_train": train, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"rough": rough, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"yam": yam, "num_envs": NUM_ENVS, "power_limit": smi}))
+    log(json.dumps({"tracking": tracking, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"paths": summary, "num_envs": NUM_ENVS,
                     "control_steps": CONTROL_STEPS,
                     "seconds": time.perf_counter() - t_start}))

@@ -7,7 +7,8 @@
 // pallas_call at :352), fused with what the step does with its packed
 // ancestor pairs: qm_dense_cm (smooth_pallas.py:364) and the implicit
 // diagonal add (mjlab_tpu/phys/hybrid.py:536-545). The pairs no longer go
-// through device memory.
+// through device memory. body_mass and dof_armature may be carried per env
+// (the TPU kernel's DR planes, smooth_pallas.py:95-162).
 //
 // What bounds it on an H100: bytes, mostly the dense writes. Per env it
 // reads cdof (6 nv), cinert (9 nbody) and the implicit diagonal (nv), and
@@ -39,7 +40,7 @@
 //      the armature on the diagonal, then the implicit diagonal for Mh:
 //      (dot + armature) + mh_diag, the eager code's order.
 // Model constants (body_mass, dof_armature) are read through smooth_tree's
-// mc accessor.
+// mcv accessor: each may be carried per env.
 #include "smooth_common.cuh"
 #include "smooth_tree.cuh"
 
@@ -82,8 +83,8 @@ crb_packed_kernel(SmoothTables t, SmoothTree tr, const float* __restrict__ cdof,
       comp(r / 6, r % 6) = __ldg(cinA + r * E + e);
 #pragma unroll 8
     for (int r = w; r < 3 * nb; r += SMOOTH_WORKERS)
-      comp(r / 3, 6 + r % 3) = __ldg(cinc + r * E + e) * mc(t.body_mass, r / 3);
-    for (int b = w; b < nb; b += SMOOTH_WORKERS) comp(b, 9) = mc(t.body_mass, b);
+      comp(r / 3, 6 + r % 3) = __ldg(cinc + r * E + e) * mcv(t.body_mass, t.env.body_mass, r / 3, e);
+    for (int b = w; b < nb; b += SMOOTH_WORKERS) comp(b, 9) = mcv(t.body_mass, t.env.body_mass, b, e);
   }
   __syncthreads();
 
@@ -123,7 +124,7 @@ crb_packed_kernel(SmoothTables t, SmoothTree tr, const float* __restrict__ cdof,
     float v = 0.f;
     if (mi(t.anc_mask, mi(t.dof_body, i) * nv + j)) {
       v = dot6(sld6(scdof, j, lane), sld6(sf, i, lane));
-      if (i == j) v = v + mc(t.dof_armature, i);
+      if (i == j) v = v + mcv(t.dof_armature, t.env.dof_armature, i, e);
     }
     const size_t ij = static_cast<size_t>(i * nv + j) * E + e;
     const size_t ji = static_cast<size_t>(j * nv + i) * E + e;
@@ -143,11 +144,12 @@ __host__ __device__ int crb_smem_floats(int nbody, int nv) { return kComp * nbod
 }  // namespace
 
 // Mh and mh_diag may be null (no implicit integrator): only qM is written
-extern "C" int crb_packed_launch(const SmoothTables* t, const SmoothTree* tr, const float* cdof,
+extern "C" int crb_packed_launch(const SmoothTables* t, const SmoothTree* tr,
+                                 const EnvFields* env, const float* cdof,
                                  const float* cinA, const float* cinc, const float* mh_diag,
                                  float* qM, float* Mh, int E, cudaStream_t stream) {
-  return smooth_launch(crb_packed_kernel, crb_smem_floats(t->nbody, t->nv), E, stream, *t,
-                       *tr, cdof, cinA, cinc, mh_diag, qM, Mh, E);
+  return smooth_launch(crb_packed_kernel, crb_smem_floats(t->nbody, t->nv), E, stream,
+                       with_env(t, env), *tr, cdof, cinA, cinc, mh_diag, qM, Mh, E);
 }
 
 // shared memory of one block (SMOOTH_ENVS envs), bytes

@@ -4,7 +4,10 @@
 // pallas_call at :294), which traced the model's constants into
 // straight-line code over (8, 128) env tiles. A mocap body takes its frame
 // from the per-env mocap inputs (nmocap, 3, E) and (nmocap, 4, E), as the
-// TPU kernel's mocap planes (smooth_pallas.py:237-260).
+// TPU kernel's mocap planes (smooth_pallas.py:237-260). qpos0, body_ipos,
+// body_mass, body_inertia and geom_pos may be carried per env (the TPU
+// kernels' DR planes, smooth_pallas.py:95-162): they are read through mcv
+// (smooth_tree.cuh).
 //
 // What bounds it on an H100: memory. Per env it reads nq floats and writes
 // the frames of the collision geoms, subtree coms, cdof, cinert (A, c),
@@ -46,13 +49,13 @@ __device__ __forceinline__ Q4 joint_motion(const SmoothTables& t, int j, const f
   auto Q = [&](int i) { return __ldg(q + i * E + e); };
   const int jt = mi(t.jnt_type, j), qa = mi(t.jnt_qposadr, j);
   if (jt == JNT_HINGE) {
-    const float angle = Q(qa) - mc(t.qpos0, qa);
+    const float angle = Q(qa) - mcv(t.qpos0, t.env.qpos0, qa, e);
     const float half = 0.5f * angle;
     const float s = sinf(half), c = cosf(half);
     const V3 ax = mc3(t.jnt_axis, j);
     return {c, ax.x * s, ax.y * s, ax.z * s};
   }
-  if (jt == JNT_SLIDE) return {Q(qa) - mc(t.qpos0, qa), 0.f, 0.f, 0.f};
+  if (jt == JNT_SLIDE) return {Q(qa) - mcv(t.qpos0, t.env.qpos0, qa, e), 0.f, 0.f, 0.f};
   const int o = jt == JNT_FREE ? qa + 3 : qa;
   return qnormalize({Q(o), Q(o + 1), Q(o + 2), Q(o + 3)});
 }
@@ -168,10 +171,10 @@ kin_com_kernel(SmoothTables t, SmoothTree tr, const float* __restrict__ q,
   // ---- 2. xipos and the mass moments ----
   if (live)
     for (int b = w; b < nb; b += SMOOTH_WORKERS) {
-      const V3 xi = add(sld3(sxpos, b, lane), qrot(mc3(t.body_ipos, b), sld4(sxquat, b, lane)));
+      const V3 xi = add(sld3(sxpos, b, lane), qrot(mcv3(t.body_ipos, t.env.body_ipos, b, e), sld4(sxquat, b, lane)));
       st3(xipos, b, E, e, xi);
       sst3(sxipos, b, lane, xi);
-      const float mb = mc(t.body_mass, b);
+      const float mb = mcv(t.body_mass, t.env.body_mass, b, e);
       sst3(scom, b, lane, scale(xi, mb));
       smass[b * SMOOTH_ENVS + lane] = mb;
     }
@@ -215,7 +218,7 @@ kin_com_kernel(SmoothTables t, SmoothTree tr, const float* __restrict__ q,
     qmat(sld4(sxquat, b, lane), xm);
     qmat(mc4(t.body_iquat, b), im);
     matmul3(xm, im, R);
-    const V3 I = mc3(t.body_inertia, b);
+    const V3 I = mcv3(t.body_inertia, t.env.body_inertia, b, e);
     float Iw[6];
     int s = 0;
     for (int i = 0; i < 3; ++i)
@@ -223,7 +226,7 @@ kin_com_kernel(SmoothTables t, SmoothTree tr, const float* __restrict__ q,
         Iw[s++] = R[3 * i] * I.x * R[3 * j] + R[3 * i + 1] * I.y * R[3 * j + 1] +
                   R[3 * i + 2] * I.z * R[3 * j + 2];
     const V3 c = sub(sld3(sxipos, b, lane), sld3(scom, mi(t.body_rootid, b), lane));
-    const float mb = mc(t.body_mass, b);
+    const float mb = mcv(t.body_mass, t.env.body_mass, b, e);
     const float c2 = c.x * c.x + c.y * c.y + c.z * c.z;
     const float cc[6] = {c.x * c.x - c2, c.x * c.y, c.x * c.z,
                          c.y * c.y - c2, c.y * c.z, c.z * c.z - c2};
@@ -277,7 +280,7 @@ kin_com_kernel(SmoothTables t, SmoothTree tr, const float* __restrict__ q,
     const int g = mi(t.cg_geom, o);
     const int b = mi(tr.cg_body, o);
     const Q4 bq = sld4(sxquat, b, lane);
-    st3(gxpos, o, E, e, add(sld3(sxpos, b, lane), qrot(mc3(t.geom_pos, g), bq)));
+    st3(gxpos, o, E, e, add(sld3(sxpos, b, lane), qrot(mcv3(t.geom_pos, t.env.geom_pos, g, e), bq)));
     float xm[9], gm[9], r[9];
     qmat(bq, xm);
     qmat(mc4(t.geom_quat, g), gm);
@@ -293,13 +296,14 @@ static int kin_com_smem_floats(const SmoothTables* t) {
   return 14 * t->nbody + 10 * t->njnt + t->nq;
 }
 
-extern "C" int kin_com_launch(const SmoothTables* t, const SmoothTree* tr, const float* q,
+extern "C" int kin_com_launch(const SmoothTables* t, const SmoothTree* tr,
+                              const EnvFields* env, const float* q,
                               const float* mocap_pos, const float* mocap_quat,
                               float* gxpos, float* gxmat, float* subcom,
                               float* cdof, float* cinA, float* cinc,
                               float* xipos, float* xpos, float* xquat, int E,
                               cudaStream_t stream) {
-  return smooth_launch(kin_com_kernel, kin_com_smem_floats(t), E, stream, *t, *tr, q,
+  return smooth_launch(kin_com_kernel, kin_com_smem_floats(t), E, stream, with_env(t, env), *tr, q,
                        mocap_pos, mocap_quat, gxpos, gxmat, subcom, cdof, cinA, cinc,
                        xipos, xpos, xquat, E);
 }

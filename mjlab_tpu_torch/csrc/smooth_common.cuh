@@ -8,11 +8,39 @@
 //
 // Every per-env array is env-last: element (row, e) at row * E + e, so the
 // threads of a warp (neighbouring envs) touch neighbouring addresses.
+//
+// The model fields a domain randomisation event writes may be carried per
+// env (phys/model.py PER_ENV_SMOOTH_FIELDS). Such a field is read from the
+// Model's own (E, ...) tensor, env-first, where the event writes it in
+// place: EnvField p points at it (null: the field is shared and read from
+// the tables), env e's values start at p + e * stride and row i's at
+// + i * width. The wrappers fill EnvFields at every launch
+// (smooth_kernels.env_fields), so a captured graph reads the tensor a
+// write between replays changed; the tables hold NaN for such a field.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #define MJT_MAX_BODY 128
+
+struct EnvField {
+  const float* p;
+  int stride;  // floats per env
+  int width;   // floats per row
+};
+
+struct EnvFields {
+  EnvField qpos0;         // (E, nq)
+  EnvField body_ipos;     // (E, nbody, 3)
+  EnvField body_mass;     // (E, nbody)
+  EnvField body_inertia;  // (E, nbody, 3)
+  EnvField geom_pos;      // (E, ngeom, 3)
+  EnvField dof_armature;  // (E, nv)
+  EnvField dof_damping;   // (E, nv)
+  EnvField jnt_stiffness; // (E, njnt)
+  EnvField act_gainprm;   // (E, nu, 10): the first three of a row read
+  EnvField act_biasprm;   // (E, nu, 10)
+};
 
 struct SmoothTables {
   int nq, nv, nu, nbody, njnt, ncg, npair;
@@ -63,6 +91,7 @@ struct SmoothTables {
   const float* act_gainprm;    // (nu, 3)
   const float* act_biasprm;    // (nu, 3)
   const float* act_forcerange; // (nu, 2)
+  EnvFields env;               // the per-env fields, set per launch
 };
 
 enum { JNT_FREE = 0, JNT_BALL = 1, JNT_SLIDE = 2, JNT_HINGE = 3 };

@@ -48,8 +48,8 @@ struct SmoothTree {
   const int* cg_body;       // (ncg,) the body that owns each collision geom
 };
 
-// Model constants are read through these accessors (and tab3/tab4), so
-// that per-env model fields (domain randomisation) change one place.
+// Model constants are read through these accessors; a field that may be
+// carried per env through mcv/mcv3 below.
 __device__ __forceinline__ float mc(const float* p, int i) { return __ldg(p + i); }
 __device__ __forceinline__ V3 mc3(const float* p, int i) {
   return {__ldg(p + 3 * i), __ldg(p + 3 * i + 1), __ldg(p + 3 * i + 2)};
@@ -58,6 +58,19 @@ __device__ __forceinline__ Q4 mc4(const float* p, int i) {
   return {__ldg(p + 4 * i), __ldg(p + 4 * i + 1), __ldg(p + 4 * i + 2), __ldg(p + 4 * i + 3)};
 }
 __device__ __forceinline__ int mi(const int* p, int i) { return __ldg(p + i); }
+
+// A field that may be carried per env (smooth_common.cuh EnvField): env
+// e's value of row i when f.p is set, the table's c otherwise. The reads
+// of an env are strided by the field's size (a sector per lane): the
+// fields are a few hundred bytes per env, read once per launch.
+__device__ __forceinline__ float mcv(const float* c, EnvField f, int i, int e) {
+  return f.p ? __ldg(f.p + (size_t)e * f.stride + i * f.width) : __ldg(c + i);
+}
+__device__ __forceinline__ V3 mcv3(const float* c, EnvField f, int i, int e) {
+  if (!f.p) return mc3(c, i);
+  const float* r = f.p + (size_t)e * f.stride + i * f.width;
+  return {__ldg(r), __ldg(r + 1), __ldg(r + 2)};
+}
 
 // shared-memory rows of an env (row * SMOOTH_ENVS + lane)
 __device__ __forceinline__ V3 sld3(const float* p, int row, int lane) {
@@ -85,7 +98,14 @@ __device__ __forceinline__ void sst6(float* p, int row, int lane, const S6& s) {
 
 // Launch a smooth kernel over E envs with `floats_per_env` floats of
 // shared memory per env: opts in above 48 KB once, refuses more than a
-// block may hold. Returns a cudaError_t as an int.
+// block may hold. Returns a cudaError_t as an int. with_env: the tables
+// with this launch's per-env fields (a copy, passed by value).
+__host__ inline SmoothTables with_env(const SmoothTables* t, const EnvFields* env) {
+  SmoothTables out = *t;
+  out.env = *env;
+  return out;
+}
+
 template <typename Kernel, typename... Args>
 int smooth_launch(Kernel kernel, int floats_per_env, int E, cudaStream_t stream,
                   Args... args) {

@@ -4,7 +4,9 @@
 // integrator's implicit diagonal (h*damping - h*dfdv*gear^2).
 //
 // Replaces the TPU kernel vel_smooth (mjlab_tpu/phys/smooth_pallas.py:389,
-// pallas_call at :487).
+// pallas_call at :487). body_mass, dof_damping, jnt_stiffness and the
+// actuators' gain and bias parameters may be carried per env (the TPU
+// kernel's DR planes, smooth_pallas.py:95-162).
 //
 // What bounds it on an H100: memory. Per env it reads q, qvel, ctrl,
 // cdof, cinert (A, c), subtree com, xipos, xfrc_applied and qfrc_applied
@@ -145,7 +147,7 @@ vel_smooth_kernel(SmoothTables t, SmoothTree tr, const float* __restrict__ q,
     for (int b = w; b < nb; b += SMOOTH_WORKERS) {
       float A[6];
       for (int k = 0; k < 6; ++k) A[k] = __ldg(cinA + (6 * b + k) * E + e);
-      const float mb = mc(t.body_mass, b);
+      const float mb = mcv(t.body_mass, t.env.body_mass, b, e);
       const V3 h = scale(ld3(cinc, b, E, e), mb);
       const S6 cv = sld6(svel, b, lane);
       const S6 Iv = spatial_mul(A, h, mb, cv);
@@ -187,10 +189,10 @@ vel_smooth_kernel(SmoothTables t, SmoothTree tr, const float* __restrict__ q,
     const float bias = dot6(cd, sld6(sacc, mi(t.dof_body, i), lane));
 
     // passive: damping, then the joint's spring
-    const float damping = mc(t.dof_damping, i);
+    const float damping = mcv(t.dof_damping, t.env.dof_damping, i, e);
     float passive = -damping * vi;
     const int j = mi(tr.dof_jnt, i);
-    const float ks = mc(t.jnt_stiffness, j);
+    const float ks = mcv(t.jnt_stiffness, t.env.jnt_stiffness, j, e);
     if (ks != 0.f) {
       const int jt = mi(t.jnt_type, j);
       const int qa = mi(t.jnt_qposadr, j), k = i - mi(t.jnt_dofadr, j);
@@ -218,8 +220,8 @@ vel_smooth_kernel(SmoothTables t, SmoothTree tr, const float* __restrict__ q,
       float c = __ldg(ctrl + u * E + e);
       if (mi(t.act_ctrllimited, u))
         c = fminf(fmaxf(c, mc(t.act_ctrlrange, 2 * u)), mc(t.act_ctrlrange, 2 * u + 1));
-      const V3 gp = mc3(t.act_gainprm, u);
-      const V3 bp = mc3(t.act_biasprm, u);
+      const V3 gp = mcv3(t.act_gainprm, t.env.act_gainprm, u, e);
+      const V3 bp = mcv3(t.act_biasprm, t.env.act_biasprm, u, e);
       const bool gain_affine = mi(t.act_gaintype, u) == 1;
       const bool bias_affine = mi(t.act_biastype, u) == 1;
       const float gain = gain_affine ? gp.x + gp.y * length + gp.z * vel : gp.x;
@@ -256,13 +258,15 @@ static int vel_smooth_smem_floats(const SmoothTables* t) {
   return 12 * t->nbody + 7 * t->nv;
 }
 
-extern "C" int vel_smooth_launch(const SmoothTables* t, const SmoothTree* tr, const float* q,
+extern "C" int vel_smooth_launch(const SmoothTables* t, const SmoothTree* tr,
+                                 const EnvFields* env, const float* q,
                                  const float* qvel, const float* ctrl, const float* cdof,
                                  const float* cinA, const float* cinc, const float* subcom,
                                  const float* xipos, const float* xfrc, const float* qfa,
                                  float* qfs, float* afrc, float* avel, float* diag, int E,
                                  cudaStream_t stream) {
-  return smooth_launch(vel_smooth_kernel, vel_smooth_smem_floats(t), E, stream, *t, *tr, q,
+  return smooth_launch(vel_smooth_kernel, vel_smooth_smem_floats(t), E, stream,
+                       with_env(t, env), *tr, q,
                        qvel, ctrl, cdof, cinA, cinc, subcom, xipos, xfrc, qfa, qfs, afrc,
                        avel, diag, E);
 }

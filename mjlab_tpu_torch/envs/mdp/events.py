@@ -2,10 +2,10 @@
 fields.
 
 PyTorch counterpart of the part of mjlab_tpu/envs/mdp/events.py that the
-velocity tasks run: randomize_terrain, reset_scene_to_default,
-reset_root_state_uniform, reset_joints_by_offset, push_by_setting_velocity
-and randomize_field (on the Model fields Simulation.expand_model_fields
-carries per env). Every term takes (env, env_mask, **params) and writes
+ported tasks run: randomize_terrain, reset_scene_to_default,
+reset_root_state_uniform, reset_joints_by_offset, push_by_setting_velocity,
+randomize_field (on the Model fields Simulation.expand_model_fields
+carries per env) and randomize_encoder_bias. Every term takes (env, env_mask, **params) and writes
 only the masked envs, in place (the entity view's writes, or the
 expanded Model field), drawing from the env's Rng in the JAX term's order.
 A DR write always starts from the field's default value, so that resets
@@ -67,7 +67,6 @@ def _not_ported(name: str):
 apply_external_force_torque = _not_ported("apply_external_force_torque")
 randomize_pd_gains = _not_ported("randomize_pd_gains")
 randomize_effort_limits = _not_ported("randomize_effort_limits")
-randomize_encoder_bias = _not_ported("randomize_encoder_bias")
 sync_actuator_delays = _not_ported("sync_actuator_delays")
 
 
@@ -157,6 +156,28 @@ def reset_joints_by_offset(
     lims = data.soft_joint_pos_limits.expand(E, J, 2).to(torch.float32)
     jp = torch.minimum(torch.maximum(jp, lims[..., 0]), lims[..., 1])
     data.write_joint_state(jp, jv, env_ids=env_mask)
+
+
+def randomize_encoder_bias(
+    env,
+    env_mask,
+    bias_range: tuple = (0.0, 0.0),
+    asset_cfg: SceneEntityCfg = _DEFAULT,
+):
+    """A per-episode joint encoder offset, U[lo, hi) per (env, joint) of
+    asset_cfg's joints (the others keep theirs), written into the entity's
+    encoder_bias in place (mjlab_tpu/envs/mdp/events.py:439-455);
+    joint_pos_rel(biased=True) and the joint action read it."""
+    entity = env.scene[asset_cfg.name]
+    bias = entity.data.encoder_bias
+    E, J = bias.shape
+    new = env.rng.uniform((E, J), *bias_range).to(bias.dtype)
+    ids = asset_cfg.joint_ids
+    if not isinstance(ids, slice):
+        keep = torch.ones(J, dtype=torch.bool, device=bias.device)
+        keep[ids] = False
+        new = torch.where(keep, bias, new)
+    bias.copy_(torch.where(env_mask[:, None], new, bias))
 
 
 def push_by_setting_velocity(

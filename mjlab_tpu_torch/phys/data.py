@@ -210,11 +210,13 @@ def _fresh(m: Model) -> dict[str, torch.Tensor]:
 
 
 def make_data(m: Model, num_envs: int) -> Data:
-    """Fresh Data for num_envs envs at qpos0, in the model's dtype and on
-    its device (positions not yet propagated)."""
+    """Fresh Data for num_envs envs at qpos0 (each env's own when the
+    model carries qpos0 per env), in the model's dtype and on its device
+    (positions not yet propagated)."""
     fresh = _fresh(m)
     kw = {
-        k: v.expand((num_envs,) + tuple(v.shape)) for k, v in fresh.items()
+        k: v if k == "qpos" and m.qpos0.dim() == 2 else
+        v.expand((num_envs,) + tuple(v.shape)) for k, v in fresh.items()
     }
     kw["contact"] = Contact(packed=kw["contact"])
     return Data(**kw)
@@ -227,7 +229,7 @@ def reset_data(m: Model, d: Data, mask: torch.Tensor) -> Data:
     for name in tensor_fields():
         old = d.contact.packed if name == "contact" else getattr(d, name)
         new = fresh[name]
-        sel = mask.reshape((-1,) + (1,) * new.ndim)
+        sel = mask.reshape((-1,) + (1,) * (old.ndim - 1))
         kw[name] = torch.where(sel, new, old)
     kw["contact"] = Contact(packed=kw["contact"])
     return Data(**kw)

@@ -44,7 +44,7 @@ from mjlab_tpu_torch.phys.lm.constraint import make_constraint_lm
 from mjlab_tpu_torch.phys.model import (
     CONE_PYRAMIDAL, EFC_CONTACT, EFC_EQUALITY, EFC_FRICTION_DOF,
     EFC_LIMIT_JOINT, EFC_LIMIT_TENDON, JNT_BALL, JNT_FREE, Model, cached,
-    device_array, limit_rows_static,
+    device_array, limit_rows_static, per_env_smooth,
 )
 from mjlab_tpu_torch.phys.smooth_kernels import (
     collision_geoms, crb_dense, implicit_flags, integrate_envlast, kin_com,
@@ -446,6 +446,11 @@ def forward_hybrid(m: Model, d: Data, iters: torch.Tensor | None = None,
         raise NotImplementedError(
             "forward() under the elliptic cone is not ported yet"
         )
+    if per_env_smooth(m):
+        raise NotImplementedError(
+            f"forward() with per-env model fields {list(per_env_smooth(m))} "
+            "is not ported yet (the step and the refresh carry them)"
+        )
     mark = mark or (lambda name: None)
     d, k, P = forward_stages(m, d, mark)
     args, kw = solve_dense_inputs(m, k, d)
@@ -483,17 +488,20 @@ def _quat_mat_planes(q):
 def _child_frames(R, pos, local_mat, local_pos):
     """World frames of rigidly attached children: parent rotations R
     (n, 9, E) and positions pos (n, 3, E), constant local rotations
-    (n, 3, 3) and offsets (n, 3) -> positions (n, 3, E), rotations (n, 9, E)."""
+    (n, 3, 3) and offsets (n, 3), or per env (n, 3, E) -> positions
+    (n, 3, E), rotations (n, 9, E)."""
     n, _, E = R.shape
     Rm = R.reshape(n, 3, 3, E)
     mat = torch.einsum("nike,nkj->nije", Rm, local_mat).reshape(n, 9, E)
+    if local_pos.dim() == 3:
+        return pos + torch.einsum("nike,nke->nie", Rm, local_pos), mat
     return pos + torch.einsum("nike,nk->nie", Rm, local_pos), mat
 
 
-def _local_frames(m: Model, quat: str, pos: str):
-    """(rotation matrices (n, 3, 3), offsets (n, 3)) of a model field pair."""
+def _local_rotations(m: Model, quat: str) -> torch.Tensor:
+    """Rotation matrices (n, 3, 3) of a model quaternion field."""
     q = getattr(m, quat)[..., None]
-    return _quat_mat_planes(q)[..., 0].reshape(-1, 3, 3), getattr(m, pos)
+    return _quat_mat_planes(q)[..., 0].reshape(-1, 3, 3)
 
 
 def _cvel_structure(m: Model):
@@ -545,18 +553,23 @@ def _frame_fields(m: Model, d: Data, kin: tuple, vT: torch.Tensor) -> dict:
     _, _, subcom, cdof, cinA, cinc, xipos, xpos, xquat = kin
 
     xmat = _quat_mat_planes(xquat)
-    local = cached(m, "refresh_frames", lambda: {
-        "body": _local_frames(m, "body_iquat", "body_ipos"),
-        "geom": _local_frames(m, "geom_quat", "geom_pos"),
-        "site": _local_frames(m, "site_quat", "site_pos"),
+    P = Params(m, E)
+    rot = cached(m, "refresh_rotations", lambda: {
+        n: _local_rotations(m, f"{n}_{'iquat' if n == 'body' else 'quat'}")
+        for n in ("body", "geom", "site")
     })
-    _, ximat = _child_frames(xmat, xpos, *local["body"])
+    ximat = torch.einsum(
+        "nike,nkj->nije", xmat.reshape(nb, 3, 3, E), rot["body"]
+    ).reshape(nb, 9, E)
     gb = device_array(m, "geom_bodyid", lambda: m.geom_bodyid, torch.long)
-    gxpos, gxmat = _child_frames(xmat[gb], xpos[gb], *local["geom"])
+    # geom offsets per env (n, 3, E) when the model carries them so, read
+    # on every call: a domain randomisation write is seen
+    geom_pos = P("geom_pos") if "geom_pos" in P.batched else m.geom_pos
+    gxpos, gxmat = _child_frames(xmat[gb], xpos[gb], rot["geom"], geom_pos)
     upd = {}
     if ns:
         sb = device_array(m, "site_bodyid", lambda: m.site_bodyid, torch.long)
-        sxpos, sxmat = _child_frames(xmat[sb], xpos[sb], *local["site"])
+        sxpos, sxmat = _child_frames(xmat[sb], xpos[sb], rot["site"], m.site_pos)
         upd.update(
             site_xpos=_ef(sxpos), site_xmat=_ef(sxmat).reshape(E, ns, 3, 3)
         )
@@ -577,7 +590,7 @@ def _frame_fields(m: Model, d: Data, kin: tuple, vT: torch.Tensor) -> dict:
     )
 
     # cinert 6x6: [[A, m skew(c)], [-m skew(c), m I]]
-    mass = m.body_mass[:, None]
+    mass = P("body_mass")  # (nb, 1), or per env (nb, E)
     c0, c1, c2 = cinc[:, 0], cinc[:, 1], cinc[:, 2]
     h0, h1, h2 = mass * c0, mass * c1, mass * c2
     z = torch.zeros_like(h0)

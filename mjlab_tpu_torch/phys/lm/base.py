@@ -12,30 +12,39 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mjlab_tpu_torch.phys.model import host_array
+from mjlab_tpu_torch.phys.model import host_array, per_env_smooth
 
 
 class Params:
-    """Env-last view of the (shared) Model fields.
+    """Env-last view of the Model fields, shared or per env.
 
-    P(name)             -> tensor with a trailing broadcast axis (..., 1)
-    P.plane(name, *idx) -> the scalar value as a Python float
+    P(name)             -> tensor with the env axis last: (..., E) for a
+                           per-env field, a trailing broadcast axis
+                           (..., 1) for a shared one
+    P.plane(name, *idx) -> the value: an (E,) tensor for a per-env field,
+                           a Python float for a shared one
 
     Floats mix with (E,) planes in the tensors' dtype, so a shared constant
-    costs no device op. Per-env (domain-randomised) fields are not carried
-    by this package yet."""
+    costs no device op. ``batched`` is the set of fields m carries per env
+    (model.per_env_smooth: a domain randomisation event's fields)."""
 
     def __init__(self, m, num_envs: int):
         self.m = m
         self.E = num_envs
+        self.batched = frozenset(per_env_smooth(m))
 
     def __call__(self, name: str) -> torch.Tensor:
-        return getattr(self.m, name)[..., None]
+        v = getattr(self.m, name)
+        if name in self.batched:
+            return torch.movedim(v, 0, -1)
+        return v[..., None]
 
     def host(self, name: str) -> np.ndarray:
         return host_array(self.m, name)
 
-    def plane(self, name: str, *idx) -> float:
+    def plane(self, name: str, *idx):
+        if name in self.batched:
+            return getattr(self.m, name)[(slice(None),) + idx]
         v = self.host(name)
         return float(v[idx]) if idx else float(v)
 

@@ -397,7 +397,7 @@ def passive_lm(m: Model, P: Params, k: dict, q, qvel):
         qadr = int(m.jnt_qposadr[j])
         vadr = int(m.jnt_dofadr[j])
         kstiff = P.plane("jnt_stiffness", j)
-        if kstiff == 0.0:  # structurally-zero spring
+        if isinstance(kstiff, float) and kstiff == 0.0:  # structurally-zero spring
             continue
         if jtype in (JNT_HINGE, JNT_SLIDE):
             qfrc[vadr] = qfrc[vadr] - kstiff * (
@@ -493,7 +493,7 @@ def actuator_vel_deriv_lm(m: Model, P: Params, ctrl, actuator_force):
         f = actuator_force[u]
         dfdv = None
         if int(m.actuator_biastype[u]) == 1:
-            dfdv = torch.full_like(f, P.plane("actuator_biasprm", u, 2))
+            dfdv = torch.zeros_like(f) + P.plane("actuator_biasprm", u, 2)
         if int(m.actuator_gaintype[u]) == 1:
             t = P.plane("actuator_gainprm", u, 2) * _ctrl_clipped(
                 m, P, ctrl, u

@@ -66,8 +66,7 @@ GEOM_CYLINDER = 5
 GEOM_BOX = 6
 GEOM_MESH = 7
 
-# model fields the smooth kernels read from their device tables; a
-# per-env (domain-randomised) copy of any of them is not carried yet
+# model fields the smooth kernels read from their device tables
 SMOOTH_HOST_FIELDS = (
     "qpos0", "body_pos", "body_quat", "jnt_pos", "jnt_axis",
     "body_ipos", "body_iquat", "geom_pos", "geom_quat",
@@ -76,6 +75,32 @@ SMOOTH_HOST_FIELDS = (
     "actuator_gear", "actuator_ctrlrange", "actuator_gainprm",
     "actuator_biasprm", "actuator_forcerange",
 )
+
+# the smooth fields of one value per row (the others hold a vector per row)
+SMOOTH_VECTOR_FIELDS = frozenset({
+    "qpos0", "qpos_spring", "body_mass", "dof_armature", "dof_damping",
+    "jnt_stiffness",
+})
+
+# the smooth fields a model may carry per env (a leading num_envs axis):
+# those a domain randomisation event writes. The kernels read such a field
+# from its (E, ...) tensor in place of the device table's constant; the
+# other smooth fields stay shared.
+PER_ENV_SMOOTH_FIELDS = frozenset({
+    "body_mass", "body_ipos", "body_inertia", "geom_pos", "dof_damping",
+    "dof_armature", "jnt_stiffness", "qpos0", "actuator_gainprm",
+    "actuator_biasprm",
+})
+
+
+def per_env_smooth(m: "Model") -> tuple[str, ...]:
+    """The plan of the smooth kernels' per-env fields: the sorted names of
+    PER_ENV_SMOOTH_FIELDS that m carries with a leading env axis, one axis
+    more than the shared field (the JAX package's dr_smooth_plan)."""
+    return tuple(sorted(
+        n for n in PER_ENV_SMOOTH_FIELDS
+        if getattr(m, n).dim() > (1 if n in SMOOTH_VECTOR_FIELDS else 2)
+    ))
 
 # contact slots emitted per (type1, type2) narrowphase; the table is the
 # engine's full pair catalog (the narrowphase of this package implements a

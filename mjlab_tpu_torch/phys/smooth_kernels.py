@@ -33,7 +33,8 @@ from mjlab_tpu_torch.phys.lm import stages
 from mjlab_tpu_torch.phys.lm.base import Params, quat_integrate
 from mjlab_tpu_torch.phys.model import (
     DSBL_EULERDAMP, DSBL_GRAVITY, INT_EULER, INT_IMPLICITFAST, JNT_BALL,
-    JNT_FREE, Model, cached, device_array,
+    JNT_FREE, SMOOTH_HOST_FIELDS, SMOOTH_VECTOR_FIELDS, Model, cached,
+    device_array, per_env_smooth,
 )
 
 SYM6 = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
@@ -161,6 +162,28 @@ _FLOAT_TABLES = (
 )
 
 
+class _EnvField(ctypes.Structure):
+    """Mirror of struct EnvField (csrc/smooth_common.cuh)."""
+
+    _fields_ = [("p", ctypes.c_void_p), ("stride", ctypes.c_int), ("width", ctypes.c_int)]
+
+
+# EnvFields' members (csrc/smooth_common.cuh) and the Model fields they read
+_ENV_FIELDS = (
+    ("qpos0", "qpos0"), ("body_ipos", "body_ipos"), ("body_mass", "body_mass"),
+    ("body_inertia", "body_inertia"), ("geom_pos", "geom_pos"),
+    ("dof_armature", "dof_armature"), ("dof_damping", "dof_damping"),
+    ("jnt_stiffness", "jnt_stiffness"), ("act_gainprm", "actuator_gainprm"),
+    ("act_biasprm", "actuator_biasprm"),
+)
+
+
+class _EnvFields(ctypes.Structure):
+    """Mirror of struct EnvFields (csrc/smooth_common.cuh)."""
+
+    _fields_ = [(n, _EnvField) for n, _ in _ENV_FIELDS]
+
+
 class _SmoothTables(ctypes.Structure):
     """Mirror of struct SmoothTables (csrc/smooth_common.cuh)."""
 
@@ -171,6 +194,7 @@ class _SmoothTables(ctypes.Structure):
         )]
         + [("timestep", ctypes.c_float), ("gravity", ctypes.c_float * 3)]
         + [(n, ctypes.c_void_p) for n in _INT_TABLES + _FLOAT_TABLES]
+        + [("env", _EnvFields)]
     )
 
 
@@ -189,12 +213,30 @@ class _SmoothTree(ctypes.Structure):
 class DeviceTables:
     """The model's tree and constants on the card, uploaded once per
     Model: two flat tensors with pointers in a SmoothTables struct, and the
-    tree schedule's tensor with pointers in a SmoothTree struct."""
+    tree schedule's tensor with pointers in a SmoothTree struct.
+
+    A field the model carries per env (model.per_env_smooth) is not a
+    constant: its table holds NaN (a read of it shows), and the kernels
+    read the Model's (E, ...) tensor through env_fields, at every launch.
+    Any other smooth field must have its shared shape: packed flat, an
+    (E, ...) one would give every env env 0's rows."""
 
     def __init__(self, m: Model):
         if m.nbody > _MAX_BODY:
             raise NotImplementedError(f"nbody {m.nbody} > {_MAX_BODY}")
-        hn = lambda name: getattr(m, name).detach().cpu().numpy()  # noqa: E731
+        planned = per_env_smooth(m)
+        for name in SMOOTH_HOST_FIELDS:
+            ndim = 1 if name in SMOOTH_VECTOR_FIELDS else 2
+            if name not in planned and getattr(m, name).dim() != ndim:
+                raise NotImplementedError(
+                    f"the smooth kernels take {name} shared or as a per-env "
+                    f"field of phys/model.py PER_ENV_SMOOTH_FIELDS, got shape "
+                    f"{tuple(getattr(m, name).shape)}"
+                )
+
+        def hn(name):
+            v = getattr(m, name).detach().cpu().numpy()
+            return np.full(v.shape[1:], np.nan, v.dtype) if name in planned else v
         pairs = _crb_pairs(m)
         _, dof_body, _ = stages.crb_static(m)
         ints = dict(
@@ -275,6 +317,27 @@ class DeviceTables:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _TABLES = ctypes.POINTER(_SmoothTables)
 _TREE = ctypes.POINTER(_SmoothTree)
+_ENV = ctypes.POINTER(_EnvFields)
+
+
+def env_fields(m: Model, E: int) -> _EnvFields:
+    """The per-env fields of m for one launch over E envs (EnvFields,
+    csrc/smooth_common.cuh): for each field of model.per_env_smooth(m) a
+    pointer to the Model's own (E, ...) tensor, which a domain
+    randomisation event writes in place, so the launch reads the values
+    of that moment (and a CUDA graph, the tensor a write between replays
+    changed); null for a shared field. Built at every launch: no pointer
+    outlives the tensor it points at."""
+    out = _EnvFields()
+    planned = per_env_smooth(m)
+    for member, name in _ENV_FIELDS:
+        if name not in planned:
+            continue
+        v = getattr(m, name)
+        _check_cuda(name, v, (E,) + tuple(v.shape[1:]))
+        width = v.shape[2] if v.dim() == 3 else 1
+        setattr(out, member, _EnvField(v.data_ptr(), v[0].numel(), width))
+    return out
 
 
 def device_tables(m: Model) -> DeviceTables:
@@ -373,11 +436,12 @@ def kin_com(m: Model, qT: torch.Tensor, mcT=None, mcqT=None):
     if G > len(collision_geoms(m)):
         outs[0].zero_()
         outs[1].zero_()
+    env = env_fields(m, E)
     launch = cuda_build.launcher(
-        "kin_com", "kin_com_launch", (_TABLES, _TREE) + (_P,) * 12 + (_I, _P)
+        "kin_com", "kin_com_launch", (_TABLES, _TREE, _ENV) + (_P,) * 12 + (_I, _P)
     )
     rc = launch(
-        ctypes.byref(t.struct), ctypes.byref(t.tree), cuda_build.ptr(qT),
+        ctypes.byref(t.struct), ctypes.byref(t.tree), ctypes.byref(env), cuda_build.ptr(qT),
         cuda_build.ptr(mcT), cuda_build.ptr(mcqT),
         *[cuda_build.ptr(o) for o in outs],
         ctypes.c_int(E), cuda_build.stream(),
@@ -486,12 +550,13 @@ def crb_dense(m: Model, cdof, cinA, cinc, mh_diag=None):
     t = device_tables(m)
     qM_cm = _empty((nv * nv, E), cdof)
     Mh_cm = None if mh_diag is None else _empty((nv * nv, E), cdof)
+    env = env_fields(m, E)
     launch = cuda_build.launcher(
-        "crb_packed", "crb_packed_launch", (_TABLES, _TREE) + (_P,) * 6 + (_I, _P)
+        "crb_packed", "crb_packed_launch", (_TABLES, _TREE, _ENV) + (_P,) * 6 + (_I, _P)
     )
     opt = lambda x: None if x is None else cuda_build.ptr(x)  # noqa: E731
     rc = launch(
-        ctypes.byref(t.struct), ctypes.byref(t.tree), cuda_build.ptr(cdof),
+        ctypes.byref(t.struct), ctypes.byref(t.tree), ctypes.byref(env), cuda_build.ptr(cdof),
         cuda_build.ptr(cinA), cuda_build.ptr(cinc), opt(mh_diag),
         cuda_build.ptr(qM_cm), opt(Mh_cm), ctypes.c_int(E), cuda_build.stream(),
     )
@@ -583,11 +648,12 @@ def vel_smooth(m: Model, qT, vT, ctrlT, cdof, cinA, cinc, xq):
     afrc = _empty((nu, E), vT)
     avel = _empty((nu, E), vT)
     diag = _empty((nv, E), vT)
+    env = env_fields(m, E)
     launch = cuda_build.launcher(
-        "vel_smooth", "vel_smooth_launch", (_TABLES, _TREE) + (_P,) * 14 + (_I, _P)
+        "vel_smooth", "vel_smooth_launch", (_TABLES, _TREE, _ENV) + (_P,) * 14 + (_I, _P)
     )
     rc = launch(
-        ctypes.byref(t.struct), ctypes.byref(t.tree),
+        ctypes.byref(t.struct), ctypes.byref(t.tree), ctypes.byref(env),
         *[cuda_build.ptr(x) for x in (
             qT, vT, ctrlT, cdof, cinA, cinc, subcom, xipos, xfrcT, qfaT,
             qfs, afrc, avel, diag,
@@ -638,8 +704,8 @@ def integrate_envlast(m: Model, qT, vT, qacc_int):
     """Env-last mj_step integration tail without activation states.
 
     qT (nq, E), vT (nv, E), qacc_int (nv, E) -> (qposT', qvelT', bad (E,));
-    a diverged env (non-finite or > 1e10) is re-seeded at qpos0, zero
-    velocity (mj_checkPos/Vel/Acc). Every joint of a kind is integrated by
+    a diverged env (non-finite or > 1e10) is re-seeded at (its own)
+    qpos0, zero velocity (mj_checkPos/Vel/Acc). Every joint of a kind is integrated by
     the same few tensor operations."""
     h = m.opt.timestep
     vT_new = vT + h * qacc_int
@@ -660,6 +726,6 @@ def integrate_envlast(m: Model, qT, vT, qacc_int):
         return torch.any(~torch.isfinite(x) | (torch.abs(x) > MAXVAL), dim=0)
 
     bad = bad_of(qT_new) | bad_of(vT_new) | bad_of(qacc_int)
-    qT_new = torch.where(bad, m.qpos0[:, None], qT_new)
+    qT_new = torch.where(bad, Params(m, qT.shape[-1])("qpos0"), qT_new)
     vT_new = torch.where(bad, 0.0, vT_new)
     return qT_new, vT_new, bad

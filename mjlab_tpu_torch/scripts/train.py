@@ -11,20 +11,26 @@ Usage (the card by default; --device cpu runs the plain PyTorch versions):
   python -m mjlab_tpu_torch.scripts.train Mjlab-Velocity-Flat-Unitree-G1 \
       --env.scene.num-envs 4096 --max-iterations 1000
   python -m mjlab_tpu_torch.scripts.train Mjlab-Lift-Cube-Yam --num-envs 4096
+  python -m mjlab_tpu_torch.scripts.train Mjlab-Tracking-Flat-Unitree-G1 \
+      --motion-file evidence/tracking_r4/motion.npz --num-envs 4096
 
 The tasks it trains are the port's registered ones: the four velocity
-tasks (Mjlab-Velocity-{Flat,Rough}-Unitree-{G1,Go1}) and the YAM arm's
-cube lift (Mjlab-Lift-Cube-Yam, which registers no runner class: it
-trains with OnPolicyRunner).
+tasks (Mjlab-Velocity-{Flat,Rough}-Unitree-{G1,Go1}), the YAM arm's cube
+lift (Mjlab-Lift-Cube-Yam, which registers no runner class: it trains
+with OnPolicyRunner) and the G1 motion tracking tasks
+(Mjlab-Tracking-Flat-Unitree-G1 and its -No-State-Estimation variant),
+whose motion comes from --motion-file (or the MJLAB_TPU_MOTION_FILE
+environment variable the task config reads).
 
 Checkpoints are rsl-rl ``model_<it>.pt`` files in the run's log dir (with
-``<run>.onnx`` beside them for the velocity tasks), the configs are dumped
-to ``params/{env,agent}.yaml``. --resume loads the newest run's newest
+``<run>.onnx`` beside them for the velocity tasks, and the motion-embedded
+``<run>.onnx`` for the tracking tasks), the configs are dumped to
+``params/{env,agent}.yaml``. --resume loads the newest run's newest
 checkpoint (the agent config's load_run and load_checkpoint regexes),
 --checkpoint an explicit one. Not ported, and each raises
 NotImplementedError: --distributed (data-parallel training),
---enable-nan-guard (the NaN guard), the tracking flags --registry-name and
---motion-file (no tracking task is ported).
+--enable-nan-guard (the NaN guard), and the tracking flag --registry-name
+(it fetches the motion from the W&B registry over the network).
 """
 
 from __future__ import annotations
@@ -195,9 +201,10 @@ def run_train(
             "ported")
     if enable_nan_guard:
         raise NotImplementedError("--enable-nan-guard: the NaN guard is not ported")
-    if registry_name is not None or motion_file is not None:
+    if registry_name is not None:
         raise NotImplementedError(
-            "--registry-name / --motion-file: no tracking task (motion command) is ported")
+            "--registry-name is not ported: fetching a motion from the W&B registry needs "
+            "the network and wandb; pass a local --motion-file")
 
     import mjlab_tpu_torch.tasks as tasks
     from mjlab_tpu_torch.envs import ManagerBasedRlEnv
@@ -219,6 +226,11 @@ def run_train(
     _apply_overrides(agent_cfg, agent_overrides or [])
     if resume:
         agent_cfg.resume = True
+    # tracking tasks: the motion from a local file (reference
+    # scripts/train.py:68-92)
+    if motion_file is not None and isinstance(env_cfg.commands, dict) \
+            and "motion" in env_cfg.commands:
+        env_cfg.commands["motion"].motion_file = motion_file
 
     if log_dir is None:
         stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
@@ -324,11 +336,11 @@ def main():
     )
     parser.add_argument(
         "--registry-name", default=None,
-        help="tracking tasks (not ported)",
+        help="tracking tasks: a W&B motion registry artifact (not ported: needs the network)",
     )
     parser.add_argument(
         "--motion-file", default=None,
-        help="tracking tasks (not ported)",
+        help="tracking tasks: a local motion npz",
     )
     parser.add_argument(
         "--env", action="append", default=[], help="env cfg override key=value"

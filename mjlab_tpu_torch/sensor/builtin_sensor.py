@@ -260,8 +260,9 @@ class BuiltinSensor(Sensor):
         if t == "subtreeangmom":
             sub = self._subtree_bodies
             h_tot = torch.einsum("ebij,ebj->ebi", d.cinert[:, sub], d.cvel[:, sub]).sum(1)
-            mass = m.body_mass[sub].to(d.xipos.dtype)
-            com = (mass[:, None] * d.xipos[:, sub]).sum(1) / torch.clamp(mass.sum(), min=1e-12)
+            mass = m.body_mass[..., sub].to(d.xipos.dtype)  # (nsub,) or per env (E, nsub)
+            com = ((mass[..., None] * d.xipos[:, sub]).sum(1)
+                   / torch.clamp(mass.sum(-1, keepdim=True), min=1e-12))
             O = d.subtree_com[:, self.tree_id]
             return h_tot[:, 0:3] + cross(O - com, h_tot[:, 3:6])
         fr = self._frame

@@ -33,8 +33,8 @@ from mjlab_tpu_torch.phys.hybrid import forward_hybrid, refresh_envlast, step_en
 from mjlab_tpu_torch.phys.lm.collision import PAIR_FAMILIES, PARAM_FIELDS, pair_families
 from mjlab_tpu_torch.phys.model import (
     CONE_ELLIPTIC, CONE_PYRAMIDAL, INT_EULER, INT_IMPLICITFAST,
-    SMOOTH_HOST_FIELDS, TRN_JOINT, Model, model_from_numpy, model_to_numpy,
-    put_model, resolve_device,
+    PER_ENV_SMOOTH_FIELDS, SMOOTH_HOST_FIELDS, SMOOTH_VECTOR_FIELDS, TRN_JOINT, Model,
+    model_from_numpy, model_to_numpy, put_model, resolve_device,
 )
 
 # mujoco.mjtIntegrator / mjtCone / mjtSolver values
@@ -133,23 +133,21 @@ def check_supported(m: Model) -> None:
     for name in SMOOTH_HOST_FIELDS:
         rows = getattr(m, _FIELD_ROWS[name.split("_")[0]])
         shape = tuple(getattr(m, name).shape)
-        ndim = 1 if name in _VECTOR_FIELDS else 2
+        ndim = 1 if name in SMOOTH_VECTOR_FIELDS else 2
+        if name in PER_ENV_SMOOTH_FIELDS and len(shape) == ndim + 1:
+            shape = shape[1:]  # carried per env (model.per_env_smooth)
         if len(shape) != ndim or shape[0] != rows:
             raise NotImplementedError(
-                f"per-env model field {name} {shape} is not ported yet"
+                f"per-env model field {name} {tuple(getattr(m, name).shape)} "
+                "is not ported yet"
             )
 
 
-# leading dimension of a model field, by its name's prefix, and the fields
-# that hold one value per row
+# leading dimension of a model field, by its name's prefix
 _FIELD_ROWS = dict(
     qpos0="nq", qpos="nq", body="nbody", jnt="njnt", geom="ngeom",
     dof="nv", actuator="nu",
 )
-_VECTOR_FIELDS = frozenset({
-    "qpos0", "qpos_spring", "body_mass", "dof_armature", "dof_damping",
-    "jnt_stiffness",
-})
 
 
 class Simulation:
@@ -227,20 +225,24 @@ class Simulation:
         """Give the named Model fields a leading num_envs axis, each env
         starting from the shared value (mjlab_tpu/sim/sim.py:145-162). A
         domain randomisation event then writes the (num_envs, ...) tensor
-        in place; the next step reads it. The slot parameters of the
-        contacts (phys/lm/collision.py PARAM_FIELDS) are the fields the
-        port carries per env; the others are not ported yet. Expand before
-        a control step is captured: the graph holds the Model it saw."""
+        in place; the next step, and the next replay of a captured one,
+        reads it. The port carries per env the slot parameters of the
+        contacts (phys/lm/collision.py PARAM_FIELDS) and the smooth fields
+        a randomisation event writes (phys/model.py PER_ENV_SMOOTH_FIELDS,
+        which the smooth kernels read per env); the others are not ported
+        yet. Expand before a control step is captured: the graph holds the
+        Model it saw."""
         if self._captured:
             raise RuntimeError(
                 "expand model fields before a control step is captured"
             )
         updates = {}
         for name in field_names:
-            if name not in PARAM_FIELDS:
+            if name not in PARAM_FIELDS and name not in PER_ENV_SMOOTH_FIELDS:
                 raise NotImplementedError(
-                    f"per-env model field {name} is not ported yet (the "
-                    f"port carries {sorted(PARAM_FIELDS)} per env)"
+                    f"per-env model field {name} is not ported yet (the port "
+                    f"carries {sorted(PARAM_FIELDS) + sorted(PER_ENV_SMOOTH_FIELDS)} "
+                    "per env)"
                 )
             if name in self._default_fields:
                 continue

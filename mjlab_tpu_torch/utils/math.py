@@ -11,12 +11,15 @@ import math
 
 import torch
 
-from mjlab_tpu_torch.phys.math import conj_quat, mul_quat, normalize_quat, rot_vec_quat
+from mjlab_tpu_torch.phys.math import (
+    conj_quat, mul_quat, normalize_quat, quat_sub, quat_to_mat, rot_vec_quat,
+)
 
 # the reference's names and argument order (quat_apply(q, v) rotates v by q)
 quat_mul = mul_quat
 quat_conjugate = conj_quat
 quat_inv = conj_quat  # unit quaternions
+matrix_from_quat = quat_to_mat
 
 
 def quat_apply(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -27,6 +30,19 @@ def quat_apply(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def quat_apply_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """v rotated by the inverse of the unit quaternion q."""
     return rot_vec_quat(v, conj_quat(q))
+
+
+def quat_error_magnitude(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """The angle of the rotation taking q2 to q1."""
+    return torch.linalg.vector_norm(quat_sub(q1, q2), dim=-1)
+
+
+def subtract_frame_transforms(p1, q1, p2, q2=None):
+    """The pose of frame 2 in frame 1 (T10 T02): (position, quaternion or
+    None when q2 is None)."""
+    q1_inv = conj_quat(q1)
+    p = rot_vec_quat(p2 - p1, q1_inv)
+    return p, None if q2 is None else mul_quat(q1_inv, q2)
 
 
 def mat_to_quat(m: torch.Tensor) -> torch.Tensor:

@@ -8,10 +8,13 @@ graph (sim.ControlStep), so that each replay draws fresh numbers. Because
 every draw passes through ``draw``, a test can substitute the JAX
 package's draws for the port's by overriding that one method.
 
-The kinds are those the JAX package draws: "uniform", "normal" and
-"integers" (jax.random.uniform, normal, randint) for the env, "normal" and
-"permutation" (jax.random.permutation of range(n), one per learning epoch)
-for the learner, which has a Rng of its own.
+The kinds are those the JAX package draws: "uniform", "normal",
+"integers" and "categorical" (jax.random.uniform, normal, randint,
+categorical) for the env, "normal" and "permutation"
+(jax.random.permutation of range(n), one per learning epoch) for the
+learner, which has a Rng of its own. A categorical draw inverts the CDF of
+its probabilities at one uniform draw per sample (JAX takes the arg max of
+Gumbel noise: the same distribution, other numbers).
 
 The samplers keep the JAX package's formulas: ``uniform(shape, lo, hi)``
 is jax.random.uniform with minval/maxval (lo + u (hi - lo), at least lo);
@@ -36,11 +39,18 @@ class Rng:
         self.generator.manual_seed(int(seed))
 
     def draw(self, kind: str, shape: tuple, dtype: torch.dtype,
-             low: int = 0, high: int = 1) -> torch.Tensor:
+             low: int = 0, high: int = 1, probs: torch.Tensor | None = None) -> torch.Tensor:
         """The one source of randomness: ``kind`` "uniform" ([0, 1)),
-        "normal" (N(0, 1)), "integers" ([low, high), int32) or
-        "permutation" (a permutation of range(shape[0]), int64)."""
+        "normal" (N(0, 1)), "integers" ([low, high), int32), "categorical"
+        (indices into ``probs`` (n,), non-negative and not all zero, with
+        those relative weights; int64) or "permutation" (a permutation of
+        range(shape[0]), int64)."""
         g, dev = self.generator, self.device
+        if kind == "categorical":
+            cdf = torch.cumsum(probs, 0)
+            u = torch.rand(shape, generator=g, device=dev, dtype=cdf.dtype)
+            idx = torch.searchsorted(cdf, (u * cdf[-1]).contiguous(), right=True)
+            return idx.clamp_max(cdf.shape[0] - 1)
         if kind == "uniform":
             return torch.rand(shape, generator=g, device=dev, dtype=dtype)
         if kind == "normal":
@@ -69,4 +79,8 @@ class Rng:
 
     def integers(self, shape, low: int, high: int) -> torch.Tensor:
         return self.draw("integers", tuple(shape), torch.int32, low, high)
+
+    def categorical(self, shape, probs: torch.Tensor) -> torch.Tensor:
+        """Indices into probs (n,) drawn with its relative weights."""
+        return self.draw("categorical", tuple(shape), torch.int64, probs=probs)
 

@@ -2,6 +2,7 @@
 """Device time of the port's three smooth-stage kernels on one CUDA card.
 
     python scripts/smooth_kernel_times.py [--root DIR] [--label NAME] [--reps N]
+                                          [--per-env FIELD,... | --per-env all]
 
 Imports mjlab_tpu_torch from DIR (default: this checkout), builds its CUDA
 sources into DIR/build/kernels, and runs kin_com, crb_packed and
@@ -26,6 +27,12 @@ Two trees compare on one card in one call, in turns:
 --no-check times a copy whose kernels skip work on purpose, without the
 comparison: e.g. a copy with `return;` put before a phase of kin_com.cu
 and vel_smooth.cu times the phases before it (PERF.md's phase split).
+
+--per-env gives the models the named fields per env (phys/model.py
+PER_ENV_SMOOTH_FIELDS; "all" for every one): (E, ...) tensors of the
+shared values times 1 + 1 % seeded noise, which the kernels read through
+their per-env accessor (csrc/smooth_tree.cuh mcv) and the plain versions
+through Params.plane. A tree without per-env fields cannot take it.
 """
 
 from __future__ import annotations
@@ -81,6 +88,23 @@ def inputs(path: str, device):
     return m, qT, vT, ctrlT, mcT, mcqT, xfrcT, qfaT
 
 
+def per_env(m, names):
+    """m with ``names`` carried per env: the shared values times 1 + 1 %
+    noise, one (E, ...) tensor each."""
+    import dataclasses
+
+    import torch
+
+    gen = torch.Generator(device=m.device).manual_seed(1)
+    upd = {}
+    for n in names:
+        v = getattr(m, n)
+        shape = (E,) + tuple(v.shape)
+        noise = 1 + 0.01 * torch.randn(shape, generator=gen, device=v.device, dtype=v.dtype)
+        upd[n] = (v.expand(shape) * noise).contiguous()
+    return dataclasses.replace(m, **upd)
+
+
 def device_ms_per_call(fn, reps: int) -> tuple[float, float]:
     """(device ms per call of fn, CUDA kernels per call): every kernel
     record of reps calls under the profiler, summed, after a warm call."""
@@ -106,6 +130,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--no-check", action="store_true",
                     help="time only (for builds whose kernels skip work on purpose)")
+    ap.add_argument("--per-env", default="",
+                    help="model fields carried per env, comma-separated, or 'all'")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     cs = load_chip_smoke()
@@ -122,9 +148,18 @@ def main() -> int:
     cuda_build.build_all()
     regs = {name: cuda_build.ptxas_report(name)
             for name in ("kin_com", "crb_packed", "vel_smooth")}
-    out = {"label": args.label or str(root), "root": str(root), "registers": regs}
+    fields = []
+    if args.per_env:
+        from mjlab_tpu_torch.phys.model import PER_ENV_SMOOTH_FIELDS
+
+        fields = (sorted(PER_ENV_SMOOTH_FIELDS) if args.per_env == "all"
+                  else args.per_env.split(","))
+    label = args.label or str(root) + (f" per-env {','.join(fields)}" if fields else "")
+    out = {"label": label, "root": str(root), "registers": regs, "per_env": fields}
     for path in ("g1", "yam"):
         m, qT, vT, ctrlT, mcT, mcqT, xfrcT, qfaT = inputs(path, "cuda")
+        if fields:
+            m = per_env(m, fields)
         kin = sk.kin_com_plain(m, qT, mcT, mcqT)
         _, _, subcom, cdof, cinA, cinc, xipos, _, _ = kin
         xq = (subcom, xipos, xfrcT, qfaT)

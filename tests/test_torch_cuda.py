@@ -24,6 +24,7 @@ package. E = 300 is not a multiple of the smooth kernels' 16 envs per block
 """
 
 import ctypes
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -176,6 +177,84 @@ def test_kernels_match_plain_versions(E, cuda):
         sim.step()
     it_k, kw = _check_kernels(m, sim.data, cuda, dead_envs=(5,))
     assert int(it_k.max()) == kw["iterations"]
+
+
+def _per_env_fields(m, rng, names=tuple(sorted(pm.PER_ENV_SMOOTH_FIELDS)), E=None):
+    """m with ``names`` per env (E, ...), drawn as a randomisation event
+    would: offsets of centimetres, scales of +-20-50 %, springs on every
+    joint, qpos0 moved; the actuators' three parameters scaled."""
+    upd = {}
+    for n in names:
+        v = getattr(m, n)
+        shape = (E,) + tuple(v.shape)
+        u = lambda lo, hi: torch.empty(shape, device=v.device).uniform_(  # noqa: E731
+            lo, hi, generator=rng)
+        g = lambda s: s * torch.randn(shape, device=v.device, generator=rng)  # noqa: E731
+        x = v.expand(shape).clone()
+        if n in ("body_ipos", "geom_pos"):
+            x += g(0.02)
+        elif n in ("body_mass", "body_inertia"):
+            x *= u(0.8, 1.2)
+        elif n == "dof_damping":
+            x = x * u(0.5, 1.5) + u(0.0, 0.1)
+        elif n == "dof_armature":
+            x += u(0.0, 0.05)
+        elif n == "jnt_stiffness":
+            x += u(0.0, 5.0)
+        elif n == "qpos0":
+            x += g(0.05)
+        else:
+            x[..., :3] *= u(0.8, 1.2)[..., :3]
+        upd[n] = x.contiguous()
+    return dataclasses.replace(m, **upd)
+
+
+@pytest.mark.parametrize("E", [256, 300])
+def test_kernels_with_per_env_fields_match_plain_versions(E, cuda):
+    """Kernels 1-3 (and the solve on their outputs) with every field of
+    PER_ENV_SMOOTH_FIELDS per env against their plain versions, which read
+    the same values through Params.plane: the G1 settled for 10 steps with
+    those fields (the tracking task batches the torso's body_ipos), then
+    joint_toy (springs on every joint type, a position actuator and a
+    force-limited motor: qpos0, jnt_stiffness, gain and bias per env)."""
+    m, key_qpos, key_ctrl = physics.load_saved_model(device=cuda)
+    rng = torch.Generator(device=cuda).manual_seed(E)
+    m = _per_env_fields(m, rng, E=E)
+    assert pm.per_env_smooth(m) == tuple(sorted(pm.PER_ENV_SMOOTH_FIELDS))
+    sim = Simulation(E, physics.sim_cfg(), m, device=cuda)
+    q, v, c = _state(key_qpos, key_ctrl, E)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=cuda)  # noqa: E731
+    sim.data = sim.data.replace(qpos=t(q), qvel=t(v), ctrl=t(c))
+    for _ in range(10):
+        sim.step()
+    assert int(sim.data.ncheck_reset.sum()) == 0
+    _check_kernels(sim.model, sim.data, cuda, stable_only=True)
+
+    toy, _ = pm.load_model(Path(__file__).parent / "models" / "joint_toy.npz", device=cuda)
+    toy = _per_env_fields(toy, rng, E=E)
+    gen = np.random.default_rng(E)
+    f = lambda x: torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float32,  # noqa: E731
+                                  device=cuda)
+    qT = f(toy.qpos0.cpu().numpy().T + 0.3 * gen.standard_normal((toy.nq, E)))
+    vT = f(gen.standard_normal((toy.nv, E)))
+    ctrlT = f(2 * gen.standard_normal((toy.nu, E)))
+    xq_in = (f(0.1 * gen.standard_normal((toy.nbody, 6, E))), f(0.1 * gen.standard_normal((toy.nv, E))))
+    kin_k = sk.kin_com(toy, qT)
+    kin_p = sk.kin_com_plain(toy, qT)
+    for p, k in zip(kin_p, kin_k):
+        assert rel_err(p, k) < 2e-6
+    _, _, subcom, cdof, cinA, cinc, xipos, _, _ = kin_p
+    xq = (subcom, xipos) + xq_in
+    vs_k = sk.vel_smooth(toy, qT, vT, ctrlT, cdof, cinA, cinc, xq)
+    vs_p = sk.vel_smooth_plain(toy, qT, vT, ctrlT, cdof, cinA, cinc, xq)
+    for p, k in zip(vs_p, vs_k):
+        assert rel_err(p, k) < 5e-6
+    crb_k = sk.crb_dense(toy, cdof, cinA, cinc, vs_p[3])
+    crb_p = sk.crb_dense_plain(toy, cdof, cinA, cinc, vs_p[3])
+    for p, k in zip(crb_p, crb_k):
+        assert rel_err(p, k) < 5e-6
+    # the envs differ: each read its own values
+    assert not torch.equal(kin_k[6][:, :, 0], kin_k[6][:, :, 1])
 
 
 # the toys' own options (their XML): dt 0.002, 8 Newton and 12 line-search
@@ -633,6 +712,40 @@ def test_replay_sees_reset_and_friction_writes(cuda):
     with pytest.raises(RuntimeError, match="captured"):
         sim_c.expand_model_fields(["geom_solref"])
 
+
+
+def test_replay_reads_per_env_body_ipos_written_between_replays(cuda):
+    """The torso's body_ipos per env (the tracking task's base_com event),
+    written in place between replays: the next replay reads the new values
+    (kin_com reads the Model's tensor at every launch; nothing is
+    snapshotted at capture), as its eager twin does."""
+    pair = _g1_env_pair(cuda, E=128)
+    for sim, _, _ in pair:
+        sim.expand_model_fields(["body_ipos"])
+    (sim_e, _, eager), (sim_c, _, cap) = pair
+    cap.capture()
+    eager.eager()
+    cap.replay()
+    torso = sim_c.model.body_names.index("robot/torso_link")
+    shift = torch.zeros(128, 3, device=cuda)
+    shift[:, 0] = torch.linspace(-0.025, 0.025, 128, device=cuda)
+    shift[:, 2] = 0.05
+    for sim in (sim_e, sim_c):
+        sim.model.body_ipos[:, torso] += shift
+    eager.eager()
+    cap.replay()
+    torch.cuda.synchronize()
+    _assert_steps_agree(sim_e.data, sim_c.data, "g1")
+    d = sim_c.data
+    # the refresh after the replay placed the torso's com at the new offset
+    rot = _quat_rotate(d.xquat[:, torso], sim_c.model.body_ipos[:, torso])
+    assert torch.allclose(d.xipos[:, torso], d.xpos[:, torso] + rot, atol=1e-5)
+
+
+def _quat_rotate(q, v):
+    w, u = q[:, :1], q[:, 1:]
+    uv = torch.linalg.cross(u, v, dim=-1)
+    return v + 2.0 * (w * uv + torch.linalg.cross(u, uv, dim=-1))
 
 
 # ---------------------------------------------------------------------------

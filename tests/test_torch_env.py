@@ -192,18 +192,23 @@ def test_dims_match_jax(run):
 VELOCITY_TASKS = ("Mjlab-Velocity-Flat-Unitree-G1", "Mjlab-Velocity-Rough-Unitree-G1",
                   "Mjlab-Velocity-Flat-Unitree-Go1", "Mjlab-Velocity-Rough-Unitree-Go1")
 YAM_TASK = "Mjlab-Lift-Cube-Yam"
+TRACKING_TASKS = ("Mjlab-Tracking-Flat-Unitree-G1",
+                  "Mjlab-Tracking-Flat-Unitree-G1-No-State-Estimation")
+MOTION = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                      "evidence", "tracking_r4", "motion.npz")
 # (action dim, policy obs dim) of each task's env, the JAX env's
 # (tests/test_torch_env_yam.py holds the YAM's against it)
-TASK_DIMS = {"G1": (29, 99), "Go1": (12, 48), "Yam": (7, 29)}
+TASK_DIMS = {"G1": (29, 99), "Go1": (12, 48), "Yam": (7, 29),
+             TRACKING_TASKS[0]: (29, 160)}
 
 
-@pytest.mark.parametrize("task", VELOCITY_TASKS + (YAM_TASK,))
+@pytest.mark.parametrize("task", VELOCITY_TASKS + (YAM_TASK, TRACKING_TASKS[0]))
 def test_env_builds_and_steps_without_mujoco(task):
     """The port's env of each ported task and its play variant, from its
     registry, in a Python where importing mujoco fails (the card's machine
     has none) and jax is never imported: the Model comes from the task's
     model file, a rough task's height field from the terrain the env
-    generates."""
+    generates, the tracking task's motion from MJLAB_TPU_MOTION_FILE."""
     code = (
         "import sys; sys.modules['mujoco'] = None\n"
         "import torch\n"
@@ -223,9 +228,10 @@ def test_env_builds_and_steps_without_mujoco(task):
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                        text=True, timeout=CHILD_TIMEOUT_S,
-                       env={**os.environ, "MJLAB_QUIET": "1", **CHILD_THREADS})
+                       env={**os.environ, "MJLAB_QUIET": "1", "MJLAB_TPU_MOTION_FILE": MOTION,
+                            **CHILD_THREADS})
     assert r.returncode == 0 and r.stdout.strip().startswith("ok"), r.stderr[-2000:]
-    want = TASK_DIMS[task.rsplit("-", 1)[1]]
+    want = TASK_DIMS.get(task) or TASK_DIMS[task.rsplit("-", 1)[1]]
     assert tuple(int(x) for x in r.stdout.split()[1:3]) == want
 
 
@@ -249,9 +255,10 @@ def test_registry_matches_jax():
     from mjlab_tpu_torch import tasks
 
     assert set(tasks.list_tasks()) <= set(jtasks.list_tasks())
-    assert set(tasks.list_tasks()) == set(VELOCITY_TASKS) | {YAM_TASK}
+    assert set(tasks.list_tasks()) == set(VELOCITY_TASKS) | {YAM_TASK} | set(TRACKING_TASKS)
     assert [t for t in jtasks.list_tasks() if "Velocity" in t] == sorted(VELOCITY_TASKS)
-    for task in VELOCITY_TASKS + (YAM_TASK,):
+    assert [t for t in jtasks.list_tasks() if "Tracking" in t] == sorted(TRACKING_TASKS)
+    for task in VELOCITY_TASKS + (YAM_TASK,) + TRACKING_TASKS:
         play = tasks.load_env_cfg(task, play=True)
         assert play.episode_length_s > 1e6
         assert play.observations["policy"].enable_corruption is False
@@ -264,22 +271,38 @@ def test_registry_matches_jax():
     assert play.episode_length_s == jplay.episode_length_s == int(1e9)
     assert sorted(play.events) == sorted(jplay.events)
     assert play.observations["critic"].enable_corruption is False
+    # the tracking tasks' play variants: the motion from its start, no
+    # noise; the observation groups the JAX package's, term for term
+    for task in TRACKING_TASKS:
+        for is_play in (False, True):
+            jc, pc = (t.load_env_cfg(task, play=is_play) for t in (jtasks, tasks))
+            jm, pmo = jc.commands["motion"], pc.commands["motion"]
+            for f in ("sampling_mode", "pose_range", "velocity_range", "joint_position_range",
+                      "anchor_body_name", "body_names", "adaptive_kernel_size",
+                      "adaptive_lambda", "adaptive_uniform_ratio", "adaptive_alpha"):
+                assert getattr(jm, f) == getattr(pmo, f), (task, f)
+            assert sorted(jc.events) == sorted(pc.events)
+            for g in ("policy", "critic"):
+                assert list(jc.observations[g].terms) == list(pc.observations[g].terms)
+            assert (jc.sim.nconmax, jc.sim.njmax) == (pc.sim.nconmax, pc.sim.njmax) == (35, 250)
+        assert tasks.load_env_cfg(task, play=True).commands["motion"].sampling_mode == "start"
     # the learner's config and runner: the JAX task's, field for field, but
     # for the checkpoint file the port writes
     import dataclasses
 
     from mjlab_tpu_torch.tasks import registry
+    from mjlab_tpu_torch.tasks.tracking.rl import MotionTrackingOnPolicyRunner
     from mjlab_tpu_torch.tasks.velocity.rl import VelocityOnPolicyRunner
 
-    for task in VELOCITY_TASKS + (YAM_TASK,):
+    runners = {YAM_TASK: None, **{t: MotionTrackingOnPolicyRunner for t in TRACKING_TASKS}}
+    for task in VELOCITY_TASKS + (YAM_TASK,) + TRACKING_TASKS:
         want = dataclasses.asdict(jtasks.load_rl_cfg(task))
         got = dataclasses.asdict(tasks.load_rl_cfg(task))
         assert want.pop("load_checkpoint") == "model_.*.ckpt"
         assert got.pop("load_checkpoint") == "model_.*.pt"
         assert got == want, task
         # the YAM registers no runner class (the train CLI's OnPolicyRunner)
-        assert tasks.load_runner_cls(task) is (
-            None if task == YAM_TASK else VelocityOnPolicyRunner)
+        assert tasks.load_runner_cls(task) is runners.get(task, VelocityOnPolicyRunner)
         assert jtasks.load_runner_cls(task) is not None or task == YAM_TASK
     # a task registered without a PPO config
     with pytest.MonkeyPatch.context() as mp:

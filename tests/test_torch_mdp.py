@@ -295,12 +295,13 @@ def test_reset_scene_to_default_matches_jax(envs):
 
 
 @pytest.mark.parametrize("name", ["apply_external_force_torque", "randomize_pd_gains",
-                                  "randomize_effort_limits", "randomize_encoder_bias",
-                                  "sync_actuator_delays", "randomize_terrain"])
+                                  "randomize_effort_limits", "sync_actuator_delays",
+                                  "randomize_terrain"])
 def test_unported_event_raises_naming_itself(envs, name):
     """Each event term not ported raises naming itself. randomize_terrain is
     ported (test_randomize_terrain_matches_jax): on the flat env's plane it
-    draws nothing and changes no state, as the JAX term does there."""
+    draws nothing and changes no state, as the JAX term does there.
+    randomize_encoder_bias is ported (test_randomize_encoder_bias_matches_jax)."""
     from mjlab_tpu_torch.envs.mdp import events
 
     penv = envs[1]
@@ -833,3 +834,214 @@ def test_yam_friction_events_in_order_keep_the_last_axis(yam_envs):
     np.testing.assert_array_max_ulp(got, want, maxulp=1)
     np.testing.assert_array_equal(got[:, :, :2], np.broadcast_to(default[:, :2], got[:, :, :2].shape))
     assert np.unique(got[:, geoms, 2]).size == E * len(geoms)
+
+
+# ---------------------------------------------------------------------------
+# the G1 motion-tracking task (tasks/tracking/)
+# ---------------------------------------------------------------------------
+
+TRACK_TASK = "Mjlab-Tracking-Flat-Unitree-G1"
+TRACK_OBS_TERMS = ("command", "motion_anchor_pos_b", "motion_anchor_ori_b", "body_pos",
+                   "body_ori", "joint_pos")
+TRACK_REWARD_TERMS = ("motion_global_root_pos", "motion_global_root_ori", "motion_body_pos",
+                      "motion_body_ori", "motion_body_lin_vel", "motion_body_ang_vel",
+                      "action_rate_l2", "joint_limit", "self_collisions")
+TRACK_TERMINATION_TERMS = ("time_out", "anchor_pos", "anchor_ori", "ee_body_pos")
+TRACK_EE = ("left_ankle_roll_link", "right_wrist_yaw_link")
+TRACK_LIBRARY = {
+    "bad_anchor_pos": {"threshold": 0.25},
+    "bad_motion_body_pos": {"threshold": 0.25, "body_names": TRACK_EE},
+    "mpkpe": {},
+    "root_relative_mpkpe": {},
+    "joint_velocity_error": {},
+    "ee_position_error": {"body_names": TRACK_EE},
+    "ee_orientation_error": {"body_names": TRACK_EE},
+}
+
+
+@pytest.fixture(scope="module")
+def track_envs():
+    """The tracking env pair on evidence/tracking_r4/motion.npz, the port's
+    at float64: reset, 3 steps of 0.5 N(0, 1) actions; then env 0 lifted
+    0.4 m (the anchor's height), env 2 rolled 90 degrees (the anchor's
+    orientation), env 3's left arm raised (the end effectors), the
+    failure counts' moving average and the encoder bias random, and a
+    refresh."""
+    import math
+    import os
+
+    motion = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "evidence", "tracking_r4", "motion.npz")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MJLAB_TPU_MOTION_FILE", motion)
+        jenv, penv = env_pair(TRACK_TASK, E, "float64")
+    penv.reset()
+    rs = np.random.default_rng(2)
+    for _ in range(STEPS):
+        penv.step(torch.as_tensor(0.5 * rs.standard_normal((E, 29)), dtype=torch.float32))
+    q = penv.sim.data.qpos.clone()
+    q[0, 2] += 0.4
+    a = math.radians(90.0) / 2
+    q[2, 3:7] = torch.as_tensor([math.cos(a), math.sin(a), 0.0, 0.0])
+    q[3, 22] = -2.8
+    penv.sim.data = penv.sim.data.replace(qpos=q)
+    penv.sim.refresh()
+    cmd = penv.command_manager.get_term("motion")
+    cmd.state["bin_failed_count"].copy_(torch.as_tensor(rs.uniform(0, 0.2, cmd.bin_count)))
+    penv.scene["robot"].state.encoder_bias.copy_(
+        torch.as_tensor(0.01 * rs.standard_normal((E, 29))))
+    yield jenv, penv
+
+
+@pytest.mark.parametrize("name", TRACK_OBS_TERMS)
+def test_tracking_observation_term_matches_jax(track_envs, name):
+    def call(env):
+        group = "policy" if name == "joint_pos" else "critic"
+        c = _cfg_term(env, "observation_manager", group, name)
+        return c.func(env, **c.params)
+    want, got = _both(track_envs, call, call)
+    _close(want, got)
+    assert np.abs(want).max() > 1e-3
+
+
+@pytest.mark.parametrize("name", TRACK_REWARD_TERMS)
+def test_tracking_reward_term_matches_jax(track_envs, name):
+    def call(env):
+        c = _cfg_term(env, "reward_manager", None, name)
+        return c.func(env, **c.params)
+    want, got = _both(track_envs, call, call)
+    _close(want, got)
+    assert np.isfinite(want).all()
+
+
+@pytest.mark.parametrize("name", TRACK_TERMINATION_TERMS)
+def test_tracking_termination_term_matches_jax(track_envs, name):
+    def call(env):
+        c = _cfg_term(env, "termination_manager", None, name)
+        return c.func(env, **c.params)
+    want, got = _both(track_envs, call, call)
+    np.testing.assert_array_equal(want, tnp(got).astype(bool))
+    fired = {"anchor_pos": 0, "anchor_ori": 2, "ee_body_pos": 3}
+    if name in fired:
+        assert want[fired[name]], (name, want)
+
+
+@pytest.mark.parametrize("name", list(TRACK_LIBRARY))
+def test_tracking_library_term_matches_jax(track_envs, name):
+    """The tracking terms no config uses (bad_anchor_pos,
+    bad_motion_body_pos) and the evaluation metrics."""
+    import mjlab_tpu.tasks.tracking.mdp as jmdp
+    import mjlab_tpu_torch.tasks.tracking.mdp as pmdp
+
+    params = {"command_name": "motion", **TRACK_LIBRARY[name]}
+    want, got = _both(track_envs, lambda e: getattr(jmdp, name)(e, **params),
+                      lambda e: getattr(pmdp, name)(e, **params))
+    if want.dtype == bool:
+        np.testing.assert_array_equal(want, tnp(got).astype(bool))
+    else:
+        _close(want, got)
+
+
+def _motion_state(env, jax_side):
+    s = env.command_manager.get_term("motion").state
+    out = {k: s[k] for k in ("time_steps", "body_pos_relative_w", "body_quat_relative_w",
+                             "bin_failed_count", "current_bin_failed", "time_left")}
+    out.update({f"metric/{k}": v for k, v in s["metrics"].items()})
+    d = env.ctx.data if jax_side else env.sim.data
+    out.update(qpos=d.qpos, qvel=d.qvel)
+    return out if jax_side else {k: v.clone() for k, v in out.items()}
+
+
+@pytest.mark.parametrize("what", ["resample_adaptive", "resample_uniform", "resample_start",
+                                  "compute", "reset"])
+def test_motion_command_matches_jax(track_envs, what):
+    """The motion command's _resample on a mask in each sampling mode (the
+    frames: adaptive with envs 0 and 2 failed, their bins counted, a
+    categorical draw per env and a uniform offset; then the robot at the
+    drawn frames with pose, velocity and joint noise), its per-step
+    compute (the metrics, the frames advanced, env 1 past the motion's
+    end resampled, the reference re-expressed around the anchor, the
+    failure counts' moving average) and its reset (with the Metrics/
+    logs), with JAX's draws played back (the categorical draw's indices
+    among them)."""
+    mask = np.array([True, False, True, True])
+    jenv, penv = track_envs
+    term = penv.command_manager.get_term("motion")
+    T = term.motion.time_step_total
+    saved = _motion_state(penv, False)
+    saved_term = penv.termination_manager.terminated.clone()
+    mode = term.cfg.sampling_mode
+    term.state["time_steps"][1] = T - 1
+    penv.termination_manager.terminated.copy_(torch.as_tensor([True, True, True, False]))
+    if what.startswith("resample_"):
+        term.cfg.sampling_mode = what.split("_")[1]
+
+    def run(e, jax_side):
+        t = e.command_manager.get_term("motion")
+        t.cfg.sampling_mode = term.cfg.sampling_mode
+        m = jnp.asarray(mask) if jax_side else torch.as_tensor(mask)
+        logs = {}
+        if what.startswith("resample"):
+            if jax_side:
+                t.state = t._resample(dict(t.state), m, e.ctx.next_key())
+            else:
+                t._resample(m)
+        elif what == "compute":
+            t.compute(e.step_dt)
+        else:
+            logs = t.reset(m)
+        out = _motion_state(e, jax_side)
+        out.update(logs)
+        return out
+    try:
+        want, got = _draws_pair(track_envs, lambda e: run(e, True), lambda e: run(e, False))
+    finally:
+        term.cfg.sampling_mode = mode
+        jenv.command_manager.get_term("motion").cfg.sampling_mode = mode
+        for k in ("time_steps", "body_pos_relative_w", "body_quat_relative_w",
+                  "bin_failed_count", "current_bin_failed", "time_left"):
+            term.state[k].copy_(saved[k])
+        for k, v in term.state["metrics"].items():
+            v.copy_(saved[f"metric/{k}"])
+        penv.termination_manager.terminated.copy_(saved_term)
+        penv.sim.data = penv.sim.data.replace(qpos=saved["qpos"], qvel=saved["qvel"])
+    np.testing.assert_array_equal(want.pop("time_steps"), got.pop("time_steps").numpy())
+    _close(want, got, atol=DRAW_ATOL)
+    # env 1 runs past the motion's end in the update of compute and reset
+    moved = np.abs(want["qpos"][:, :7] - tnp(saved["qpos"])[:, :7]).max(1) > 0
+    assert moved.tolist() == {"compute": [False, True, False, False],
+                              "reset": [True] * 4}.get(what, mask.tolist())
+    if what == "resample_adaptive":
+        assert want["current_bin_failed"].sum() == 2.0
+
+
+@pytest.mark.parametrize("joints", ["all", "knees"])
+def test_randomize_encoder_bias_matches_jax(track_envs, joints):
+    """The per-episode encoder offset on a mask, for every joint and for a
+    subset (the others keep theirs), with JAX's draws played back."""
+    from mjlab_tpu.envs.mdp.events import randomize_encoder_bias as jev
+    from mjlab_tpu.managers.scene_entity_config import SceneEntityCfg as JCfg
+    from mjlab_tpu_torch.envs.mdp.events import randomize_encoder_bias as pev
+    from mjlab_tpu_torch.managers.scene_entity_config import SceneEntityCfg as PCfg
+
+    jenv, penv = track_envs
+    names = (".*",) if joints == "all" else (".*_knee_joint",)
+    saved = penv.scene["robot"].state.encoder_bias.clone()
+
+    def run(e, jax_side):
+        cfg = (JCfg if jax_side else PCfg)("robot", joint_names=names)
+        cfg.resolve(e.scene)
+        m = jnp.asarray(MASK) if jax_side else torch.as_tensor(MASK)
+        (jev if jax_side else pev)(e, m, bias_range=(-0.01, 0.01), asset_cfg=cfg)
+        if jax_side:
+            return e.ctx.entity_states["robot"].encoder_bias
+        return e.scene["robot"].data.encoder_bias.clone()
+    try:
+        want, got = _draws_pair(track_envs, lambda e: run(e, True), lambda e: run(e, False))
+    finally:
+        penv.scene["robot"].state.encoder_bias.copy_(saved)
+    _close(want, got, atol=DRAW_ATOL)
+    changed = tnp(got) != tnp(saved)
+    assert changed.any(1).tolist() == MASK.tolist()
+    if joints == "knees":
+        assert changed.sum(1).max() == 2

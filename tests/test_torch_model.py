@@ -345,10 +345,13 @@ def test_check_supported_rejects_pyramidal_equality_on_cuda():
 
 
 def test_simulation_raises_on_batched_smooth_fields():
+    """A per-env smooth field outside PER_ENV_SMOOTH_FIELDS is refused;
+    body_mass per env is carried (tests/test_torch_dr_smooth.py)."""
     m = pm.put_model(toy_mj(), nconmax=TOY_NCONMAX, device="cpu")
-    batched = dataclasses.replace(m, body_mass=m.body_mass.expand(4, -1).clone())
-    with pytest.raises(NotImplementedError, match="body_mass"):
+    batched = dataclasses.replace(m, body_pos=m.body_pos.expand(4, -1, -1).clone())
+    with pytest.raises(NotImplementedError, match="body_pos"):
         check_supported(batched)
+    check_supported(dataclasses.replace(m, body_mass=m.body_mass.expand(4, -1).clone()))
 
 
 def test_saved_g1_model_matches_fresh_conversion():
@@ -385,15 +388,18 @@ def _new_model_files():
 
     return {"g1_rough": ("Mjlab-Velocity-Rough-Unitree-G1", g1.ROUGH_MODEL),
             "go1_flat": ("Mjlab-Velocity-Flat-Unitree-Go1", go1.FLAT_MODEL),
-            "go1_rough": ("Mjlab-Velocity-Rough-Unitree-Go1", go1.ROUGH_MODEL)}
+            "go1_rough": ("Mjlab-Velocity-Rough-Unitree-Go1", go1.ROUGH_MODEL),
+            "g1_tracking": ("Mjlab-Tracking-Flat-Unitree-G1", g1.SAVED_MODEL)}
 
 
-@pytest.mark.parametrize("name", ["g1_rough", "go1_flat", "go1_rough"])
+@pytest.mark.parametrize("name", ["g1_rough", "go1_flat", "go1_rough", "g1_tracking"])
 def test_saved_velocity_model_files_match_fresh_conversions(name):
     """The rough G1 and the Go1 model files are the conversion of their
     task's scene compiled now (a rough scene with the smallest generated
     terrain, scene.model_file_scene_cfg), array for array, with the
-    keyframe and the XML sensors."""
+    keyframe and the XML sensors. The G1 tracking task's scene (the G1 on a
+    plane with the self-collision sensor alone, njmax 250) compiles to the
+    flat velocity task's g1_velocity_flat.npz, which it loads."""
     from mjlab_tpu_torch.scene.scene import (
         Scene, model_file_scene_cfg, xml_sensors, xml_sensors_from_arrays,
     )

@@ -229,6 +229,8 @@ def _struct_fields(header: str, name: str) -> list[str]:
 @pytest.mark.parametrize("header, struct, mirror", [
     ("smooth_tree.cuh", "SmoothTree", sk._SmoothTree),
     ("smooth_common.cuh", "SmoothTables", sk._SmoothTables),
+    ("smooth_common.cuh", "EnvField", sk._EnvField),
+    ("smooth_common.cuh", "EnvFields", sk._EnvFields),
 ])
 def test_ctypes_mirrors_match_the_headers(header, struct, mirror):
     fields = _struct_fields((CSRC / header).read_text(), struct)

@@ -558,13 +558,12 @@ def test_cli_help_enumerates_nested_fields(capsys, monkeypatch):
     assert "--device" in out and out.count("--env.") > 100
 
 
-@pytest.mark.parametrize("flag", ["distributed", "enable_nan_guard", "registry_name",
-                                  "motion_file"])
+@pytest.mark.parametrize("flag", ["distributed", "enable_nan_guard", "registry_name"])
 def test_cli_unported_flags_raise(flag):
     import mjlab_tpu_torch.scripts.train as T
 
     value = True if flag in ("distributed", "enable_nan_guard") else "x"
-    with pytest.raises(NotImplementedError, match="not ported|no tracking task"):
+    with pytest.raises(NotImplementedError, match="not ported"):
         T.run_train(G1_TASK, device="cpu", **{flag: value})
 
 
@@ -711,6 +710,99 @@ def test_yam_onnx_export_is_byte_equal_to_jax(yam_cli_run, tmp_path):
     export_policy_as_onnx(p, str(tmp_path / "port.onnx"), metadata=meta)
     a, b = (tmp_path / "jax.onnx").read_bytes(), (tmp_path / "port.onnx").read_bytes()
     assert len(a) > 100_000 and a == b
+
+
+TRACK_TASK = "Mjlab-Tracking-Flat-Unitree-G1"
+MOTION = os.path.join(ROOT, "evidence", "tracking_r4", "motion.npz")
+TRACK_CLI_ARGS = [TRACK_TASK, "--device", "cpu", "--num-envs", "4", "--max-iterations", "1",
+                  "--agent.num-steps-per-env", "2", "--log-dir", "run_track",
+                  "--motion-file", MOTION]
+# actions, policy obs (command 58, anchor 3 + 6, imu 6, joints 58, actions
+# 29), critic obs (+ 14 bodies' positions 42 and orientations 84)
+TRACK_DIMS = (29, 160, 286)
+
+
+@pytest.fixture(scope="module")
+def track_cli_run(tmp_path_factory):
+    return _run_cli(tmp_path_factory.mktemp("cli_track"), TRACK_CLI_ARGS)
+
+
+def test_tracking_cli_run_writes_checkpoint_onnx_and_configs(track_cli_run):
+    """The train CLI on the G1 tracking task with --motion-file: the env
+    from the model file and the motion npz, the task's PPO config, one
+    iteration through MotionTrackingOnPolicyRunner, whose checkpoint
+    writes the motion-embedded ONNX beside it; the motion file reaches the
+    dumped env config."""
+    from mjlab_tpu_torch.tasks import load_rl_cfg
+    from mjlab_tpu_torch.utils.os import to_plain
+
+    run, out = track_cli_run
+    assert "jax imported: False" in out and "it=1" in out
+    assert sorted(os.listdir(run)) == ["model_1.pt", "params", "run_track.onnx"]
+    payload = torch.load(run / "model_1.pt", weights_only=True)
+    assert payload["iter"] == 1 and int(payload["optimizer_state_dict"]["count"]) == 20
+    agent = load_rl_cfg(TRACK_TASK)
+    agent.max_iterations, agent.num_steps_per_env = 1, 2
+    assert yaml.safe_load((run / "params" / "agent.yaml").read_text()) == to_plain(agent)
+    assert agent.experiment_name == "g1_tracking"
+    env = yaml.safe_load((run / "params" / "env.yaml").read_text())
+    assert env["commands"]["motion"]["motion_file"] == MOTION
+    assert (run / "run_track.onnx").stat().st_size > 1_000_000  # the motion inside
+
+
+def test_tracking_cli_checkpoint_loads_into_jax(track_cli_run):
+    from mjlab_tpu.tasks.tracking.config.g1.rl_cfg import unitree_g1_tracking_ppo_runner_cfg
+    from mjlab_tpu_torch.tasks import load_rl_cfg
+
+    p = pppo_mod.PPO(load_rl_cfg(TRACK_TASK), None, E, *TRACK_DIMS, device="cpu")
+    load_model_state(p, torch.load(track_cli_run[0] / "model_1.pt", weights_only=True))
+    err, r = _inference_matches_jax(str(track_cli_run[0] / "model_1.pt"), p,
+                                    unitree_g1_tracking_ppo_runner_cfg(), TRACK_DIMS)
+    assert err < TOL_INFERENCE, err
+    assert r.iteration == 1
+
+
+class _MotionEnv:
+    """What the motion exporters read of an env: the "motion" command
+    term's motion."""
+
+    def __init__(self, motion):
+        term = type("Term", (), {"motion": motion})()
+        self.command_manager = type("Commands", (), {"get_term": lambda _, name: term})()
+
+
+def test_tracking_onnx_export_is_byte_equal_to_jax(track_cli_run, tmp_path):
+    """The motion-embedded ONNX of the CLI's tracking checkpoint, from the
+    port's exporter and from the JAX package's, on the same params, the
+    same motion (the task's 14 bodies of evidence/tracking_r4/motion.npz)
+    and the same metadata."""
+    from mjlab_tpu.tasks.tracking.config.g1.rl_cfg import unitree_g1_tracking_ppo_runner_cfg
+    from mjlab_tpu.tasks.tracking.mdp.commands import MotionLoader as JaxMotion
+    from mjlab_tpu.tasks.tracking.rl.exporter import export_motion_policy_as_onnx as jax_export
+    from mjlab_tpu_torch.tasks import load_rl_cfg
+    from mjlab_tpu_torch.tasks.tracking.config.g1.env_cfgs import G1_TRACKING_BODY_NAMES
+    from mjlab_tpu_torch.tasks.tracking.mdp.commands import MotionLoader
+    from mjlab_tpu_torch.tasks.tracking.rl.exporter import export_motion_policy_as_onnx
+    from mjlab_tpu_torch.tasks.velocity.config.g1 import physics
+
+    path = track_cli_run[0] / "model_1.pt"
+    p = pppo_mod.PPO(load_rl_cfg(TRACK_TASK), None, E, *TRACK_DIMS, device="cpu")
+    load_model_state(p, torch.load(path, weights_only=True))
+    from mjlab_tpu.rl.interop import load_rslrl_checkpoint as jax_load
+
+    r = _JaxStandIn(unitree_g1_tracking_ppo_runner_cfg(), TRACK_DIMS)
+    jax_load(str(path), r)
+    m, _, _ = physics.load_saved_model(device="cpu")
+    robot = [n.split("/", 1)[1] for n in m.body_names if n.startswith("robot/")]
+    ids = np.asarray([robot.index(n) for n in G1_TRACKING_BODY_NAMES], np.int32)
+    meta = {"run_path": "r", "joint_names": ["a", "b"], "command_names": ["motion"],
+            "action_scale": 0.25}
+    jax_export(_MotionEnv(JaxMotion(MOTION, ids)), r.ppo.ac, r.ppo_state,
+               str(tmp_path / "jax.onnx"), metadata=meta)
+    export_motion_policy_as_onnx(_MotionEnv(MotionLoader(MOTION, ids, "cpu")), p,
+                                 str(tmp_path / "port.onnx"), metadata=meta)
+    a, b = (tmp_path / "jax.onnx").read_bytes(), (tmp_path / "port.onnx").read_bytes()
+    assert len(a) > 1_000_000 and a == b
 
 
 def test_yaml_emitter_round_trips_edge_values(tmp_path):

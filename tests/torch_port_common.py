@@ -287,11 +287,12 @@ def g1_scenes(E: int, steps: int = 2, seed: int = 0):
 
 
 class JaxDraws:
-    """Records every jax.random.uniform / normal / randint / permutation
-    draw made while active (eager calls only: the values must be concrete;
-    a learn_iteration runs under jax.disable_jit()), in order, as
-    ("uniform", unit draws in [0, 1)), ("normal", draws), ("integers",
-    draws) or ("permutation", a permutation of range(n)). ``with JaxDraws()
+    """Records every jax.random.uniform / normal / randint / categorical /
+    permutation draw made while active (eager calls only: the values must
+    be concrete; a learn_iteration runs under jax.disable_jit()), in order,
+    as ("uniform", unit draws in [0, 1)), ("normal", draws), ("integers",
+    draws), ("categorical", the indices drawn) or ("permutation", a
+    permutation of range(n)). ``with JaxDraws()
     as draws: ...`` then ``ReplayRng(draws)`` hands the same numbers to the
     port, whose every draw goes through Rng.draw."""
 
@@ -302,8 +303,8 @@ class JaxDraws:
         import jax
 
         self._orig = (jax.random.uniform, jax.random.normal, jax.random.randint,
-                      jax.random.permutation)
-        uniform, normal, randint, permutation = self._orig
+                      jax.random.permutation, jax.random.categorical)
+        uniform, normal, randint, permutation, categorical = self._orig
 
         def rec_uniform(key, shape=(), dtype=float, minval=0.0, maxval=1.0):
             self.log.append(("uniform", np.asarray(uniform(key, shape, dtype))))
@@ -324,15 +325,21 @@ class JaxDraws:
             self.log.append(("permutation", np.asarray(out)))
             return out
 
+        def rec_categorical(key, logits, *args, **kw):
+            out = categorical(key, logits, *args, **kw)
+            self.log.append(("categorical", np.asarray(out)))
+            return out
+
         (jax.random.uniform, jax.random.normal, jax.random.randint,
-         jax.random.permutation) = (rec_uniform, rec_normal, rec_randint, rec_permutation)
+         jax.random.permutation, jax.random.categorical) = (
+            rec_uniform, rec_normal, rec_randint, rec_permutation, rec_categorical)
         return self
 
     def __exit__(self, *exc):
         import jax
 
         (jax.random.uniform, jax.random.normal, jax.random.randint,
-         jax.random.permutation) = self._orig
+         jax.random.permutation, jax.random.categorical) = self._orig
         return False
 
 
@@ -349,7 +356,7 @@ class ReplayRng:
         self.queue = list(draws.log)
         self.device = torch.device(device)
 
-    def draw(self, kind, shape, dtype, low=0, high=1):
+    def draw(self, kind, shape, dtype, low=0, high=1, probs=None):
         assert self.queue, f"the port draws {kind} {shape}: JAX drew no more"
         jkind, value = self.queue.pop(0)
         assert (jkind, tuple(value.shape)) == (kind, tuple(shape)), (
@@ -553,8 +560,8 @@ class RecordingRng:
         self.log: list[tuple[str, np.ndarray]] = []
         rng_draw = rng.draw
 
-        def draw(kind, shape, dtype, low=0, high=1):
-            out = rng_draw(kind, shape, dtype, low, high)
+        def draw(kind, shape, dtype, low=0, high=1, probs=None):
+            out = rng_draw(kind, shape, dtype, low, high, probs)
             self.log.append((kind, out.detach().cpu().numpy().copy()))
             return out
 
