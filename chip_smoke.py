@@ -3,15 +3,49 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py --only-tracking  # this slice's two paths, no result line
+    python3 chip_smoke.py --only-jump      # this slice's four paths, no result line
+    python3 chip_smoke.py --only-tracking  # the tracking paths, no result line
     python3 chip_smoke.py --only-yam     # the lift-cube paths, no result line
     python3 chip_smoke.py --only-rough   # the rough-terrain paths, no result line
 
-Fourteen main paths, each driven at 4096 envs through its public entry
+Eighteen main paths, each driven at 4096 envs through its public entry
 points, and the six kernels they run. This slice's main path is training
-the G1 to track a motion, with the torso's body_ipos carried per env (the
-task's base_com event), which kernels 1-3 read from the Model's (E, ...)
-tensor in place of their table's constant:
+the G1 to jump from a crouch, the first task whose physics is not dt 0.005
+with decimation 4: dt 0.002 and decimation 2, so a control step launches
+kin_com 3 times and the other kernels twice:
+
+- jump_train: PPO on the Mjlab-Jump-Flat-Unitree-G1 env (the G1 flat
+  scene with the feet's contact sensor, nconmax 35, the pyramidal cone,
+  dt 0.002, decimation 2, a 5 s episode; the crouched start
+  JUMP_CROUCH_KEYFRAME, the feet ~13 cm into the floor) through
+  OnPolicyRunner (the task registers no runner class) with the task's PPO
+  config (actor 256-128-64, critic 512-256-128, 6 epochs), three learn()
+  iterations: kin_com, crb_packed, vel_smooth and newton_assemble_solve
+  cone 0 inside the env's graph; the update on the card against the CPU;
+  the checkpoint round trip and the ONNX;
+- jump_env: the jump env, captured against an eager twin bit for bit
+  (outputs, qpos, qvel, the command's and the reward terms' state) across
+  forced resets (roots tipped: fell_over; roots low: height_too_low;
+  time-outs; drops from a lift: a flight, then a landing); the global step
+  count written between replays past the curricula's second and last
+  stages, which the next replay's curricula read and write in place (the
+  command's 0-d target and tolerance, the landing_stability weight);
+  eager and captured env-steps/s; kernels 1-4 against their plain
+  versions on the env's state (rows 1-4 of the kernels line); 64 envs on
+  the card against the CPU port, every env held (the reward of the first
+  step after the reset, ill-conditioned at float32, printed; a second
+  step from the card's state copied into the CPU env, every output);
+- jumping_env and jumping_train: the same on
+  Mjlab-Jumping-Flat-Unitree-G1 (dt 0.005, decimation 4; the G1
+  standing), its command's mid-episode resample, flight and landing
+  latches and trigger decay inside the graph, the curriculum widening the
+  command's target range in place (roots low: lying on their side,
+  fell_down);
+
+and the paths of the slices before. Training the G1 to track a motion,
+with the torso's body_ipos carried per env (the task's base_com event),
+which kernels 1-3 read from the Model's (E, ...) tensor in place of their
+table's constant:
 
 - tracking_train: PPO on the Mjlab-Tracking-Flat-Unitree-G1 env (the
   G1 flat scene, nconmax 35, the pyramidal cone; the motion
@@ -28,9 +62,8 @@ tensor in place of their table's constant:
   envs the adaptive sampler counts; a base_com write of new body_ipos
   values between replays, which the next replay reads; two replays that
   draw different start frames; eager and captured env-steps/s; kernels
-  1-4 against their plain versions on the env's state (rows 1-4 of the
-  kernels line, with the per-env fields each read); 64 envs on the card
-  against the CPU port;
+  1-4 against their plain versions on the env's state (with the per-env
+  fields each read); 64 envs on the card against the CPU port;
 
 and the paths of the slices before. Training the YAM arm's cube lift, the
 one task on the elliptic cone:
@@ -115,7 +148,9 @@ and the paths of the slices before:
   and the packed contact table written): newton_solve_dense, the solve
   over the dense constraint Jacobian (nefc 204).
 
-All: dt 0.005, 10 Newton / 20 line-search iterations, implicitfast.
+All: 10 Newton / 20 line-search iterations, implicitfast; dt 0.005 and
+4 substeps per control step but for the jump task's dt 0.002 and 2: each
+path's launch counts and time checks follow its task's decimation.
 
 Phases, each of which raises on a failure (no phase failure is caught):
 
@@ -135,8 +170,8 @@ then for each path:
    solve kernel's launch shape and resident threads per SM);
 5. the main path on the path's traffic (G1: the settled state, random
    ctrl around the keyframe; YAM: the task's own, every env reset and
-   random actions, as bench.py): 25 control steps of 4 physics substeps
-   plus the kinematic refresh, ctrl from a seeded generator, timed with
+   random actions, as bench.py): 25 control steps of the task's physics
+   substeps (4) plus the kinematic refresh, ctrl from a seeded generator, timed with
    CUDA events after one warm control step; the launch counts, set to 0
    just before and read just after, must show the path went through each
    of its kernels (and through the solve kernel of its cone only);
@@ -224,17 +259,26 @@ export, which rl/exporter.py writes for the generic runner), whose
 launch counts kernel row 5 carries; its profiled rollout step gives
 kernel 5's ms per launch.
 
-The tracking paths run last (run_tracking_paths): tracking_env
+The tracking paths follow (run_tracking_paths): tracking_env
 (run_env_path on the tracking task, ENV_KINDS["tracking"]:
 force_tracking_resets and tracking_forced, then com_write between the
-first and second check steps and com_seen after the second), whose kernel
-checks give rows 1-4 their numbers; then tracking_train (run_train_path
-with the checkpoint round trip), whose launch counts rows 1-4 carry (kin_com
-16: the reset's refresh and 3 x 5 in the capture; the others 12).
+first and second check steps and com_seen after the second); then
+tracking_train (run_train_path with the checkpoint round trip).
+
+The jump paths run last (run_jump_paths): jump_env (run_env_path on the
+jump task, ENV_KINDS["jump"]: force_jump_resets with the global step count
+past the curricula's second stage, jump_forced after the first of
+JUMP_CHECK_STEPS check steps, the count past their last stage written
+between replays and jump_second_stage after the second, jump_landed after
+the last), whose kernel checks give rows 1-4 their numbers; jump_train
+(run_train_path with the learner checks: its actor and critic differ in
+width and it runs 6 epochs; and the checkpoint round trip), whose launch
+counts rows 1-4 carry (kin_com 10: the reset's refresh and 3 x 3 in the
+capture; the others 6); then jumping_env and jumping_train the same way.
 
 The line before the last is the card's name and power limit (nvidia-smi);
 the lines before hold the kernels, the captured steps, the env, the
-training runs, the rough, YAM and tracking paths (JSON each), the
+training runs, the rough, YAM, tracking and jump paths (JSON each), the
 substep breakdowns and
 the physics throughputs. The last line is {"ok": true, "device": {...}}. Exits
 non-zero, printing no result, when there is no CUDA card (2) and when
@@ -244,6 +288,7 @@ empty directory (1).
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -255,7 +300,6 @@ import torch
 
 NUM_ENVS = 4096
 CONTROL_STEPS = 25
-DECIMATION = 4
 SETTLE_STEPS = 10
 SEED = 0
 PATHS = ("g1", "yam")
@@ -656,10 +700,19 @@ def seed_state(sim, path: str, state: dict, seed: int):
     return sim.data.ctrl.clone()
 
 
-def control_step(sim, ctrl=None):
+@functools.cache
+def physics_decimation(path: str) -> int:
+    """The physics substeps per control step of a physics path (g1, yam):
+    its task's, from the task's env config."""
+    from mjlab_tpu_torch.tasks import load_env_cfg
+
+    return load_env_cfg({"g1": ENV_TASK, "yam": YAM_TASK}[path]).decimation
+
+
+def control_step(sim, path: str, ctrl=None):
     if ctrl is not None:
         sim.data = sim.data.replace(ctrl=ctrl)
-    for _ in range(DECIMATION):
+    for _ in range(physics_decimation(path)):
         sim.step()
     sim.refresh()
 
@@ -953,7 +1006,7 @@ def traffic(sim, path: str, state: dict, ctrl0, seed: int):
 
     if path == "yam":
         for _ in range(SETTLE_STEPS):
-            control_step(sim, random_ctrl())
+            control_step(sim, path, random_ctrl())
         torch.cuda.synchronize()
         log(f"[traffic] yam: the task's reset and random actions, {SETTLE_STEPS} "
             f"control steps; contacts active per env "
@@ -1003,12 +1056,12 @@ def read_launches() -> dict:
             "newton_solve_dense": sd.newton_solve_dense.launches}
 
 
-def main_path(sim, random_ctrl) -> dict:
+def main_path(sim, path: str, random_ctrl) -> dict:
     """CONTROL_STEPS control steps with random_ctrl's ctrl after a warm
     one, with launch counts (timed_launches)."""
-    control_step(sim, random_ctrl())  # warm
+    control_step(sim, path, random_ctrl())  # warm
     ctrls = [random_ctrl() for _ in range(CONTROL_STEPS)]
-    run = timed_launches([lambda c=c: control_step(sim, c) for c in ctrls])
+    run = timed_launches([lambda c=c: control_step(sim, path, c) for c in ctrls])
     return dict(run, random_ctrl=random_ctrl)
 
 
@@ -1053,15 +1106,16 @@ def summarise(kernels) -> dict:
             "top": [{"name": n[:80], "launches": c, "ms": ms} for n, (c, ms) in top]}
 
 
-def breakdown(sim, steps: int) -> dict:
+def breakdown(sim, steps: int, decimation: int) -> dict:
     """Device time per substep phase (CUDA events at the step's phase
-    marks) and of the refresh, averaged over ``steps`` control steps."""
+    marks) and of the refresh, averaged over ``steps`` control steps of
+    ``decimation`` substeps."""
     from mjlab_tpu_torch.phys.hybrid import refresh_envlast, step_envlast
 
     order = ("kin_com", "contact", "vel_smooth", "crb", "solve", "integrate")
     acc = {n: 0.0 for n in order + ("refresh",)}
     for _ in range(steps):
-        for _ in range(DECIMATION):
+        for _ in range(decimation):
             ev = [torch.cuda.Event(enable_timing=True)]
             ev[0].record()
             marks = []
@@ -1082,7 +1136,7 @@ def breakdown(sim, steps: int) -> dict:
         b.record()
         torch.cuda.synchronize()
         acc["refresh"] += a.elapsed_time(b)
-    out = {n: acc[n] / (steps * DECIMATION) for n in order}
+    out = {n: acc[n] / (steps * decimation) for n in order}
     out["refresh"] = acc["refresh"] / steps
     return out
 
@@ -1131,17 +1185,18 @@ def run_path(path: str) -> tuple[dict, dict, dict]:
         f"contact slots, K {m.ncon_max}, R {m.rows_per_con}, cone "
         f"{int(m.opt.cone)}, nefc {m.nefc}; {NUM_ENVS} envs")
     ctrl0 = seed_state(sim, path, state, SEED)
+    n = physics_decimation(path)
     for _ in range(SETTLE_STEPS):
-        control_step(sim, ctrl0)
+        control_step(sim, path, ctrl0)
     torch.cuda.synchronize()
     log(f"[settle] {path}: {SETTLE_STEPS} control steps; contacts active per "
         f"env {float(sim.data.con_sel_active.sum(1).double().mean()):.1f}")
 
     kernels = check_kernels(sim, path)
 
-    run = main_path(sim, traffic(sim, path, state, ctrl0, SEED))
+    run = main_path(sim, path, traffic(sim, path, state, ctrl0, SEED))
     launches = run["launches"]
-    substeps = CONTROL_STEPS * DECIMATION
+    substeps = CONTROL_STEPS * n
     elliptic = int(m.opt.cone) != 0
     expected = {
         "kin_com": substeps + CONTROL_STEPS, "crb_packed": substeps,
@@ -1166,19 +1221,19 @@ def run_path(path: str) -> tuple[dict, dict, dict]:
         raise AssertionError(f"{path}: {resets} diverged-state resets")
     dev_ms = run["dev_ms"]
     env_steps = NUM_ENVS * CONTROL_STEPS / (dev_ms / 1e3)
-    log(f"[main] {path} {CONTROL_STEPS} control steps x {DECIMATION} substeps + "
+    log(f"[main] {path} {CONTROL_STEPS} control steps x {n} substeps + "
         f"refresh at {NUM_ENVS} envs: {dev_ms:.1f} ms (CUDA events), "
         f"{run['wall'] * 1e3:.1f} ms (host clock); {dev_ms / CONTROL_STEPS:.2f} ms "
         f"per control step")
     log(f"[main] {path} physics env-steps/s at {NUM_ENVS} envs: {env_steps:.1f}")
 
-    parts = breakdown(sim, 4)
+    parts = breakdown(sim, 4, n)
     sub = sum(v for k, v in parts.items() if k != "refresh")
     log(f"[breakdown] {path} ms per substep: " + ", ".join(
         f"{k} {v:.3f}" for k, v in parts.items() if k != "refresh")
         + f" (sum {sub:.3f}); refresh {parts['refresh']:.3f} ms per control step")
     ctrl = run["random_ctrl"]()
-    prof = device_profile(lambda: control_step(sim, ctrl))
+    prof = device_profile(lambda: control_step(sim, path, ctrl))
     if prof["kernels"]:
         log(f"[profile] {path} one control step: {prof['kernels']} CUDA kernels, "
             f"device busy {prof['busy_ms']:.2f} ms of a {prof['span_ms']:.2f} ms "
@@ -1258,7 +1313,7 @@ def capture_twins(path: str, num_envs: int, seed: int, count: int = 2) -> list[d
             gf[:, geoms, 0] = 0.3 + 1.2 * torch.rand(num_envs, len(geoms), generator=gen,
                                                      device="cuda")
             scene = None
-            step = ControlStep(sim, DECIMATION)
+            step = ControlStep(sim, physics_decimation(path))
             inputs = lambda c, sim=sim: setattr(sim, "data", sim.data.replace(ctrl=c))  # noqa: E731
         twins.append(dict(sim=sim, scene=scene, step=step, inputs=inputs, ctrl0=ctrl0,
                           geoms=geoms))
@@ -1377,13 +1432,9 @@ def run_capture_path(path: str) -> tuple[dict, dict]:
     capture_s = time.perf_counter() - t0
     launches = read_launches()
     per_step = {k: v / (CAPTURE_WARMUP + 1) for k, v in launches.items()}
-    elliptic = path == "yam"
-    expected = {
-        "kin_com": DECIMATION + 1, "crb_packed": DECIMATION, "vel_smooth": DECIMATION,
-        "newton_assemble_solve": 0 if elliptic else DECIMATION,
-        "newton_assemble_solve_elliptic": DECIMATION if elliptic else 0,
-        "newton_solve_dense": 0,
-    }
+    n = cap["step"].decimation
+    expected = expected_launches(
+        "newton_assemble_solve_elliptic" if path == "yam" else "newton_assemble_solve", n)
     log(f"[capture] {path}: captured in {capture_s:.2f} s ({CAPTURE_WARMUP} warm-up "
         f"control steps, the last with host synchronisation an error); launches "
         f"{launches}, per control step {per_step}, expected {expected}")
@@ -1421,7 +1472,7 @@ def run_capture_path(path: str) -> tuple[dict, dict]:
                        eager["sim"].data, cap["sim"].data)
     d = cap["sim"].data
     dt = cap["sim"].cfg.mujoco.timestep
-    if not torch.allclose(d.time[mask], torch.full_like(d.time[mask], DECIMATION * dt)):
+    if not torch.allclose(d.time[mask], torch.full_like(d.time[mask], n * dt)):
         raise AssertionError(f"{path}: the replay did not restart the reset envs")
     # the slots' friction is what the per-env mixing makes of the new
     # values (slot_params, evaluated now, outside the graph)
@@ -1439,7 +1490,7 @@ def run_capture_path(path: str) -> tuple[dict, dict]:
     act = d.con_sel_active
     ok = torch.equal(d.con_packed_c[..., 5][act], want[act])
     log(f"[capture] {path}: after the reset, {int(mask.sum())} reset envs at time "
-        f"{DECIMATION * dt:.3f} s; the friction of all {int(act.sum())} active slots "
+        f"{n * dt:.3f} s; the friction of all {int(act.sum())} active slots "
         f"({int(on_geom.sum())} on the written geoms) is the mix of the new values: {ok}")
     if not (ok and bool(on_geom.any())):
         raise AssertionError(f"{path}: the replay did not read the friction write")
@@ -1521,6 +1572,10 @@ ENV_ACTION_STD = 0.5
 # con_force_c's, the command (the heading) qpos's
 ENV_TOL = {"policy": 1e-3, "critic": 5e-3, "reward": 1e-3, "command": 1e-4}
 ENV_CHECK_STEPS = 3
+# the jump tasks' check steps: the jump task's drops land in its fourth
+# to seventh control step (0.016-0.028 s), the jumping task's in its first
+# to fourth
+JUMP_CHECK_STEPS = 7
 # the card's env against the CPU port's on the same draws, 64 envs
 ENV_CPU_ENVS = 64
 
@@ -1554,6 +1609,12 @@ ENV_KINDS = {
                      terminate="anchor_pos", solve="newton_assemble_solve",
                      noisy=lambda joints: slice(2 * joints, 2 * joints + 3 + 6),
                      pose=slice(0, 2)),
+    # the jump and jumping tasks: the jump command (jump: the target
+    # height; jumping: the trigger and the target); the policy's noisy
+    # columns lead as in the velocity tasks'
+    "jump": dict(physics="g1", tol=ENV_TOL, command=("jump", "command"),
+                 terminate="fell_over", solve="newton_assemble_solve",
+                 noisy=lambda joints: slice(0, 3 + 3 + 3 + 2 * joints), pose=slice(0, 2)),
 }
 # the YAM's forced resets: an arm lowered into the table (link_6's subtree
 # meets it: the ground sensor fires), and a cube moved along x before its
@@ -1579,12 +1640,37 @@ TRACKING_ARM = (22, -2.8)
 TRACKING_COM_SHIFT = (0.02, -0.04, 0.03)
 
 
+JUMP_TASK = "Mjlab-Jump-Flat-Unitree-G1"
+JUMPING_TASK = "Mjlab-Jumping-Flat-Unitree-G1"
+# the jump tasks' forced resets (tests/test_torch_env_jump.py,
+# tests/test_torch_env_jumping.py), by kind: the termination of a low root
+# and the root's height and roll there (an upright G1 put below the
+# jumping task's 0.3 m is pushed back up within its 20 ms control step: it
+# lies on its side); a drop's lift (m) and vertical velocity (m/s); the
+# global step counts written before the first and the second check step
+# (past the curricula's second stage, then their last)
+JUMP_LOW = {"jump": ("height_too_low", 0.30, 0.0), "jumping": ("fell_down", 0.15, 90.0)}
+JUMP_DROP = {"jump": (0.18, -3.13), "jumping": (0.05, -1.0)}
+JUMP_COUNTERS = {"jump": (400_000, 900_000), "jumping": (200_000, 800_000)}
+# the jump paths' tasks by name (the keys above)
+JUMP_NAMES = {JUMP_TASK: "jump", JUMPING_TASK: "jumping"}
+# the outputs the card-against-CPU env check does not hold in the first
+# step after the reset, by task: the jump task's crouch (the feet ~13 cm
+# into the floor) makes that step's reward ill-conditioned at float32 (a
+# 1e-6 nudge of the action moves the CPU port's reward by 4e-3 of its
+# scale, and the JAX reference's alike); the second step, from the card's
+# state copied into the CPU env, holds every output on every env
+RESET_STEP_UNHELD = {JUMP_TASK: ("reward",)}
+
+
 def env_kind(env) -> dict:
-    """The env's ENV_KINDS entry: the lift-cube task's and the tracking
-    task's by their command."""
+    """The env's ENV_KINDS entry: the lift-cube, tracking and jump tasks'
+    by their command."""
     terms = env.command_manager.active_terms
     if "lift_height" in terms:
         return ENV_KINDS["yam"]
+    if "jump" in terms:
+        return ENV_KINDS["jump"]
     return ENV_KINDS["tracking" if "motion" in terms else "velocity"]
 
 
@@ -1652,6 +1738,121 @@ def force_lift_resets(env, ground: torch.Tensor, late: torch.Tensor,
     env.sim.data = env.sim.data.replace(qpos=qpos)
     env.episode_length_buf[late] = env.max_episode_length - 1
     env.command_manager.get_term("lift_height").state["time_left"][resample] = 0.01
+
+
+def force_jump_resets(env, name: str, tip, late, low, drop, resample=None) -> None:
+    """The jump tasks' forced resets (``name``: "jump" or "jumping"): the
+    ``tip`` envs rolled 80 degrees (past both tasks' fell_over limits), the
+    ``late`` envs one step before their time-out, the ``low`` envs' roots
+    low (JUMP_LOW: height_too_low, fell_down), the ``drop`` envs lifted and
+    falling (JUMP_DROP: a flight, then a landing); the jumping task's
+    ``resample`` envs' command with 0.01 s left (a resample mid-episode)."""
+    _, z, roll = JUMP_LOW[name]
+    lift, vz = JUMP_DROP[name]
+    qpos, qvel = env.sim.data.qpos.clone(), env.sim.data.qvel.clone()
+    rot = lambda deg: torch.tensor(  # noqa: E731
+        [math.cos(math.radians(deg) / 2), math.sin(math.radians(deg) / 2), 0.0, 0.0],
+        dtype=qpos.dtype, device=qpos.device)
+    qpos[tip, 3:7] = rot(80.0)
+    qpos[low, 2] = z
+    if roll:
+        qpos[low, 3:7] = rot(roll)
+    qpos[drop, 2] += lift
+    qvel[drop, 2] = vz
+    env.sim.data = env.sim.data.replace(qpos=qpos, qvel=qvel)
+    env.episode_length_buf[late] = env.max_episode_length - 1
+    if resample is not None:
+        env.command_manager.get_term("jump").state["time_left"][resample] = 0.01
+
+
+def jump_forced(path: str, name: str, env, sets: dict) -> dict:
+    """After the step of the jump tasks' forced resets, the global step
+    count written past the curricula's second stage before it: each forced
+    set ended by its own termination and reset; the curricula moved (the
+    jump command's target and tolerance and the landing_stability weight;
+    the jumping command's range) inside the graph; the reset envs (and the
+    jumping task's resampled ones) took the new target (jump: the target;
+    jumping: a target inside the new range, the trigger at 1, a time left
+    drawn in the resampling range, less the step's dt for the reset envs);
+    the dropped envs in the air."""
+    tm = env.termination_manager
+    low_term = JUMP_LOW[name][0]
+    fired = {n: tm.get_term(n) for n in ("fell_over", low_term, "time_out")}
+    want = {"fell_over": sets["tip"], low_term: sets["low"], "time_out": sets["late"]}
+    done = fired["fell_over"] | fired[low_term] | fired["time_out"]
+    s = env.command_manager.get_term("jump").state
+    cmd = s["command"]
+    air = env.scene["feet_ground_contact"].data.current_air_time
+    info = {n: int(v.sum()) for n, v in fired.items()}
+    info["forced"] = {n: int(v.sum()) for n, v in sets.items()}
+    ok = all(bool(fired[n][want[n]].all()) for n in want)
+    ok &= int(env.episode_length_buf[done].max()) == 0
+    ok &= bool((air[sets["drop"]] > 0).all())
+    if name == "jump":
+        w = env.reward_manager.weights["landing_stability"]
+        info["curriculum"] = [float(s["target_height"]), float(s["height_tolerance"]), float(w)]
+        ok &= info["curriculum"] == [np.float32(0.15), np.float32(0.05), 2.5]
+        ok &= bool((cmd[done, 0] == s["target_height"]).all())
+    else:
+        resampled = done | sets["resample"]
+        rng = s["ranges"]["target_height"]
+        info["curriculum"] = rng.tolist()
+        tl = s["time_left"][resampled]
+        ok &= info["curriculum"] == np.float32([0.05, 0.10]).tolist()
+        ok &= bool(((cmd[resampled, 1] >= rng[0]) & (cmd[resampled, 1] <= rng[1])).all())
+        ok &= bool((cmd[resampled, 0] == 1.0).all())
+        # the reset envs' draw, then the step's command update: dt less
+        lo, hi = env.command_manager.get_term("jump").cfg.resampling_time_range
+        ok &= bool(((tl >= lo - env.step_dt) & (tl <= hi)).all())
+        info["resampled"] = int(resampled.sum())
+        info["time_left"] = [float(tl.min()), float(tl.max())]
+    log(f"[env] {path} step 1: terminations {[(n, info[n]) for n in fired]} (forced "
+        f"{info['forced']}); the curriculum inside the graph: {info['curriculum']}; the "
+        f"dropped envs' feet in the air: {bool((air[sets['drop']] > 0).all())}"
+        + (f"; {info['resampled']} envs resampled to targets in the new range, trigger 1"
+           if name == "jumping" else "; the reset envs' command at the new target"))
+    if not ok:
+        raise AssertionError(f"{path}: the forced resets did not end, reset and move the "
+                             f"curricula as forced: {info}")
+    return info
+
+
+def jump_second_stage(path: str, name: str, env) -> list:
+    """After the step whose global step count was written past the
+    curricula's last stage between replays: the replay read the write and
+    the curricula wrote their tensors in place (jump: target 0.25,
+    tolerance 0.08, weight 4.0; jumping: the range (0.10, 0.25))."""
+    s = env.command_manager.get_term("jump").state
+    if name == "jump":
+        w = env.reward_manager.weights["landing_stability"]
+        got = [float(s["target_height"]), float(s["height_tolerance"]), float(w)]
+        ok = got == [np.float32(0.25), np.float32(0.08), 4.0]
+    else:
+        got = s["ranges"]["target_height"].tolist()
+        ok = got == np.float32([0.10, 0.25]).tolist()
+    log(f"[env] {path}: the global step count written between replays: the next replay "
+        f"moved the curriculum to {got}")
+    if not ok:
+        raise AssertionError(f"{path}: the replay did not read the step-count write: {got}")
+    return got
+
+
+def jump_landed(path: str, name: str, env, drop: torch.Tensor) -> float:
+    """After the check steps: the dropped envs landed (jump: a foot on the
+    ground; jumping: the landing latched by the command and its trigger
+    decaying inside the graph), at least nine in ten of them."""
+    s = env.command_manager.get_term("jump").state
+    if name == "jump":
+        landed = (env.scene["feet_ground_contact"].data.found[drop] > 0).any(1)
+    else:
+        landed = s["jump_completed"][drop] & (s["command"][drop, 0] < 1.0)
+    share = float(landed.double().mean())
+    log(f"[env] {path}: dropped envs landed"
+        + (" (the landing latched, the trigger decaying)" if name == "jumping"
+           else "") + f": {share:.3f} of {int(drop.sum())}")
+    if share < 0.9:
+        raise AssertionError(f"{path}: only {share:.3f} of the dropped envs landed")
+    return share
 
 
 def force_tracking_resets(env, lift, roll, arm, late, near_end) -> None:
@@ -1735,18 +1936,26 @@ def env_outputs(env, out) -> dict:
         s = env.command_manager.get_term(name).state
         res.update(bin_failed_count=s["bin_failed_count"].clone(),
                    metrics=torch.stack(list(s["metrics"].values())))
+    if name == "jump":
+        # the jump command's whole state (targets, flags, range, time left,
+        # metrics) and the stateful reward terms' (peaks, timers, flags)
+        from mjlab_tpu_torch.managers.manager_base import tensors_of
+
+        state = (tensors_of(env.command_manager.get_term(name).state)
+                 + env.reward_manager.state_tensors())
+        res["jump_state"] = torch.cat([t.reshape(-1).to(torch.float64) for t in state])
     return res
 
 
 def assert_envs_agree(label: str, a_env, a: dict, b_env, b: dict, path: str = "g1_env",
-                      bitwise: bool = False) -> dict:
+                      bitwise: bool = False, unheld: tuple = ()) -> dict:
     """Two envs' outputs and Data: equal flags, episode lengths and terrain
     levels and origins, the observations and rewards within the kind's
     tolerances (ENV_KINDS), the state within E2E_TOL and the same active
     contact slots (assert_twins_agree). ``bitwise``: every output, qpos and
-    qvel equal bit for bit besides."""
+    qvel equal bit for bit besides; ``unheld`` outputs are not held."""
     kind = env_kind(a_env)
-    tols = kind["tol"]
+    tols = {k: tol for k, tol in kind["tol"].items() if k not in unheld}
     for k in ("terminated", "truncated", "episode_length", "levels", "origins"):
         if k in a and not torch.equal(a[k].cpu(), b[k].cpu()):
             raise AssertionError(f"{path} {label}: {k} differ")
@@ -1801,18 +2010,20 @@ class _HostRng:
 def env_on_card_matches_cpu(seed: int, task: str = ENV_TASK, path: str = "g1_env") -> dict:
     """The env of ENV_CPU_ENVS envs on the card (eager) against the CPU
     port's (the plain versions, held against the JAX env by the CPU
-    tests) on the same draws: a reset and one step of bench.py's
-    traffic."""
-    envs = []
-    for dev in ("cuda", "cpu"):
-        env = make_env(ENV_CPU_ENVS, dev, capture=False, seed=seed, task=task)
-        host = _HostRng(seed, dev)
-        env.rng.draw = host.draw  # every draw goes through Rng.draw
-        envs.append(env)
-    card, cpu = envs
+    tests) on the same draws, every env held: a reset and one step of
+    bench.py's traffic (every output but the task's RESET_STEP_UNHELD,
+    whose errors are printed), then a second step from the card's state
+    copied into the CPU env (every output), each with the Data within
+    E2E_TOL."""
+    from mjlab_tpu_torch.sim.sim import copy_data_
+
+    card = make_env(ENV_CPU_ENVS, "cuda", capture=False, seed=seed, task=task)
+    card.rng.draw = _HostRng(seed, "cuda").draw  # every draw goes through Rng.draw
     # the draws made at construction (the terrain levels, the startup
     # events' per-env model fields and encoder bias, the interval timers)
     # came from each env's own generator: the card's are copied
+    cpu = make_env(ENV_CPU_ENVS, "cpu", capture=False, seed=seed, task=task)
+    cpu.rng.draw = _HostRng(seed, "cpu").draw
     for field in card.sim._default_fields:
         getattr(cpu.sim.model, field).copy_(getattr(card.sim.model, field).cpu())
     for name, ent in card.scene.entities.items():
@@ -1821,30 +2032,57 @@ def env_on_card_matches_cpu(seed: int, task: str = ENV_TASK, path: str = "g1_env
         cpu.event_manager.interval_left[name].copy_(t.cpu())
     for a, b in zip(cpu.scene.state_tensors(), card.scene.state_tensors()):
         a.copy_(b.cpu())
-    for e in envs:
+    kind = env_kind(card)
+
+    def outputs(env, act):
+        out = env_outputs(env, env.step(act.to(env.device)))
+        out.pop("jump_state", None)  # not per env
+        return out
+
+    def held(label, outs, unheld=()):
+        errs = assert_envs_agree(label, cpu, outs[1], card, outs[0], path, unheld=unheld)
+        dc, dp = card.sim.data, cpu.sim.data
+        for f, tol in E2E_TOL[kind["physics"]]:
+            errs[f] = err = rel_err(getattr(dp, f), getattr(dc, f).cpu())
+            log(f"[env] {path} {label}: {f} rel err {err:.3e} (tol {tol:.0e})")
+            if not err < tol:
+                raise AssertionError(f"{path} {label} {f}: {err:.3e} >= {tol:.0e}")
+        return errs
+
+    for e in (card, cpu):
         e.reset()
-    act = env_actions(cpu, 1, seed)[0]
-    outs = [env_outputs(e, e.step(act.to(e.device))) for e in envs]
-    errs = assert_envs_agree(f"card vs CPU, {ENV_CPU_ENVS} envs, reset and one step",
-                             cpu, outs[1], card, outs[0], path)
-    dc, dp = card.sim.data, cpu.sim.data
-    for f, tol in E2E_TOL[env_kind(card)["physics"]]:
-        errs[f] = err = rel_err(getattr(dp, f), getattr(dc, f).cpu())
-        log(f"[env] {path} card vs CPU, {ENV_CPU_ENVS} envs, reset and one step: {f} rel err "
-            f"{err:.3e} (tol {tol:.0e})")
-        if not err < tol:
-            raise AssertionError(f"{path} card vs CPU {f}: {err:.3e} >= {tol:.0e}")
+    acts = env_actions(cpu, 2, seed)
+    outs = [outputs(e, acts[0]) for e in (card, cpu)]
+    unheld = RESET_STEP_UNHELD.get(task, ())
+    label = f"card vs CPU, {ENV_CPU_ENVS} envs, reset and one step"
+    first = {k: rel_err(outs[1][k].cpu(), outs[0][k].cpu()) for k in unheld}
+    if unheld:
+        log(f"[env] {path} {label}: not held (ill-conditioned at float32): " + ", ".join(
+            f"{k} rel err {e:.3e}" for k, e in first.items()))
+    errs = {"reset_step": held(label, outs, unheld), "reset_step_unheld": first}
+
+    # the second step: the card's state (the Data and every tensor the
+    # step reads and writes) copied into the CPU env, fresh draws for both
+    copy_data_(cpu.sim.data, card.sim.data)
+    for a, b in zip(cpu._state_tensors(), card._state_tensors()):
+        a.copy_(b)
+    card.rng.draw = _HostRng(seed + 1, "cuda").draw
+    cpu.rng.draw = _HostRng(seed + 1, "cpu").draw
+    outs = [outputs(e, acts[1]) for e in (card, cpu)]
+    errs["second_step"] = held(f"card vs CPU, {ENV_CPU_ENVS} envs, a second step from the "
+                               "card's state", outs)
     return errs
 
 
-def expected_launches(solve: str) -> dict:
-    """Each kernel's launches per control step of an env or trainer: the
-    smooth kernels per substep, kin_com once more in the refresh, the solve
-    of the task's cone per substep, the others never."""
-    out = {"kin_com": DECIMATION + 1, "crb_packed": DECIMATION, "vel_smooth": DECIMATION,
+def expected_launches(solve: str, decimation: int) -> dict:
+    """Each kernel's launches per control step of ``decimation`` physics
+    substeps (the task's): the smooth kernels per substep, kin_com once
+    more in the refresh, the solve of the task's cone per substep, the
+    others never."""
+    out = {"kin_com": decimation + 1, "crb_packed": decimation, "vel_smooth": decimation,
            "newton_assemble_solve": 0, "newton_assemble_solve_elliptic": 0,
            "newton_solve_dense": 0}
-    out[solve] = DECIMATION
+    out[solve] = decimation
     return out
 
 
@@ -1953,9 +2191,12 @@ def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
     if not torch.equal(eager.sim.data.qpos, cap.sim.data.qpos):
         raise AssertionError(f"{path}: the twins' resets differ")
 
-    acts = env_actions(cap, 1 + ENV_CHECK_STEPS + 2 * CAPTURE_REPEATS * CAPTURE_STEPS,
-                       SEED + 1)
-    first, check, timed = acts[0], acts[1:1 + ENV_CHECK_STEPS], acts[1 + ENV_CHECK_STEPS:]
+    kind = env_kind(cap)
+    jump_name = JUMP_NAMES.get(task)
+    jump = jump_name is not None
+    n_check = JUMP_CHECK_STEPS if jump else ENV_CHECK_STEPS
+    acts = env_actions(cap, 1 + n_check + 2 * CAPTURE_REPEATS * CAPTURE_STEPS, SEED + 1)
+    first, check, timed = acts[0], acts[1:1 + n_check], acts[1 + n_check:]
 
     # the main path: the captured env's first step() captures the graph
     # (CAPTURE_WARMUP eager warm-up steps, then the capture, each through
@@ -1968,11 +2209,10 @@ def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
     capture_s = time.perf_counter() - t0
     launches = read_launches()
     per_step = {k: v / (CAPTURE_WARMUP + 1) for k, v in launches.items()}
-    kind = env_kind(cap)
     yam = kind is ENV_KINDS["yam"]
     tracking = kind is ENV_KINDS["tracking"]
-    bitwise = yam or tracking
-    expected = expected_launches(kind["solve"])
+    bitwise = yam or tracking or jump
+    expected = expected_launches(kind["solve"], cap.cfg.decimation)
     log(f"[env] {path}: the first step() captured the env step and replayed it in "
         f"{capture_s:.2f} s ({CAPTURE_WARMUP} warm-up steps, the last with host "
         f"synchronisation an error); launches {launches}, per control step {per_step}, "
@@ -2002,19 +2242,40 @@ def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
                        "near_end": near_end}
         before = {"bin_failed_count": cap.command_manager.get_term(
             "motion").state["bin_failed_count"].clone()}
+    if jump:
+        # a low root, a drop (and the jumping command's run out), besides
+        # the tipped and late envs; the global step count past the
+        # curricula's second stage, written in both twins between replays
+        low = (idx % 17 == 2) & ~tip & ~late
+        drop = (idx % 19 == 4) & ~tip & ~late & ~low
+        resample = ((idx % 13 == 5) & ~tip & ~late & ~low & ~drop
+                    if jump_name == "jumping" else None)
+        forced_sets = {"tip": tip, "late": late, "low": low, "drop": drop,
+                       **({"resample": resample} if resample is not None else {})}
+        counters = JUMP_COUNTERS[jump_name]
     for e in (eager, cap):
         if yam:
             force_lift_resets(e, tip, late, resample)
         elif tracking:
             force_tracking_resets(e, tip, roll, arm, late, near_end)
+        elif jump:
+            force_jump_resets(e, jump_name, tip, late, low, drop, resample)
+            e.common_step_counter.fill_(counters[0])
         else:
             force_resets(e, tip, late, shift)
     for i, act in enumerate(check):
+        if jump and i == 1:
+            for e in (eager, cap):
+                e.common_step_counter.fill_(counters[1])
         oe = env_outputs(eager, eager.step(act))
         oc = env_outputs(cap, cap.step(act))
         torch.cuda.synchronize()
         if i == 0 and tracking:
             forced = tracking_forced(path, cap, forced_sets, before)
+        elif i == 0 and jump:
+            forced = jump_forced(path, jump_name, cap, forced_sets)
+        elif i == 1 and jump:
+            forced["second_stage"] = jump_second_stage(path, jump_name, cap)
         elif i == 0:
             if yam:
                 resampled(path, cap, resample)
@@ -2040,6 +2301,8 @@ def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
             com = com_write(path, (eager, cap))
         elif tracking and i == 1:
             com_seen(path, cap, com)
+    if jump:
+        forced["landed_share"] = jump_landed(path, jump_name, cap, drop)
     for k in ("policy", "critic", "reward"):
         if not bool(torch.isfinite(oc[k]).all()):
             raise AssertionError(f"{path}: non-finite {k}")
@@ -2139,6 +2402,17 @@ def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
         # the kernels on the env's state after the timed steps: arms
         # reaching on random actions, cubes on the table, envs reset among
         # them
+        summary["kernel_checks"] = check_kernels(cap.sim, path, env_state=True)
+    if jump:
+        summary["forced_resets"] = forced
+        # the kernels on the env's state after the timed steps (jump: dt
+        # 0.002, crouched robots pushing off on random actions, feet
+        # planted, envs reset into the floor among them)
+        log(f"[check] {path}: kernels 1-4 on the env's state at dt "
+            f"{float(cap.sim.model.opt.timestep)}, decimation {cap.cfg.decimation}; roots at "
+            f"z {float(cap.sim.data.qpos[:, 2].min()):.3f}-{float(cap.sim.data.qpos[:, 2].max()):.3f}"
+            f" m, feet on the ground "
+            f"{float((cap.scene['feet_ground_contact'].data.found > 0).double().mean()):.3f}")
         summary["kernel_checks"] = check_kernels(cap.sim, path, env_state=True)
     if rough:
         # the kernels on the env's state after the timed steps: the robots
@@ -2320,7 +2594,7 @@ def update_on(device: str, runner, snap: dict) -> "object":
     return ppo
 
 
-def update_card_matches_cpu(runner, snap: dict) -> dict:
+def update_card_matches_cpu(runner, snap: dict, path: str = "g1_train") -> dict:
     """The update phase on the card (TF32 off) against the CPU port on the
     same learner state, storage and permutations."""
     cpu, card = update_on("cpu", runner, snap), update_on("cuda", runner, snap)
@@ -2340,24 +2614,24 @@ def update_card_matches_cpu(runner, snap: dict) -> dict:
             total += err.numel()
             errs["params"] = max(errs["params"], float(err.max()))
             if not float(err.max()) < TRAIN_TOL["outlier_step"] * steps:
-                raise AssertionError(f"g1_train update card vs CPU {k}: {off} of {err.numel()} "
+                raise AssertionError(f"{path} update card vs CPU {k}: {off} of {err.numel()} "
                                      f"entries off, at most {float(err.max()):.3e}")
         elif k.startswith("adam_"):
             e = float((w.double() - g.double()).abs().max()) / max(
                 float(w.double().abs().max()), 1e-30)
             errs["moments"] = max(errs["moments"], e)
             if not e < TRAIN_TOL["moments"]:
-                raise AssertionError(f"g1_train update card vs CPU {k}: {e:.3e}")
+                raise AssertionError(f"{path} update card vs CPU {k}: {e:.3e}")
         elif not torch.equal(w, g) and k != "lr":
-            raise AssertionError(f"g1_train update card vs CPU: {k} differs")
+            raise AssertionError(f"{path} update card vs CPU: {k} differs")
     if errs["outliers"] > TRAIN_TOL["outlier_share"] * total:
-        raise AssertionError(f"g1_train update card vs CPU: {errs['outliers']} of {total} "
+        raise AssertionError(f"{path} update card vs CPU: {errs['outliers']} of {total} "
                              f"param entries off by >= {TRAIN_TOL['params']:.0e}")
     sc, sg = cpu.minibatch_stats.double(), card.minibatch_stats.double().cpu()
     errs["kl"] = rel_err(sc[:, 3], sg[:, 3])
     errs["lr"] = float(((sc[:, 4] - sg[:, 4]).abs() / sc[:, 4]).max())
     errs["losses"] = rel_err(sc[:, :3], sg[:, :3])
-    log(f"[train] update card vs CPU ({TRAIN_CHECK_ENVS} envs x "
+    log(f"[train] {path}: update card vs CPU ({TRAIN_CHECK_ENVS} envs x "
         f"{runner.cfg.num_steps_per_env} steps of the card's first rollout, "
         f"{sc.shape[0]} minibatches): params rel err {errs['params']:.3e} ({errs['outliers']} "
         f"of {total} entries >= {TRAIN_TOL['params']:.0e}; summed steps {steps:.3e}), Adam "
@@ -2365,9 +2639,9 @@ def update_card_matches_cpu(runner, snap: dict) -> dict:
         f"{errs['losses']:.3e}; KL per minibatch " + ", ".join(f"{x:.4f}" for x in sc[:, 3]))
     for k in ("kl", "lr"):
         if not errs[k] < TRAIN_TOL[k]:
-            raise AssertionError(f"g1_train update card vs CPU {k}: {errs[k]:.3e}")
+            raise AssertionError(f"{path} update card vs CPU {k}: {errs[k]:.3e}")
     if not errs["losses"] < TRAIN_TOL["stats"]:
-        raise AssertionError(f"g1_train update card vs CPU losses: {errs['losses']:.3e}")
+        raise AssertionError(f"{path} update card vs CPU losses: {errs['losses']:.3e}")
     return errs
 
 
@@ -2472,7 +2746,7 @@ def run_train_path(task: str = ENV_TASK, path: str = "g1_train",
     reset = {"kin_com": 1}
     per_step = {k: (v - reset.get(k, 0)) / (CAPTURE_WARMUP + 1) for k, v in launches.items()}
     solve = env_kind(runner.env)["solve"]
-    expected = expected_launches(solve)
+    expected = expected_launches(solve, runner.env.cfg.decimation)
     log(f"[train] {path}: learn({TRAIN_ITERATIONS}): launches {launches} (the reset's refresh "
         f"{reset}, then the capture), per control step of the capture {per_step}, "
         f"expected {expected}")
@@ -2524,7 +2798,8 @@ def run_train_path(task: str = ENV_TASK, path: str = "g1_train",
     solve_ms = profiles["rollout_step"]["by_kernel"][solve]["ms_per_launch"]
     log(f"[train] {path}: the solve kernel ({solve}) in one rollout step: "
         f"{solve_ms:.4f} ms per launch")
-    card_vs_cpu = update_card_matches_cpu(runner, snaps[0]) if learner_checks else None
+    card_vs_cpu = (update_card_matches_cpu(runner, snaps[0], path) if learner_checks
+                   else None)
     ckpt = checkpoint_round_trip(runner, task) if checkpoint else None
     summary = {"task": task, "env_steps_per_s": rate, "solve_kernel": solve,
                "solve_ms_per_launch": solve_ms, "rollout_ms": rollout_ms, "update_ms": update_ms,
@@ -2690,7 +2965,7 @@ def forward_check(seed: int):
     card, state = make_sim("g1", 64, "cuda")
     seed_state(card, "g1", state, seed)
     for _ in range(3):
-        control_step(card)
+        control_step(card, "g1")
     cpu, _ = make_sim("g1", 64, "cpu")
     get = lambda d, n: d.contact.packed if n == "contact" else getattr(d, n)  # noqa: E731
     cpu.data = data_from_numpy(
@@ -2751,7 +3026,7 @@ def run_forward_path() -> tuple[dict, dict, dict]:
         f"{m.ncon_max}, R {m.rows_per_con}; {NUM_ENVS} envs, Simulation.forward()")
     ctrl0 = seed_state(sim, "g1", state, SEED)
     for _ in range(SETTLE_STEPS):
-        control_step(sim, ctrl0)
+        control_step(sim, "g1", ctrl0)
     torch.cuda.synchronize()
     log(f"[settle] g1_forward: {SETTLE_STEPS} control steps; contacts active per "
         f"env {float(sim.data.con_sel_active.sum(1).double().mean()):.1f}")
@@ -2805,11 +3080,11 @@ def run_forward_path() -> tuple[dict, dict, dict]:
 # training run for kernels 1-4 (g1_rough_train: the env's capture in the
 # first rollout step), the YAM's training run for kernel 5 (yam_train),
 # g1_forward for kernel 6
-CHECK_PATH = {"kin_com": "tracking_env", "crb_packed": "tracking_env",
-              "vel_smooth": "tracking_env", "newton_assemble_solve": "tracking_env",
+CHECK_PATH = {"kin_com": "jump_env", "crb_packed": "jump_env",
+              "vel_smooth": "jump_env", "newton_assemble_solve": "jump_env",
               "newton_assemble_solve_elliptic": "yam", "newton_solve_dense": "g1_forward"}
-LAUNCH_PATH = {"kin_com": "tracking_train", "crb_packed": "tracking_train",
-               "vel_smooth": "tracking_train", "newton_assemble_solve": "tracking_train",
+LAUNCH_PATH = {"kin_com": "jump_train", "crb_packed": "jump_train",
+               "vel_smooth": "jump_train", "newton_assemble_solve": "jump_train",
                "newton_assemble_solve_elliptic": "yam_train",
                "newton_solve_dense": "g1_forward"}
 
@@ -2878,6 +3153,21 @@ def run_tracking_paths() -> tuple[dict, dict]:
     return launches, summary
 
 
+def run_jump_paths() -> tuple[dict, dict]:
+    """jump_env, jump_train, jumping_env and jumping_train, the G1 jump
+    tasks (the jump task at dt 0.002 and decimation 2: kin_com 3 and the
+    other kernels 2 per control step; the jumping command's resample and
+    trigger decay inside the graph), each training path with the learner
+    checks: (launches by path, summary by path)."""
+    launches, summary = {}, {}
+    for name, task in (("jump", JUMP_TASK), ("jumping", JUMPING_TASK)):
+        launches[f"{name}_env"], summary[f"{name}_env"] = run_env_path(
+            None, task, f"{name}_env")
+        launches[f"{name}_train"], summary[f"{name}_train"] = run_train_path(
+            task, f"{name}_train")
+    return launches, summary
+
+
 def run_rough_paths() -> tuple[dict, dict]:
     """g1_rough_env, go1_rough_env and g1_rough_train: (launches by path,
     summary by path)."""
@@ -2932,6 +3222,13 @@ def main() -> int:
         log(json.dumps({"tracking": tracking, "num_envs": NUM_ENVS}))
         log("[partial] --only-tracking: the other paths did not run; no result")
         return 0
+    if sys.argv[1:2] == ["--only-jump"]:
+        # a quick run of the jump tasks' env and training paths alone: no
+        # result line
+        launches, jump = run_jump_paths()
+        log(json.dumps({"jump": jump, "num_envs": NUM_ENVS}))
+        log("[partial] --only-jump: the other paths did not run; no result")
+        return 0
     if sys.argv[1:2] == ["--only-yam"]:
         # a quick run of the lift-cube env and training paths alone: no
         # result line
@@ -2966,6 +3263,11 @@ def main() -> int:
     launches.update(tracking_launches)
     per_path["tracking_env"] = tracking["tracking_env"]["kernel_checks"]
     per_step.update({p: tracking[p]["launches_per_control_step"] for p in tracking})
+    jump_launches, jump = run_jump_paths()
+    launches.update(jump_launches)
+    for p in ("jump_env", "jumping_env"):
+        per_path[p] = jump[p]["kernel_checks"]
+    per_step.update({p: jump[p]["launches_per_control_step"] for p in jump})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2978,6 +3280,7 @@ def main() -> int:
     log(json.dumps({"rough": rough, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"yam": yam, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"tracking": tracking, "num_envs": NUM_ENVS, "power_limit": smi}))
+    log(json.dumps({"jump": jump, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"paths": summary, "num_envs": NUM_ENVS,
                     "control_steps": CONTROL_STEPS,
                     "seconds": time.perf_counter() - t_start}))

@@ -13,14 +13,20 @@ Usage (the card by default; --device cpu runs the plain PyTorch versions):
   python -m mjlab_tpu_torch.scripts.train Mjlab-Lift-Cube-Yam --num-envs 4096
   python -m mjlab_tpu_torch.scripts.train Mjlab-Tracking-Flat-Unitree-G1 \
       --motion-file evidence/tracking_r4/motion.npz --num-envs 4096
+  python -m mjlab_tpu_torch.scripts.train Mjlab-Jump-Flat-Unitree-G1 --num-envs 4096
+  python -m mjlab_tpu_torch.scripts.train Mjlab-Jumping-Flat-Unitree-G1 --num-envs 4096
 
-The tasks it trains are the port's registered ones: the four velocity
-tasks (Mjlab-Velocity-{Flat,Rough}-Unitree-{G1,Go1}), the YAM arm's cube
-lift (Mjlab-Lift-Cube-Yam, which registers no runner class: it trains
-with OnPolicyRunner) and the G1 motion tracking tasks
+The tasks it trains are the port's registered ones, all nine of the JAX
+package: the four velocity tasks
+(Mjlab-Velocity-{Flat,Rough}-Unitree-{G1,Go1}), the YAM arm's cube lift
+(Mjlab-Lift-Cube-Yam), the G1 motion tracking tasks
 (Mjlab-Tracking-Flat-Unitree-G1 and its -No-State-Estimation variant),
 whose motion comes from --motion-file (or the MJLAB_TPU_MOTION_FILE
-environment variable the task config reads).
+environment variable the task config reads), and the G1 jump tasks
+(Mjlab-Jump-Flat-Unitree-G1: one jump from a crouch, dt 0.002 and
+decimation 2; Mjlab-Jumping-Flat-Unitree-G1: repeated commanded hops).
+The lift-cube and jump tasks register no runner class: they train with
+OnPolicyRunner.
 
 Checkpoints are rsl-rl ``model_<it>.pt`` files in the run's log dir (with
 ``<run>.onnx`` beside them for the velocity tasks, and the motion-embedded

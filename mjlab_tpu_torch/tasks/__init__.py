@@ -9,4 +9,4 @@ from mjlab_tpu_torch.tasks.registry import (  # noqa: F401
 )
 
 # task packages register on import
-from mjlab_tpu_torch.tasks import manipulation, tracking, velocity  # noqa: F401
+from mjlab_tpu_torch.tasks import jump, jumping, manipulation, tracking, velocity  # noqa: F401

@@ -1,0 +1,40 @@
+"""PPO config for the G1 jump task
+(mjlab_tpu/tasks/jump/config/g1/rl_cfg.py): the actor (256, 128, 64) and
+the critic (512, 256, 128) differ in width."""
+
+from mjlab_tpu_torch.rl.config import (
+    RslRlOnPolicyRunnerCfg,
+    RslRlPpoActorCriticCfg,
+    RslRlPpoAlgorithmCfg,
+)
+
+
+def unitree_g1_jump_ppo_runner_cfg() -> RslRlOnPolicyRunnerCfg:
+    return RslRlOnPolicyRunnerCfg(
+        policy=RslRlPpoActorCriticCfg(
+            init_noise_std=1.0,
+            actor_obs_normalization=True,
+            critic_obs_normalization=True,
+            actor_hidden_dims=(256, 128, 64),
+            critic_hidden_dims=(512, 256, 128),
+            activation="elu",
+        ),
+        algorithm=RslRlPpoAlgorithmCfg(
+            value_loss_coef=2.0,
+            use_clipped_value_loss=True,
+            clip_param=0.2,
+            entropy_coef=0.015,
+            num_learning_epochs=6,
+            num_mini_batches=4,
+            learning_rate=3e-4,
+            schedule="adaptive",
+            gamma=0.98,
+            lam=0.95,
+            desired_kl=0.01,
+            max_grad_norm=1.0,
+        ),
+        experiment_name="g1_jump",
+        save_interval=100,
+        num_steps_per_env=24,
+        max_iterations=50_000,
+    )

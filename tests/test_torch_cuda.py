@@ -1079,3 +1079,113 @@ def test_yam_env_solve_matches_plain_with_per_env_friction(cuda):
     assert length > 5 and int(m.opt.cone) == 1
     it_k, kw = _check_kernels(m, sim.data, cuda, stable_only=True, length=length)
     assert kw["cone"] == 1 and kw["R"] == 6
+
+
+# -- the jump tasks (dt 0.002, decimation 2; a crouched start) ---------------
+
+JUMP_TASK = "Mjlab-Jump-Flat-Unitree-G1"
+
+
+def _jump_envs(cuda, E=256, seed=5, captures=(False, True)):
+    """Envs of the jump task on one seed: the same generator state, so the
+    same draws."""
+    from mjlab_tpu_torch.envs import ManagerBasedRlEnv
+    from mjlab_tpu_torch.tasks import load_env_cfg
+
+    out = []
+    for capture in captures:
+        cfg = load_env_cfg(JUMP_TASK)
+        cfg.scene.num_envs = E
+        cfg.seed = seed
+        env = ManagerBasedRlEnv(cfg, device=cuda, capture=capture)
+        env.reset()
+        out.append(env)
+    return out
+
+
+def test_jump_kernels_match_plain_versions_at_dt_0002(cuda):
+    """Kernels 1-4 on the jump env's state at its dt of 0.002 (crb_packed's
+    implicit diagonal and vel_smooth's damping read it), 300 envs (the
+    smooth kernels' ragged edge), after 60 control steps of 0.5 N(0, 1)
+    actions from the crouched start: feet planted, knees deep. The solve on
+    the envs whose plain solve is stable under ulp nudges (all 200 on a CPU
+    rehearsal of this state)."""
+    (env,) = _jump_envs(cuda, E=300, captures=(False,))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for _ in range(60):
+        env.step(0.5 * torch.randn(300, 29, generator=gen, device=cuda))
+    m = env.sim.model
+    assert float(m.opt.timestep) == np.float32(0.002) and env.cfg.decimation == 2
+    found = env.scene["feet_ground_contact"].data.found > 0
+    assert float(found.all(1).double().mean()) > 0.5
+    length = float(env.sim.data.xpos.abs().max())
+    it_k, kw = _check_kernels(m, env.sim.data, cuda, stable_only=True, length=length)
+    assert kw["cone"] == 0
+
+
+def test_captured_jump_env_matches_eager_bit_for_bit(cuda):
+    """The jump env captured against its eager twin over 5 steps: the
+    capture recorded kin_com 3 and the other smooth kernels and kernel 4
+    twice per control step (decimation 2); the first step ends tipped envs
+    (fell_over), low ones (height_too_low) and times out others, a drop
+    flies; the global step count written between replays moves the
+    curriculum's target, tolerance and weight in place. Every output, the
+    state and the command's and terms' state equal bit for bit."""
+    import math
+
+    eager, cap = _jump_envs(cuda)
+    E = 256
+    wrappers = (sk.kin_com, sk.crb_dense, sk.vel_smooth)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    act = 0.5 * torch.randn(E, 29, generator=gen, device=cuda)
+    before = [w.launches for w in wrappers]
+    by_cone = list(sv.newton_assemble_solve.launches_by_cone)
+    cap.step(act)
+    per_step = [(w.launches - b) / 3 for w, b in zip(wrappers, before)]
+    per_cone = [(a - b) / 3 for a, b in zip(sv.newton_assemble_solve.launches_by_cone, by_cone)]
+    assert cap.captured and per_step == [3, 2, 2] and per_cone == [2, 0]
+    eager.step(act)
+    idx = torch.arange(E, device=cuda)
+    tip, late = idx % 7 == 0, idx % 11 == 3
+    low = (idx % 17 == 2) & ~tip & ~late
+    drop = (idx % 19 == 4) & ~tip & ~late & ~low
+    a = math.radians(80.0) / 2
+    for env in (eager, cap):
+        q, v = env.sim.data.qpos.clone(), env.sim.data.qvel.clone()
+        q[tip, 3:7] = torch.tensor([math.cos(a), math.sin(a), 0.0, 0.0], device=cuda)
+        q[low, 2] = 0.30
+        q[drop, 2] += 0.18
+        v[drop, 2] = -3.13
+        env.sim.data = env.sim.data.replace(qpos=q, qvel=v)
+        env.episode_length_buf[late] = env.max_episode_length - 1
+    term = cap.command_manager.get_term("jump")
+    for i, counter in enumerate((400_000, 900_000, 900_001, 900_002, 900_003)):
+        for env in (eager, cap):
+            env.common_step_counter.fill_(counter)
+        act = 0.5 * torch.randn(E, 29, generator=gen, device=cuda)
+        oe = [t.clone() if isinstance(t, torch.Tensor) else {k: v.clone() for k, v in t.items()}
+              for t in eager.step(act)[:4]]
+        oc = cap.step(act)
+        torch.cuda.synchronize()
+        for k in ("policy", "critic"):
+            assert torch.equal(oe[0][k], oc[0][k]), (i, k)
+        for x, y in zip(oe[1:], oc[1:4]):
+            assert torch.equal(x, y), i
+        for f in ("qpos", "qvel", "qacc"):
+            assert torch.equal(getattr(eager.sim.data, f), getattr(cap.sim.data, f)), (i, f)
+        for x, y in zip(eager.reward_manager.state_tensors(), cap.reward_manager.state_tensors()):
+            assert torch.equal(x, y), i
+        for x, y in zip(eager.command_manager.state_tensors(),
+                        cap.command_manager.state_tensors()):
+            assert torch.equal(x, y), i
+        if i == 0:
+            tm = cap.termination_manager
+            assert bool(tm.get_term("fell_over")[tip].all())
+            assert bool(tm.get_term("height_too_low")[low].all())
+            assert bool(oc[3][late].all())
+            air = cap.scene["feet_ground_contact"].data.current_air_time
+            assert bool((air[drop] > 0).all())
+        want = (0.15, 0.05, 2.5) if i == 0 else (0.25, 0.08, 4.0)
+        got = (float(term.state["target_height"]), float(term.state["height_tolerance"]),
+               float(cap.reward_manager.weights["landing_stability"]))
+        np.testing.assert_allclose(got, want, rtol=1e-7)

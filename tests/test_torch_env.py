@@ -194,15 +194,16 @@ VELOCITY_TASKS = ("Mjlab-Velocity-Flat-Unitree-G1", "Mjlab-Velocity-Rough-Unitre
 YAM_TASK = "Mjlab-Lift-Cube-Yam"
 TRACKING_TASKS = ("Mjlab-Tracking-Flat-Unitree-G1",
                   "Mjlab-Tracking-Flat-Unitree-G1-No-State-Estimation")
+JUMP_TASKS = ("Mjlab-Jump-Flat-Unitree-G1", "Mjlab-Jumping-Flat-Unitree-G1")
 MOTION = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                       "evidence", "tracking_r4", "motion.npz")
 # (action dim, policy obs dim) of each task's env, the JAX env's
 # (tests/test_torch_env_yam.py holds the YAM's against it)
 TASK_DIMS = {"G1": (29, 99), "Go1": (12, 48), "Yam": (7, 29),
-             TRACKING_TASKS[0]: (29, 160)}
+             TRACKING_TASKS[0]: (29, 160), JUMP_TASKS[0]: (29, 103), JUMP_TASKS[1]: (29, 100)}
 
 
-@pytest.mark.parametrize("task", VELOCITY_TASKS + (YAM_TASK, TRACKING_TASKS[0]))
+@pytest.mark.parametrize("task", VELOCITY_TASKS + (YAM_TASK, TRACKING_TASKS[0]) + JUMP_TASKS)
 def test_env_builds_and_steps_without_mujoco(task):
     """The port's env of each ported task and its play variant, from its
     registry, in a Python where importing mujoco fails (the card's machine
@@ -254,11 +255,13 @@ def test_registry_matches_jax():
     import mjlab_tpu.tasks as jtasks
     from mjlab_tpu_torch import tasks
 
-    assert set(tasks.list_tasks()) <= set(jtasks.list_tasks())
-    assert set(tasks.list_tasks()) == set(VELOCITY_TASKS) | {YAM_TASK} | set(TRACKING_TASKS)
+    # all nine of the JAX package's tasks
+    assert set(tasks.list_tasks()) == set(jtasks.list_tasks())
+    assert set(tasks.list_tasks()) == (set(VELOCITY_TASKS) | {YAM_TASK} | set(TRACKING_TASKS)
+                                       | set(JUMP_TASKS))
     assert [t for t in jtasks.list_tasks() if "Velocity" in t] == sorted(VELOCITY_TASKS)
     assert [t for t in jtasks.list_tasks() if "Tracking" in t] == sorted(TRACKING_TASKS)
-    for task in VELOCITY_TASKS + (YAM_TASK,) + TRACKING_TASKS:
+    for task in VELOCITY_TASKS + (YAM_TASK,) + TRACKING_TASKS + JUMP_TASKS:
         play = tasks.load_env_cfg(task, play=True)
         assert play.episode_length_s > 1e6
         assert play.observations["policy"].enable_corruption is False
@@ -271,6 +274,28 @@ def test_registry_matches_jax():
     assert play.episode_length_s == jplay.episode_length_s == int(1e9)
     assert sorted(play.events) == sorted(jplay.events)
     assert play.observations["critic"].enable_corruption is False
+    # the jump tasks: the JAX package's events (the jump play variant
+    # clears them all), observation terms and simulation options (the jump
+    # task at dt 0.002 and decimation 2, its episode 5 s)
+    for task in JUMP_TASKS:
+        for is_play in (False, True):
+            jc, pc = (t.load_env_cfg(task, play=is_play) for t in (jtasks, tasks))
+            assert sorted(jc.events) == sorted(pc.events)
+            for g in ("policy", "critic"):
+                assert list(jc.observations[g].terms) == list(pc.observations[g].terms)
+            assert list(jc.rewards) == list(pc.rewards)
+            assert {n: r.weight for n, r in jc.rewards.items()} == \
+                {n: r.weight for n, r in pc.rewards.items()}
+            assert list(jc.terminations) == list(pc.terminations)
+            assert {n: c.params for n, c in jc.curriculum.items()} == \
+                {n: c.params for n, c in pc.curriculum.items()}
+            jm, pm_ = jc.sim.mujoco, pc.sim.mujoco
+            assert (jc.sim.nconmax, jc.sim.njmax, jm.timestep, jc.decimation,
+                    jc.episode_length_s, jc.scene.num_envs) == \
+                (pc.sim.nconmax, pc.sim.njmax, pm_.timestep, pc.decimation,
+                 pc.episode_length_s, pc.scene.num_envs)
+    assert tasks.load_env_cfg(JUMP_TASKS[0], play=True).events == {}
+    assert tasks.load_env_cfg(JUMP_TASKS[0]).decimation == 2
     # the tracking tasks' play variants: the motion from its start, no
     # noise; the observation groups the JAX package's, term for term
     for task in TRACKING_TASKS:
@@ -294,16 +319,18 @@ def test_registry_matches_jax():
     from mjlab_tpu_torch.tasks.tracking.rl import MotionTrackingOnPolicyRunner
     from mjlab_tpu_torch.tasks.velocity.rl import VelocityOnPolicyRunner
 
-    runners = {YAM_TASK: None, **{t: MotionTrackingOnPolicyRunner for t in TRACKING_TASKS}}
-    for task in VELOCITY_TASKS + (YAM_TASK,) + TRACKING_TASKS:
+    runners = {YAM_TASK: None, **{t: MotionTrackingOnPolicyRunner for t in TRACKING_TASKS},
+               **{t: None for t in JUMP_TASKS}}
+    for task in VELOCITY_TASKS + (YAM_TASK,) + TRACKING_TASKS + JUMP_TASKS:
         want = dataclasses.asdict(jtasks.load_rl_cfg(task))
         got = dataclasses.asdict(tasks.load_rl_cfg(task))
         assert want.pop("load_checkpoint") == "model_.*.ckpt"
         assert got.pop("load_checkpoint") == "model_.*.pt"
         assert got == want, task
-        # the YAM registers no runner class (the train CLI's OnPolicyRunner)
+        # the YAM and the jump tasks register no runner class (the train
+        # CLI's OnPolicyRunner)
         assert tasks.load_runner_cls(task) is runners.get(task, VelocityOnPolicyRunner)
-        assert jtasks.load_runner_cls(task) is not None or task == YAM_TASK
+        assert (jtasks.load_runner_cls(task) is None) == (runners.get(task, 1) is None)
     # a task registered without a PPO config
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(registry._REGISTRY, "No-Learner",

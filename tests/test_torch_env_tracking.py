@@ -37,7 +37,6 @@ policy observations, on the port env's last state, are the full
 variant's JAX observations without motion_anchor_pos_b and base_lin_vel.
 """
 
-import math
 import os
 
 import jax
@@ -48,7 +47,7 @@ import torch
 
 from torch_port_common import (
     VELOCITY_ENV_TOL, check_env_equal, check_env_logs, check_env_output, check_reward_term,
-    rel_err, run_velocity_env_pair,
+    point_categorical, point_draw, point_uniform, rel_err, rotation_x, run_velocity_env_pair,
 )
 
 TASK = "Mjlab-Tracking-Flat-Unitree-G1"
@@ -79,38 +78,12 @@ def collapse_tracking_ranges(cfg) -> None:
     cfg.observations["policy"].enable_corruption = False
 
 
-def _point_uniform(key, shape=(), dtype=float, minval=0.0, maxval=1.0):
-    dtype = jax.dtypes.canonicalize_dtype(dtype)
-    minval = jnp.asarray(minval, dtype)
-    maxval = jnp.asarray(maxval, dtype)
-    u = jnp.full(shape, 0.5, dtype)
-    return jnp.maximum(minval, u * (maxval - minval) + minval)
-
-
-def _point_categorical(key, logits, axis=-1, shape=None):
-    mode = jnp.argmax(logits, axis=axis)
-    return mode if shape is None else jnp.broadcast_to(mode, shape)
-
-
-def _point_draw(kind, shape, dtype, low=0, high=1, probs=None):
-    if kind == "uniform":
-        return torch.full(shape, 0.5, dtype=dtype)
-    if kind == "categorical":
-        return torch.argmax(probs).expand(shape)
-    raise AssertionError(f"the tracking env draws no {kind}")
-
-
-def _rotation_x(deg):
-    a = math.radians(deg) / 2
-    return np.array([math.cos(a), math.sin(a), 0.0, 0.0], np.float32)
-
-
 def force_failures(jenv, penv) -> None:
     T = penv.command_manager.get_term("motion").motion.time_step_total
     st = jenv._state
     q = st.data.qpos.at[0, 2].add(0.4)
     q = q.at[1, LEFT_SHOULDER_PITCH].set(-2.8)
-    q = q.at[3, 3:7].set(jnp.asarray(_rotation_x(90.0)))
+    q = q.at[3, 3:7].set(jnp.asarray(rotation_x(90.0)))
     cs = dict(st.command_state)
     mo = dict(cs["motion"])
     mo["time_steps"] = mo["time_steps"].at[4].set(T - 2)
@@ -123,7 +96,7 @@ def force_failures(jenv, penv) -> None:
     qp = penv.sim.data.qpos.clone()
     qp[0, 2] += 0.4
     qp[1, LEFT_SHOULDER_PITCH] = -2.8
-    qp[3, 3:7] = torch.as_tensor(_rotation_x(90.0))
+    qp[3, 3:7] = torch.as_tensor(rotation_x(90.0))
     penv.sim.data = penv.sim.data.replace(qpos=qp)
     s = penv.command_manager.get_term("motion").state
     s["time_steps"][4] = T - 2
@@ -154,11 +127,11 @@ def run():
     store = []
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("MJLAB_TPU_MOTION_FILE", MOTION)
-        mp.setattr(jax.random, "uniform", _point_uniform)
-        mp.setattr(jax.random, "categorical", _point_categorical)
+        mp.setattr(jax.random, "uniform", point_uniform)
+        mp.setattr(jax.random, "categorical", point_categorical)
         import mjlab_tpu_torch.utils.random as prandom
 
-        mp.setattr(prandom.Rng, "draw", lambda self, *a, **kw: _point_draw(*a, **kw))
+        mp.setattr(prandom.Rng, "draw", point_draw)
         jenv, penv, out = run_velocity_env_pair(
             TASK, E, STEPS, edit=collapse_tracking_ranges, prepare=force_failures,
             between=_record(store), command=("motion", "time_steps"), action_std=0.3)

@@ -1045,3 +1045,356 @@ def test_randomize_encoder_bias_matches_jax(track_envs, joints):
     assert changed.any(1).tolist() == MASK.tolist()
     if joints == "knees":
         assert changed.sum(1).max() == 2
+
+
+# ---------------------------------------------------------------------------
+# the jump and jumping tasks
+# ---------------------------------------------------------------------------
+
+JUMP_TASK = "Mjlab-Jump-Flat-Unitree-G1"
+JUMPING_TASK = "Mjlab-Jumping-Flat-Unitree-G1"
+JUMP_OBS_TERMS = ("height_above_ground", "vertical_velocity", "contact_state", "time_in_air",
+                  "command", "foot_height", "foot_contact_forces")
+JUMP_REWARD_TERMS = ("explosive_takeoff", "synchronized_extension", "vertical_impulse",
+                     "air_time_bonus", "upright_in_flight", "angular_momentum_control",
+                     "soft_landing", "symmetric_landing")
+JUMP_TERMINATION_TERMS = ("time_out", "fell_over", "height_too_low", "excessive_impact")
+JUMPING_OBS_TERMS = ("command", "pelvis_height", "pelvis_vertical_velocity", "foot_contact")
+JUMPING_REWARD_TERMS = ("continuous_height", "launch_velocity", "upright", "stable_landing",
+                        "soft_landing", "horizontal_drift", "flight_rotation", "foot_slip")
+JUMPING_TERMINATION_TERMS = ("time_out", "fell_over", "fell_down")
+# the drop that makes a landing: env 1 lifted (m) and falling (m/s)
+JUMP_DROP = {JUMP_TASK: (0.18, -3.13), JUMPING_TASK: (0.05, -1.0)}
+
+
+def _jump_pair(task, seed):
+    """The task's env pair, the port's at float64: reset, 3 steps of 0.5
+    N(0, 1) actions; then env 1 lifted and falling (JUMP_DROP: it flies,
+    then lands within a few steps), env 2's root at rest (the
+    landing-balance timer runs), env 3 rolled 75 degrees (past both
+    tasks' fell_over limits) and lowered 0.25 m (below the jump task's
+    height limit), and a refresh."""
+    import math
+
+    jenv, penv = env_pair(task, E, "float64")
+    penv.reset()
+    rs = np.random.default_rng(seed)
+    for _ in range(STEPS):
+        penv.step(torch.as_tensor(0.5 * rs.standard_normal((E, 29)), dtype=torch.float32))
+    q, v = penv.sim.data.qpos.clone(), penv.sim.data.qvel.clone()
+    lift, vz = JUMP_DROP[task]
+    q[1, 2] += lift
+    v[1, 2] = vz
+    v[2, :6] = 0.0
+    a = math.radians(75.0) / 2
+    q[3, 3:7] = torch.as_tensor([math.cos(a), math.sin(a), 0.0, 0.0])
+    q[3, 2] -= 0.25
+    penv.sim.data = penv.sim.data.replace(qpos=q, qvel=v)
+    penv.sim.refresh()
+    return jenv, penv
+
+
+@pytest.fixture(scope="module")
+def jump_envs():
+    yield _jump_pair(JUMP_TASK, 3)
+
+
+@pytest.fixture(scope="module")
+def jumping_envs():
+    yield _jump_pair(JUMPING_TASK, 4)
+
+
+def _envs_of(request, task):
+    return request.getfixturevalue("jump_envs" if task == JUMP_TASK else "jumping_envs")
+
+
+@pytest.mark.parametrize("task,name", [(JUMP_TASK, n) for n in JUMP_OBS_TERMS]
+                         + [(JUMPING_TASK, n) for n in JUMPING_OBS_TERMS])
+def test_jump_observation_term_matches_jax(request, task, name):
+    def call(env):
+        c = _cfg_term(env, "observation_manager", "critic", name)
+        return c.func(env, **c.params)
+    want, got = _both(_envs_of(request, task), call, call)
+    _close(want, got)
+
+
+@pytest.mark.parametrize("name", ["pelvis_height_relative", "feet_in_contact",
+                                  "both_feet_in_contact"])
+def test_jumping_library_observation_matches_jax(jumping_envs, name):
+    """The jumping observations no config uses."""
+    import mjlab_tpu.tasks.jumping.mdp as jmdp
+    import mjlab_tpu_torch.tasks.jumping.mdp as pmdp
+
+    params = {} if name == "pelvis_height_relative" else {"sensor_name": "feet_ground_contact"}
+    want, got = _both(jumping_envs, lambda e: getattr(jmdp, name)(e, **params),
+                      lambda e: getattr(pmdp, name)(e, **params))
+    _close(want, got)
+
+
+@pytest.mark.parametrize("task,name", [(JUMP_TASK, n) for n in JUMP_REWARD_TERMS]
+                         + [(JUMPING_TASK, n) for n in JUMPING_REWARD_TERMS])
+def test_jump_reward_term_matches_jax(request, task, name):
+    """Each stateless reward term of the two tasks, with its Metrics/ logs."""
+    def call(env):
+        c = _cfg_term(env, "reward_manager", None, name)
+        log = env.extras["log"]
+        log.clear()
+        value = c.func(env, **c.params)
+        return {"value": value, **{k: v for k, v in log.items()}}
+    want, got = _both(_envs_of(request, task), call, call)
+    assert set(want) == set(got)
+    _close(want, got)
+    assert np.isfinite(want["value"]).all()
+
+
+def test_synchronized_extension_is_the_population_variance(jump_envs):
+    """jnp.var divides by n: the port's torch.var takes correction=0 (the
+    sample variance, n - 1, would be 29/28 of it on the G1's joints)."""
+    from mjlab_tpu_torch.tasks.jump.mdp import synchronized_extension
+
+    penv = jump_envs[1]
+    jv = penv.scene["robot"].data.joint_vel
+    got = synchronized_extension(penv)
+    assert (jv.std(1) > 0.1).all() and (jv - jv.mean(1, keepdim=True)).abs().max() > 0.1
+    torch.testing.assert_close(got, jv.var(1, correction=1) * 28 / 29, rtol=1e-12, atol=0)
+    assert not torch.allclose(got, jv.var(1, correction=1), rtol=1e-3)
+
+
+@pytest.mark.parametrize("task,name", [(JUMP_TASK, n) for n in JUMP_TERMINATION_TERMS]
+                         + [(JUMPING_TASK, n) for n in JUMPING_TERMINATION_TERMS])
+def test_jump_termination_term_matches_jax(request, task, name):
+    def call(env):
+        c = _cfg_term(env, "termination_manager", None, name)
+        return c.func(env, **c.params)
+    want, got = _both(_envs_of(request, task), call, call)
+    np.testing.assert_array_equal(want, tnp(got).astype(bool))
+    if name in ("fell_over", "height_too_low"):
+        assert want[3], (name, want)
+
+
+def _term_state(state) -> dict:
+    return {k: v.detach().cpu().numpy().copy() for k, v in state.items()}
+
+
+@pytest.mark.parametrize("task,name", [(JUMP_TASK, "jump_height"),
+                                       (JUMP_TASK, "landing_stability"),
+                                       (JUMPING_TASK, "jump_height")])
+def test_jump_stateful_reward_term_matches_jax(request, task, name):
+    """A stateful term (the jump-height tracker, the landing-balance timer,
+    the sparse landing reward) over 5 calls, the port env stepping between
+    them (its own call of the term undone) and JAX carrying its own state
+    from call to call on the synced Data; before the third call a masked
+    reset of envs 0 and 2 in both. The values, the logs and the state
+    after each call; env 1's landing shows in the flags."""
+    envs = _envs_of(request, task)
+    jenv, penv = envs
+    pcfg = _cfg_term(penv, "reward_manager", None, name)
+    jcfg = _cfg_term(jenv, "reward_manager", None, name)
+    pterm = pcfg.func
+    saved = {k: v.clone() for k, v in pterm.state.items()}
+    saved_data = penv.sim.data
+    mask = np.array([True, False, True, False])
+    rs = np.random.default_rng(6)
+    jstate = _term_state(pterm.state)
+    seen = []
+    try:
+        for k in range(5):
+            if k:
+                keep = {n: v.clone() for n, v in pterm.state.items()}
+                penv.step(torch.as_tensor(0.3 * rs.standard_normal((E, 29)),
+                                          dtype=torch.float32))
+                for n, v in keep.items():
+                    pterm.state[n].copy_(v)
+                # env 2 at rest again: upright, slow and on the ground
+                # (the landing-balance timer runs)
+                v = penv.sim.data.qvel.clone()
+                v[2] = 0.0
+                penv.sim.data = penv.sim.data.replace(qvel=v)
+            if k == 2:
+                pterm.reset(torch.as_tensor(mask))
+
+            def run_j(e, k=k):
+                jcfg.func.state = {n: jnp.asarray(v) for n, v in jstate.items()}
+                if k == 2:
+                    jcfg.func.reset(jnp.asarray(mask))
+                value = jcfg.func(e, **jcfg.params)
+                return {"value": value, "log": dict(e.extras["log"]),
+                        "state": dict(jcfg.func.state)}
+
+            def run_p(e):
+                log = e.extras["log"]
+                log.clear()
+                value = pterm(e, **pcfg.params)
+                return {"value": value.clone(), "log": {n: v.clone() for n, v in log.items()},
+                        "state": {n: v.clone() for n, v in pterm.state.items()}}
+            want, got = _both(envs, run_j, run_p)
+            jstate = want["state"]
+            for n in want["state"]:
+                if want["state"][n].dtype == bool:
+                    np.testing.assert_array_equal(want["state"][n], tnp(got["state"][n]), n)
+            _close({"value": want["value"], **want["log"],
+                    **{n: v for n, v in want["state"].items() if v.dtype != bool}},
+                   {"value": got["value"], **got["log"],
+                    **{n: v for n, v in got["state"].items() if v.dtype != bool}})
+            seen.append(got["state"])
+    finally:
+        for n, v in saved.items():
+            pterm.state[n].copy_(v)
+        penv.sim.data = saved_data
+    if task == JUMP_TASK and name == "jump_height":
+        # the reset envs restart their peak and initial height at the call
+        assert all(bool(s["initialized"].all()) for s in seen)
+        torch.testing.assert_close(seen[2]["peak"][mask], seen[2]["initial"][mask])
+        assert (seen[1]["peak"][mask] > seen[1]["initial"][mask]).all()
+    else:
+        # env 1 flies, then lands
+        flag = {"jump_height": "was_in_flight", "landing_stability": "was_in_air"}[name]
+        f = [bool(s[flag][1]) for s in seen]
+        assert True in f and not f[-1], (name, f)
+    if name == "landing_stability":
+        assert float(seen[-1]["timer"][2]) > 0, seen[-1]["timer"]
+
+
+@pytest.mark.parametrize("counter", [0, 1, 240_001, 400_000, 900_000])
+def test_jump_curricula_match_jax(jump_envs, counter):
+    """progressive_jump_height and progressive_stability_requirement by the
+    global step count (strictly past each stage's step), written in place
+    into the jump command's 0-d target and tolerance and the reward
+    weight; the logged values."""
+    import mjlab_tpu.tasks.jump.mdp as jmdp
+    import mjlab_tpu_torch.tasks.jump.mdp as pmdp
+
+    jenv, penv = jump_envs
+    term = penv.command_manager.get_term("jump")
+    targets = (term.state["target_height"], term.state["height_tolerance"],
+               penv.reward_manager.weights["landing_stability"])
+    cfgs = {n: _cfg_term(penv, "curriculum_manager", None, n)
+            for n in ("jump_height_progression", "landing_stability_progression")}
+    fns = {"jump_height_progression": "progressive_jump_height",
+           "landing_stability_progression": "progressive_stability_requirement"}
+    mask = np.ones(E, bool)
+    saved = [t.clone() for t in targets]
+    penv.common_step_counter.fill_(counter)
+    try:
+        # the config's values, as at the env's first reset
+        for t, v in zip(targets, (0.25, 0.05, 4.0)):
+            t.fill_(v)
+
+        def run(e, mdp, m):
+            out = {n: getattr(mdp, fns[n])(e, m, **c.params) for n, c in cfgs.items()}
+            if mdp is jmdp:
+                s = e.ctx.command_state["jump"]
+                w = e.ctx.reward_state["weights"]["landing_stability"]
+                return dict(out, target=s["target_height"], tolerance=s["height_tolerance"],
+                            weight=w)
+            # the same tensors, written in place
+            s = e.command_manager.get_term("jump").state
+            assert s["target_height"] is targets[0] and s["height_tolerance"] is targets[1]
+            assert e.reward_manager.weights["landing_stability"] is targets[2]
+            return {n: v.clone() for n, v in dict(out, target=targets[0], tolerance=targets[1],
+                                                   weight=targets[2]).items()}
+        want, got = _both(jump_envs, lambda e: run(e, jmdp, jnp.asarray(mask)),
+                          lambda e: run(e, pmdp, torch.as_tensor(mask)))
+        stage = {0: (0.25, 0.05, 4.0), 1: (0.10, 0.05, 1.0), 240_001: (0.15, 0.05, 1.0),
+                 400_000: (0.15, 0.05, 2.5), 900_000: (0.25, 0.08, 4.0)}[counter]
+        np.testing.assert_allclose([float(got[k]) for k in ("target", "tolerance", "weight")],
+                                   stage, rtol=1e-7)
+    finally:
+        penv.common_step_counter.fill_(STEPS)
+        for t, v in zip(targets, saved):
+            t.copy_(v)
+    _close({k: np.float64(v) for k, v in want.items()}, {k: v for k, v in got.items()})
+
+
+@pytest.mark.parametrize("counter", [0, 120_001, 360_001, 720_001])
+def test_jumping_curriculum_matches_jax(jumping_envs, counter):
+    """jump_height_curriculum: the command's 2-element target range by the
+    global step count, written in place; the logged upper end."""
+    import mjlab_tpu.tasks.jumping.mdp as jmdp
+    import mjlab_tpu_torch.tasks.jumping.mdp as pmdp
+
+    jenv, penv = jumping_envs
+    rng = penv.command_manager.get_term("jump").state["ranges"]["target_height"]
+    params = _cfg_term(penv, "curriculum_manager", None, "jump_height").params
+    mask = np.ones(E, bool)
+    saved = rng.clone()
+    penv.common_step_counter.fill_(counter)
+    try:
+        rng.copy_(torch.tensor([0.02, 0.05]))
+
+        def run(e, mdp, m):
+            v = mdp.jump_height_curriculum(e, m, **params)
+            if mdp is jmdp:
+                return {"value": v, "range": e.ctx.command_state["jump"]["ranges"]["target_height"]}
+            # the same tensor, written in place
+            assert e.command_manager.get_term("jump").state["ranges"]["target_height"] is rng
+            return {"value": v.clone(), "range": rng.clone()}
+        want, got = _both(jumping_envs, lambda e: run(e, jmdp, jnp.asarray(mask)),
+                          lambda e: run(e, pmdp, torch.as_tensor(mask)))
+        stage = {0: (0.02, 0.05), 120_001: (0.05, 0.10), 360_001: (0.08, 0.15),
+                 720_001: (0.10, 0.25)}[counter]
+        np.testing.assert_array_equal(tnp(got["range"]), np.float32(stage))
+    finally:
+        penv.common_step_counter.fill_(STEPS)
+        rng.copy_(saved)
+    _close(want, got)
+
+
+def _jump_command_state(env, jax_side):
+    s = env.command_manager.get_term("jump").state
+    out = {k: v for k, v in s.items() if k not in ("metrics", "ranges")}
+    out.update({f"metric/{k}": v for k, v in s["metrics"].items()})
+    return out if jax_side else {k: v.clone() for k, v in out.items()}
+
+
+@pytest.mark.parametrize("task,what", [(t, w) for t in (JUMP_TASK, JUMPING_TASK)
+                                       for w in ("resample", "compute", "reset")])
+def test_jump_command_matches_jax(request, task, what):
+    """Each task's jump command: _resample on a mask (jump: the current
+    target, moved to 0.15 as a curriculum would, into the masked envs;
+    jumping: one uniform per env in the range, the trigger at 1, the
+    flags cleared), its per-step compute (the metrics, the time-based
+    resample of env 0, whose time ran out (jumping), the flight and
+    landing latches and the trigger's decay) and its reset with the
+    Metrics/ logs; JAX's draws played back."""
+    envs = _envs_of(request, task)
+    jenv, penv = envs
+    mask = np.array([True, False, True, True])
+    term = penv.command_manager.get_term("jump")
+    saved = _jump_command_state(penv, False)
+    if task == JUMP_TASK:
+        term.state["target_height"].fill_(0.15)
+    else:
+        term.state["time_left"][0] = 0.01
+        term.state["command"][:, 0] = torch.tensor([1.0, 0.5, 1.0, 0.9])
+        term.state["was_in_flight"].copy_(torch.tensor([False, True, True, False]))
+        term.state["jump_completed"].copy_(torch.tensor([False, False, True, False]))
+
+    def run(e, jax_side):
+        t = e.command_manager.get_term("jump")
+        m = jnp.asarray(mask) if jax_side else torch.as_tensor(mask)
+        logs = {}
+        if what == "resample":
+            if jax_side:
+                t.state = t._resample(dict(t.state), m, e.ctx.next_key())
+            else:
+                t._resample(m)
+        elif what == "compute":
+            t.compute(e.step_dt)
+        else:
+            logs = t.reset(m)
+        out = _jump_command_state(e, jax_side)
+        out.update(logs)
+        return out
+    try:
+        want, got = _draws_pair(envs, lambda e: run(e, True), lambda e: run(e, False))
+    finally:
+        s = term.state
+        for k, v in saved.items():
+            (s["metrics"][k[7:]] if k.startswith("metric/") else s[k]).copy_(v)
+    for k in [k for k in want if want[k].dtype == bool]:
+        np.testing.assert_array_equal(want.pop(k), tnp(got.pop(k)), k)
+    _close(want, got, atol=DRAW_ATOL)
+    if task == JUMP_TASK and what != "compute":
+        np.testing.assert_allclose(tnp(got["command"])[:, 0], np.where(mask, 0.15, 0.25),
+                                   rtol=1e-7)

@@ -389,17 +389,25 @@ def _new_model_files():
     return {"g1_rough": ("Mjlab-Velocity-Rough-Unitree-G1", g1.ROUGH_MODEL),
             "go1_flat": ("Mjlab-Velocity-Flat-Unitree-Go1", go1.FLAT_MODEL),
             "go1_rough": ("Mjlab-Velocity-Rough-Unitree-Go1", go1.ROUGH_MODEL),
-            "g1_tracking": ("Mjlab-Tracking-Flat-Unitree-G1", g1.SAVED_MODEL)}
+            "g1_tracking": ("Mjlab-Tracking-Flat-Unitree-G1", g1.SAVED_MODEL),
+            "g1_jump": ("Mjlab-Jump-Flat-Unitree-G1", g1.SAVED_MODEL),
+            "g1_jumping": ("Mjlab-Jumping-Flat-Unitree-G1", g1.SAVED_MODEL)}
 
 
-@pytest.mark.parametrize("name", ["g1_rough", "go1_flat", "go1_rough", "g1_tracking"])
+@pytest.mark.parametrize("name", ["g1_rough", "go1_flat", "go1_rough", "g1_tracking", "g1_jump",
+                                  "g1_jumping"])
 def test_saved_velocity_model_files_match_fresh_conversions(name):
     """The rough G1 and the Go1 model files are the conversion of their
     task's scene compiled now (a rough scene with the smallest generated
     terrain, scene.model_file_scene_cfg), array for array, with the
     keyframe and the XML sensors. The G1 tracking task's scene (the G1 on a
     plane with the self-collision sensor alone, njmax 250) compiles to the
-    flat velocity task's g1_velocity_flat.npz, which it loads."""
+    flat velocity task's g1_velocity_flat.npz, which it loads; so do the
+    jump tasks' scenes (the G1 on a plane with the feet's contact sensor),
+    with the file's options as the Simulation applies the task's
+    (MujocoCfg.apply_to: the jump task's dt 0.002). The jump task's crouch
+    is the scene's keyframe, which the env does not read (the defaults come
+    from the entity's init_state): the file keeps the knees-bent one."""
     from mjlab_tpu_torch.scene.scene import (
         Scene, model_file_scene_cfg, xml_sensors, xml_sensors_from_arrays,
     )
@@ -412,6 +420,11 @@ def test_saved_velocity_model_files_match_fresh_conversions(name):
     cfg.sim.mujoco.apply(mj)
     m = pm.put_model(mj, dtype=torch.float64, nconmax=cfg.sim.nconmax, device="cpu")
     saved, extra = pm.load_model(path, dtype=torch.float64, device="cpu")
+    if name == "g1_jump":
+        # the file keeps the velocity task's options; the Simulation applies
+        # the jump task's (dt 0.002), as the fresh compile did
+        assert float(saved.opt.timestep) == 0.005
+        saved = cfg.sim.mujoco.apply_to(saved)
     for n in pm.tensor_fields():
         assert torch.equal(getattr(m, n), getattr(saved, n)), n
     for n in pm.static_fields():
@@ -423,8 +436,12 @@ def test_saved_velocity_model_files_match_fresh_conversions(name):
         assert torch.equal(getattr(m.opt, n), getattr(saved.opt, n)), n
     for n in pm.OPTION_STATIC_FIELDS:
         assert getattr(m.opt, n) == getattr(saved.opt, n), n
-    np.testing.assert_array_equal(extra["key_qpos"], mj.key_qpos[0])
-    np.testing.assert_array_equal(extra["key_ctrl"], mj.key_ctrl[0])
+    if name == "g1_jump":
+        robot = cfg.scene.entities["robot"].init_state
+        assert mj.key_qpos[0][2] == robot.pos[2] != extra["key_qpos"][2]
+    else:
+        np.testing.assert_array_equal(extra["key_qpos"], mj.key_qpos[0])
+        np.testing.assert_array_equal(extra["key_ctrl"], mj.key_ctrl[0])
     assert xml_sensors_from_arrays(extra) == xml_sensors(mj)
     assert saved.nhfield == ("rough" in name)
     assert (saved.nq, saved.nu) == ((36, 29) if name.startswith("g1") else (19, 12))

@@ -712,6 +712,98 @@ def test_yam_onnx_export_is_byte_equal_to_jax(yam_cli_run, tmp_path):
     assert len(a) > 100_000 and a == b
 
 
+# the jump tasks: (actions, policy obs, critic obs), epochs x minibatches,
+# the JAX package's PPO config
+JUMP_TASKS = {
+    "Mjlab-Jump-Flat-Unitree-G1": ((29, 103, 111), 6 * 4,
+                                   "mjlab_tpu.tasks.jump.config.g1.rl_cfg"),
+    "Mjlab-Jumping-Flat-Unitree-G1": ((29, 100, 110), 5 * 4,
+                                      "mjlab_tpu.tasks.jumping.config.g1.rl_cfg"),
+}
+
+
+def _jump_jax_cfg(task):
+    import importlib
+
+    mod = importlib.import_module(JUMP_TASKS[task][2])
+    return next(getattr(mod, n) for n in dir(mod) if n.endswith("_ppo_runner_cfg"))()
+
+
+@pytest.fixture(scope="module", params=list(JUMP_TASKS))
+def jump_cli_run(request, tmp_path_factory):
+    task = request.param
+    run_dir = "run_" + task.split("-")[1].lower()
+    args = [task, "--device", "cpu", "--num-envs", "4", "--max-iterations", "1",
+            "--agent.num-steps-per-env", "2", "--log-dir", run_dir]
+    return (task, *_run_cli(tmp_path_factory.mktemp("cli_" + run_dir), args))
+
+
+def test_jump_cli_run_writes_checkpoint_and_configs(jump_cli_run):
+    """The train CLI on each jump task: its env from the flat G1 model file
+    (the jump task at dt 0.002, decimation 2), the task's PPO config, one
+    iteration through OnPolicyRunner (the tasks register no runner class:
+    no ONNX beside the checkpoint, as in the JAX package)."""
+    from mjlab_tpu_torch.tasks import load_env_cfg, load_rl_cfg
+    from mjlab_tpu_torch.utils.os import to_plain
+
+    task, run, out = jump_cli_run
+    assert "jax imported: False" in out and "it=1" in out
+    assert sorted(os.listdir(run)) == ["model_1.pt", "params"]
+    payload = torch.load(run / "model_1.pt", weights_only=True)
+    assert payload["iter"] == 1
+    assert int(payload["optimizer_state_dict"]["count"]) == JUMP_TASKS[task][1]
+    agent = load_rl_cfg(task)
+    agent.max_iterations, agent.num_steps_per_env = 1, 2
+    assert yaml.safe_load((run / "params" / "agent.yaml").read_text()) == to_plain(agent)
+    env = yaml.safe_load((run / "params" / "env.yaml").read_text())
+    want = load_env_cfg(task)
+    assert (env["decimation"], env["sim"]["mujoco"]["timestep"], env["scene"]["num_envs"]) == \
+        (want.decimation, want.sim.mujoco.timestep, 4)
+
+
+def test_jump_cli_checkpoint_loads_into_jax(jump_cli_run):
+    """The CLI's checkpoint in the JAX package's loader: the same actor
+    (the jump task's 256-128-64 beside a 512-256-128 critic)."""
+    from mjlab_tpu_torch.tasks import load_rl_cfg
+
+    task, run, _ = jump_cli_run
+    dims = JUMP_TASKS[task][0]
+    p = pppo_mod.PPO(load_rl_cfg(task), None, E, *dims, device="cpu")
+    sd = torch.load(run / "model_1.pt", weights_only=True)
+    load_model_state(p, sd)
+    err, r = _inference_matches_jax(str(run / "model_1.pt"), p, _jump_jax_cfg(task), dims)
+    assert err < TOL_INFERENCE, err
+    assert r.iteration == 1
+    actor = [tuple(sd["model_state_dict"][f"actor.{i}.weight"].shape) for i in (0, 2, 4, 6)]
+    critic = [tuple(sd["model_state_dict"][f"critic.{i}.weight"].shape) for i in (0, 2, 4, 6)]
+    widths = (256, 128, 64) if "Jump-" in task else (512, 256, 128)
+    assert actor == [(widths[0], dims[1]), (widths[1], widths[0]), (widths[2], widths[1]),
+                     (dims[0], widths[2])]
+    assert critic == [(512, dims[2]), (256, 512), (128, 256), (1, 128)]
+
+
+def test_jump_onnx_export_is_byte_equal_to_jax(jump_cli_run, tmp_path):
+    """The deployment ONNX of the CLI's checkpoint, from the port's exporter
+    and from the JAX package's on the same params and metadata."""
+    from mjlab_tpu.rl.exporter import export_policy_as_onnx as jax_export
+    from mjlab_tpu.rl.interop import load_rslrl_checkpoint as jax_load
+    from mjlab_tpu_torch.rl.exporter import export_policy_as_onnx
+    from mjlab_tpu_torch.tasks import load_rl_cfg
+
+    task, run, _ = jump_cli_run
+    dims = JUMP_TASKS[task][0]
+    path = run / "model_1.pt"
+    p = pppo_mod.PPO(load_rl_cfg(task), None, E, *dims, device="cpu")
+    load_model_state(p, torch.load(path, weights_only=True))
+    r = _JaxStandIn(_jump_jax_cfg(task), dims)
+    jax_load(str(path), r)
+    meta = {"run_path": "r", "command_names": ["jump"]}
+    jax_export(r.ppo.ac, r.ppo_state, str(tmp_path / "jax.onnx"), metadata=meta)
+    export_policy_as_onnx(p, str(tmp_path / "port.onnx"), metadata=meta)
+    a, b = (tmp_path / "jax.onnx").read_bytes(), (tmp_path / "port.onnx").read_bytes()
+    assert len(a) > 50_000 and a == b
+
+
 TRACK_TASK = "Mjlab-Tracking-Flat-Unitree-G1"
 MOTION = os.path.join(ROOT, "evidence", "tracking_r4", "motion.npz")
 TRACK_CLI_ARGS = [TRACK_TASK, "--device", "cpu", "--num-envs", "4", "--max-iterations", "1",
