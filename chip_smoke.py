@@ -3,16 +3,43 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py --only-jump      # this slice's four paths, no result line
+    python3 chip_smoke.py --only-explicit  # this slice's two paths, no result line
+    python3 chip_smoke.py --only-jump      # the jump paths, no result line
     python3 chip_smoke.py --only-tracking  # the tracking paths, no result line
     python3 chip_smoke.py --only-yam     # the lift-cube paths, no result line
     python3 chip_smoke.py --only-rough   # the rough-terrain paths, no result line
 
-Eighteen main paths, each driven at 4096 envs through its public entry
+Twenty main paths, each driven at 4096 envs through its public entry
 points, and the six kernels they run. This slice's main path is training
-the G1 to jump from a crouch, the first task whose physics is not dt 0.005
-with decimation 4: dt 0.002 and decimation 2, so a control step launches
-kin_com 3 times and the other kernels twice:
+the G1 flat-velocity env with mixed explicit actuator groups
+(mjlab_tpu_torch/tasks/velocity/config/g1/explicit.py: delayed DC motors
+on the legs, ideal PD on the arms and waist, builtin position actuators on
+the wrists with their force range, gain and bias per env; the PD-gain and
+effort-limit events on reset, the lag range at startup, an external
+wrench on the torso every 1-3 s; the nan_detection termination; the NaN
+guard on):
+
+- g1_explicit_train: PPO on that env through the flat G1 task's runner
+  and PPO config, three learn() iterations, with the learner checks (the
+  update on the card against the CPU), the checkpoint round trip and the
+  ONNX: kin_com, crb_packed, vel_smooth (reading actuator_forcerange,
+  gainprm and biasprm per env) and newton_assemble_solve cone 0 inside
+  the env's graph, the actuators' delays drawn inside it;
+- g1_explicit_env: the env captured against an eager twin bit for bit
+  across forced resets (tipped roots, time-outs) and a NaN step (one env's
+  wrist gain set to NaN between replays: nan_detection ends it alone, the
+  NaN guard flags it inside the graph, and the dumps the host writes at
+  close() are equal; another env's qvel set to NaN, which the physics
+  step's own bad-state reset absorbs, as in the JAX package); eager and
+  captured env-steps/s; kernels 1-4 against their plain versions on the
+  env's state with every force range cut so that forces saturate (rows 1-4
+  of the kernels line); 64 envs on the card against the CPU port on the
+  same draws, every env held, then the NaN step in both and the card's
+  dump against the CPU twin's window.
+
+Training the G1 to jump from a crouch, the first task whose physics is
+not dt 0.005 with decimation 4: dt 0.002 and decimation 2, so a control
+step launches kin_com 3 times and the other kernels twice:
 
 - jump_train: PPO on the Mjlab-Jump-Flat-Unitree-G1 env (the G1 flat
   scene with the feet's contact sensor, nconmax 35, the pyramidal cone,
@@ -291,6 +318,7 @@ from __future__ import annotations
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -765,7 +793,7 @@ KERNEL_PLANES = {
     "kin_com": ("qpos0", "body_ipos", "body_mass", "body_inertia", "geom_pos"),
     "crb_packed": ("body_mass", "dof_armature"),
     "vel_smooth": ("body_mass", "dof_damping", "jnt_stiffness", "actuator_gainprm",
-                   "actuator_biasprm"),
+                   "actuator_biasprm", "actuator_forcerange"),
 }
 
 
@@ -1663,10 +1691,26 @@ JUMP_NAMES = {JUMP_TASK: "jump", JUMPING_TASK: "jumping"}
 RESET_STEP_UNHELD = {JUMP_TASK: ("reward",)}
 
 
+# the G1 flat-velocity env with mixed explicit actuator groups
+# (mjlab_tpu_torch/tasks/velocity/config/g1/explicit.py; a configuration of
+# the registered flat task, not a registered task): the label its paths
+# pass for a task name, its NaN guard's dumps under the git-ignored build/
+EXPLICIT_TASK = "G1-Velocity-Flat-Explicit-Actuators"
+EXPLICIT_NAN_DIR = "build/nan_dumps"
+# its NaN checks: the env whose first wrist gain (a per-env model field
+# kernel 3 reads) turns NaN, and the env whose qvel does (the physics
+# step's own bad-state reset absorbs that one: no termination, as in the
+# JAX package, tests/test_torch_env_explicit.py)
+EXPLICIT_NAN_ENV, EXPLICIT_QVEL_NAN_ENV = 5, 9
+ENV_KINDS["explicit"] = dict(ENV_KINDS["velocity"])
+
+
 def env_kind(env) -> dict:
     """The env's ENV_KINDS entry: the lift-cube, tracking and jump tasks'
-    by their command."""
+    by their command, the explicit env by its NaN guard."""
     terms = env.command_manager.active_terms
+    if env.nan_guard is not None:
+        return ENV_KINDS["explicit"]
     if "lift_height" in terms:
         return ENV_KINDS["yam"]
     if "jump" in terms:
@@ -1689,6 +1733,16 @@ def make_env(num_envs: int, device: str, capture: bool = True, seed: int = SEED,
     from mjlab_tpu_torch.envs import ManagerBasedRlEnv
     from mjlab_tpu_torch.tasks import load_env_cfg
 
+    if task == EXPLICIT_TASK:
+        import tempfile
+
+        from mjlab_tpu_torch.tasks.velocity.config.g1.explicit import make_g1_explicit_env
+
+        here = os.path.dirname(os.path.abspath(__file__))
+        os.makedirs(os.path.join(here, EXPLICIT_NAN_DIR), exist_ok=True)
+        nan_dir = tempfile.mkdtemp(dir=os.path.join(here, EXPLICIT_NAN_DIR))
+        return make_g1_explicit_env(num_envs, device, capture=capture, seed=seed,
+                                    nan_dir=nan_dir)
     cfg = load_env_cfg(task)
     cfg.scene.num_envs = num_envs
     cfg.seed = seed
@@ -2071,7 +2125,132 @@ def env_on_card_matches_cpu(seed: int, task: str = ENV_TASK, path: str = "g1_env
     outs = [outputs(e, acts[1]) for e in (card, cpu)]
     errs["second_step"] = held(f"card vs CPU, {ENV_CPU_ENVS} envs, a second step from the "
                                "card's state", outs)
+    if kind is ENV_KINDS["explicit"]:
+        # a third step, both envs' gains and qvel poisoned alike: the
+        # dump written on the card against the CPU twin's window
+        card.rng.draw = _HostRng(seed + 2, "cuda").draw
+        cpu.rng.draw = _HostRng(seed + 2, "cpu").draw
+        outs = explicit_nan_step(path, (card, cpu), acts[1])
+        tol = dict(E2E_TOL["g1"])
+        errs["nan_step"] = nan_step_agree(path, f"card vs CPU, {ENV_CPU_ENVS} envs, the NaN "
+                                          "step", cpu, outs[1], card, outs[0],
+                                          dict(kind["tol"], **tol))
+        errs["nan_dump"] = explicit_dumps(path, "the card against the CPU", cpu, card,
+                                          {"qpos": tol["qpos"], "qvel": tol["qvel"],
+                                           "ctrl": tol["qvel"]})
     return errs
+
+
+def explicit_nan_step(path: str, envs, act: torch.Tensor) -> list:
+    """In each env of ``envs`` (twins, or the card and the CPU): env
+    EXPLICIT_NAN_ENV's first wrist gain set to NaN (a per-env model field,
+    written between steps, which kernel 3 reads in the next replay) and env
+    EXPLICIT_QVEL_NAN_ENV's qvel set to NaN, then one step on ``act``: its
+    outputs. Checked in each: nan_detection ends EXPLICIT_NAN_ENV alone
+    (its accelerations went NaN) and its reset's PD-gain event draws the
+    gain anew; the qvel NaN never reaches the termination (the physics
+    step's bad-state reset puts that env back at qpos0, at rest, as in the
+    JAX package); the NaN guard flags EXPLICIT_NAN_ENV alone."""
+    outs = []
+    for e in envs:
+        wrist = next(a for a in e.scene["robot"].actuators if a.is_passthrough)
+        e.sim.model.actuator_gainprm[EXPLICIT_NAN_ENV, int(wrist.ctrl_ids[0]), 0] = float("nan")
+        qvel = e.sim.data.qvel.clone()
+        qvel[EXPLICIT_QVEL_NAN_ENV] = float("nan")
+        e.sim.data = e.sim.data.replace(qvel=qvel)
+        outs.append(env_outputs(e, e.step(act.to(e.device))))
+    for e, o in zip(envs, outs):
+        want = torch.zeros(e.num_envs, dtype=torch.bool)
+        want[EXPLICIT_NAN_ENV] = True
+        ended = e.termination_manager.get_term("nan_term").cpu()
+        guard = e.nan_guard
+        log(f"[env] {path} NaN step ({e.device.type}): nan_detection ended envs "
+            f"{torch.nonzero(ended).flatten().tolist()}, terminated "
+            f"{int(o['terminated'].sum())}; the NaN guard flagged "
+            f"{torch.nonzero(guard.bad_envs.cpu()).flatten().tolist()}; env "
+            f"{EXPLICIT_QVEL_NAN_ENV} (qvel NaN) terminated "
+            f"{bool(o['terminated'][EXPLICIT_QVEL_NAN_ENV])}, its qvel finite "
+            f"{bool(torch.isfinite(o['qvel'][EXPLICIT_QVEL_NAN_ENV]).all())}")
+        if not torch.equal(ended, want) or not torch.equal(guard.bad_envs.cpu(), want):
+            raise AssertionError(f"{path}: the NaN gain did not end env {EXPLICIT_NAN_ENV} "
+                                 "alone through nan_detection")
+        if not bool(guard.stopped) or bool(o["terminated"][EXPLICIT_QVEL_NAN_ENV]):
+            raise AssertionError(f"{path}: the NaN guard's flag, or the qvel NaN's env")
+        if not (bool(torch.isfinite(e.sim.model.actuator_gainprm).all())
+                and bool(torch.isfinite(o["qvel"]).all())):
+            raise AssertionError(f"{path}: a NaN left after the step's resets")
+    return outs
+
+
+def nan_step_agree(path: str, label: str, a_env, a: dict, b_env, b: dict,
+                   tols: dict | None = None) -> dict:
+    """The NaN step's outputs and Data (qpos, qvel, qacc) of two envs: the
+    same non-finite entries (the NaN env's reward and qacc), the finite ones
+    bit for bit (tols None) or within tols[field] relative to max(1,
+    |a|max) (the outputs at the kind's tolerances, the Data at E2E_TOL)."""
+    a = dict(a, qacc=a_env.sim.data.qacc.clone())
+    b = dict(b, qacc=b_env.sim.data.qacc.clone())
+    errs = {}
+    for k in ("terminated", "truncated", "episode_length", "policy", "critic", "reward",
+              "command", "qpos", "qvel", "qacc"):
+        x, y = a[k].cpu(), b[k].cpu()
+        if x.dtype == torch.bool or not x.is_floating_point():
+            ok = torch.equal(x, y)
+        else:
+            bad = ~torch.isfinite(x)
+            ok = torch.equal(bad, ~torch.isfinite(y))
+            if ok and tols is None:
+                ok = torch.equal(x[~bad], y[~bad])
+            elif ok:
+                errs[k] = rel_err(x[~bad], y[~bad])
+                ok = errs[k] < tols[k]
+        if not ok:
+            raise AssertionError(f"{path} {label}: {k} differ" + (
+                f" (rel err {errs[k]:.3e})" if k in errs else ""))
+    log(f"[env] {path} {label}: the NaN env's non-finite entries the same in both, the rest "
+        + ("equal bit for bit" if tols is None else ", ".join(
+            f"{k} rel err {v:.3e}" for k, v in errs.items())))
+    return errs
+
+
+def explicit_dumps(path: str, label: str, a_env, b_env, tols=None) -> dict:
+    """Both envs' NaN dumps, written by close() (the host reads the guard's
+    flag there, outside the graph): one npz each, once (a second close()
+    writes none); bad_envs [EXPLICIT_NAN_ENV] in both; the qpos, qvel and
+    ctrl windows of the detection step bit for bit (tols None), or each
+    within its tolerance ({field: tol}, relative to max(1, |a|max)).
+    b_env's window is also what its guard holds."""
+    paths = []
+    for e in (a_env, b_env):
+        e.close()
+        e.close()
+        files = [f for f in os.listdir(e.cfg.sim.nan_guard.output_dir)
+                 if f.startswith("nan_dump") and f.endswith(".npz") and "_model" not in f]
+        if len(files) != 1 or e.nan_guard.dumped is None:
+            raise AssertionError(f"{path} {label}: {len(files)} dumps")
+        paths.append(e.nan_guard.dumped)
+    errs = {}
+    with np.load(paths[0]) as a, np.load(paths[1]) as b:
+        if not (a["bad_envs"].tolist() == b["bad_envs"].tolist() == [EXPLICIT_NAN_ENV]):
+            raise AssertionError(f"{path} {label}: bad_envs {a['bad_envs']}, {b['bad_envs']}")
+        held = b_env.nan_guard.windows()
+        for k in ("qpos", "qvel", "ctrl"):
+            if not np.array_equal(b[k], held[k]):
+                raise AssertionError(f"{path} {label}: the dump's {k} is not the guard's window")
+            if tols is None:
+                if not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"{path} {label}: {k} windows differ")
+                errs[k] = 0.0
+            else:
+                errs[k] = rel_err(torch.as_tensor(a[k]), torch.as_tensor(b[k]))
+                if not errs[k] < tols[k]:
+                    raise AssertionError(f"{path} {label}: {k} window rel err {errs[k]:.3e}")
+        shape = {k: list(a[k].shape) for k in ("qpos", "qvel", "ctrl")}
+    log(f"[env] {path} NaN dumps, {label}: one each, bad_envs [{EXPLICIT_NAN_ENV}] in both, "
+        f"windows {shape} " + ("equal bit for bit" if tols is None else ", ".join(
+            f"{k} rel err {v:.3e} (tol {tols[k]:.0e})" for k, v in errs.items()))
+        + f"; {os.path.relpath(paths[1])}")
+    return {"window_rel_err": errs, "shape": shape}
 
 
 def expected_launches(solve: str, decimation: int) -> dict:
@@ -2211,7 +2390,8 @@ def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
     per_step = {k: v / (CAPTURE_WARMUP + 1) for k, v in launches.items()}
     yam = kind is ENV_KINDS["yam"]
     tracking = kind is ENV_KINDS["tracking"]
-    bitwise = yam or tracking or jump
+    explicit = kind is ENV_KINDS["explicit"]
+    bitwise = yam or tracking or jump or explicit
     expected = expected_launches(kind["solve"], cap.cfg.decimation)
     log(f"[env] {path}: the first step() captured the env step and replayed it in "
         f"{capture_s:.2f} s ({CAPTURE_WARMUP} warm-up steps, the last with host "
@@ -2303,6 +2483,14 @@ def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
             com_seen(path, cap, com)
     if jump:
         forced["landed_share"] = jump_landed(path, jump_name, cap, drop)
+    if explicit:
+        # the NaN step in both twins (the captured one between replays),
+        # then their dumps, bit for bit
+        oe, oc = explicit_nan_step(path, (eager, cap), check[-1])
+        nan_step_agree(path, "captured vs eager, the NaN step", eager, oe, cap, oc)
+        nan_dumps = explicit_dumps(path, "captured against eager", eager, cap)
+        eager.step(check[0])
+        oc = env_outputs(cap, cap.step(check[0]))
     for k in ("policy", "critic", "reward"):
         if not bool(torch.isfinite(oc[k]).all()):
             raise AssertionError(f"{path}: non-finite {k}")
@@ -2402,6 +2590,28 @@ def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
         # the kernels on the env's state after the timed steps: arms
         # reaching on random actions, cubes on the table, envs reset among
         # them
+        summary["kernel_checks"] = check_kernels(cap.sim, path, env_state=True)
+    if explicit:
+        # the kernels on the env's state after the timed steps: the robots
+        # walking on random actions under explicit PD and delayed DC
+        # torques, the wrists' force range, gain and bias per env (kernel 3
+        # reads all three from the Model's (E, ...) tensors); every force
+        # range then cut to 5-100 % per env and actuator and one physics
+        # step taken, so that the check's forces saturate at their env's
+        # bound (kernel 3's clip and its implicit diagonal's test)
+        fr = cap.sim.model.actuator_forcerange
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+        fr.mul_(torch.empty(fr.shape[:2] + (1,), device="cuda").uniform_(0.05, 1.0,
+                                                                        generator=gen))
+        cap.sim.step()
+        at_bound = (cap.sim.data.actuator_force.abs() - fr[..., 1]).abs() < 1e-5
+        log(f"[check] {path}: kernels 1-4 on the env's state; per-env force range "
+            f"{tuple(fr.shape)} cut, its upper bounds in [{float(fr[..., 1].min()):.3f}, "
+            f"{float(fr[..., 1].max()):.3f}]; after one step {int(at_bound.sum())} of "
+            f"{at_bound.numel()} actuator forces at their env's bound")
+        if not bool(at_bound.any()):
+            raise AssertionError(f"{path}: no force at its bound for the kernel check")
+        summary["nan_dumps"] = nan_dumps
         summary["kernel_checks"] = check_kernels(cap.sim, path, env_state=True)
     if jump:
         summary["forced_resets"] = forced
@@ -2555,11 +2765,13 @@ def make_train_runner(env=None, task: str = ENV_TASK):
     from mjlab_tpu_torch.rl import OnPolicyRunner, RslRlVecEnvWrapper
     from mjlab_tpu_torch.tasks import load_rl_cfg, load_runner_cls
 
-    agent = load_rl_cfg(task)
+    # the explicit env trains with the flat G1 task's PPO config and runner
+    rl_task = ENV_TASK if task == EXPLICIT_TASK else task
+    agent = load_rl_cfg(rl_task)
     agent.seed = SEED
     if env is None:
         env = make_env(NUM_ENVS, "cuda", task=task)
-    runner_cls = load_runner_cls(task) or OnPolicyRunner
+    runner_cls = load_runner_cls(rl_task) or OnPolicyRunner
     return runner_cls(RslRlVecEnvWrapper(env, clip_actions=agent.clip_actions),
                       agent, log_dir=None, device="cuda")
 
@@ -3080,11 +3292,11 @@ def run_forward_path() -> tuple[dict, dict, dict]:
 # training run for kernels 1-4 (g1_rough_train: the env's capture in the
 # first rollout step), the YAM's training run for kernel 5 (yam_train),
 # g1_forward for kernel 6
-CHECK_PATH = {"kin_com": "jump_env", "crb_packed": "jump_env",
-              "vel_smooth": "jump_env", "newton_assemble_solve": "jump_env",
+CHECK_PATH = {"kin_com": "g1_explicit_env", "crb_packed": "g1_explicit_env",
+              "vel_smooth": "g1_explicit_env", "newton_assemble_solve": "g1_explicit_env",
               "newton_assemble_solve_elliptic": "yam", "newton_solve_dense": "g1_forward"}
-LAUNCH_PATH = {"kin_com": "jump_train", "crb_packed": "jump_train",
-               "vel_smooth": "jump_train", "newton_assemble_solve": "jump_train",
+LAUNCH_PATH = {"kin_com": "g1_explicit_train", "crb_packed": "g1_explicit_train",
+               "vel_smooth": "g1_explicit_train", "newton_assemble_solve": "g1_explicit_train",
                "newton_assemble_solve_elliptic": "yam_train",
                "newton_solve_dense": "g1_forward"}
 
@@ -3168,6 +3380,19 @@ def run_jump_paths() -> tuple[dict, dict]:
     return launches, summary
 
 
+def run_explicit_paths() -> tuple[dict, dict]:
+    """g1_explicit_env and g1_explicit_train, the G1 flat-velocity env with
+    mixed explicit actuator groups (this slice's main path; kernel 3 reads
+    the per-env force range), the training path with the learner checks:
+    (launches by path, summary by path)."""
+    launches, summary = {}, {}
+    launches["g1_explicit_env"], summary["g1_explicit_env"] = run_env_path(
+        None, EXPLICIT_TASK, "g1_explicit_env")
+    launches["g1_explicit_train"], summary["g1_explicit_train"] = run_train_path(
+        EXPLICIT_TASK, "g1_explicit_train")
+    return launches, summary
+
+
 def run_rough_paths() -> tuple[dict, dict]:
     """g1_rough_env, go1_rough_env and g1_rough_train: (launches by path,
     summary by path)."""
@@ -3229,6 +3454,13 @@ def main() -> int:
         log(json.dumps({"jump": jump, "num_envs": NUM_ENVS}))
         log("[partial] --only-jump: the other paths did not run; no result")
         return 0
+    if sys.argv[1:2] == ["--only-explicit"]:
+        # a quick run of the explicit-actuator env and training paths
+        # alone: no result line
+        launches, explicit = run_explicit_paths()
+        log(json.dumps({"explicit": explicit, "num_envs": NUM_ENVS}))
+        log("[partial] --only-explicit: the other paths did not run; no result")
+        return 0
     if sys.argv[1:2] == ["--only-yam"]:
         # a quick run of the lift-cube env and training paths alone: no
         # result line
@@ -3268,6 +3500,10 @@ def main() -> int:
     for p in ("jump_env", "jumping_env"):
         per_path[p] = jump[p]["kernel_checks"]
     per_step.update({p: jump[p]["launches_per_control_step"] for p in jump})
+    explicit_launches, explicit = run_explicit_paths()
+    launches.update(explicit_launches)
+    per_path["g1_explicit_env"] = explicit["g1_explicit_env"]["kernel_checks"]
+    per_step.update({p: explicit[p]["launches_per_control_step"] for p in explicit})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3281,6 +3517,7 @@ def main() -> int:
     log(json.dumps({"yam": yam, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"tracking": tracking, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"jump": jump, "num_envs": NUM_ENVS, "power_limit": smi}))
+    log(json.dumps({"explicit": explicit, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"paths": summary, "num_envs": NUM_ENVS,
                     "control_steps": CONTROL_STEPS,
                     "seconds": time.perf_counter() - t_start}))

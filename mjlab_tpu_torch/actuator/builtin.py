@@ -1,11 +1,13 @@
-"""MuJoCo builtin position actuator: the spec edit and the runtime.
+"""MuJoCo builtin position actuator: the spec edits and the runtime.
 
 PyTorch-package counterpart of mjlab_tpu/actuator/builtin.py
 (``BuiltinPositionActuatorCfg`` and ``BuiltinPositionActuator``) and of
-mjlab_tpu/utils/spec.py:create_position_actuator. The PD law is an affine
-gain/bias that the physics step evaluates, and the implicitfast integrator
-treats its damping term implicitly; at run time the actuator passes the
-joint position target through to ctrl.
+mjlab_tpu/utils/spec.py:create_position_actuator and
+create_motor_actuator (host only: they edit a spec where MuJoCo is
+installed, to make model files). The PD law is an affine gain/bias that
+the physics step evaluates, and the implicitfast integrator treats its
+damping term implicitly; at run time the actuator passes the joint
+position target through to ctrl.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import TYPE_CHECKING
 
-from mjlab_tpu_torch.actuator.actuator import Actuator, ActuatorCmd
+from mjlab_tpu_torch.actuator.actuator import Actuator, ActuatorCfg, ActuatorCmd
 
 if TYPE_CHECKING:
     import mujoco
@@ -53,14 +55,41 @@ def create_position_actuator(
     return a
 
 
+def create_motor_actuator(
+    spec: "mujoco.MjSpec",
+    joint_name: str,
+    *,
+    effort_limit: float,
+    gear: float = 1.0,
+    armature: float = 0.0,
+    frictionloss: float = 0.0,
+) -> "mujoco.MjsActuator":
+    """Direct-torque <motor> actuator on a joint, its ctrl and force
+    limited to +-effort_limit; sets the joint's armature and
+    frictionloss."""
+    import mujoco
+
+    a = spec.add_actuator(name=joint_name, target=joint_name)
+    a.trntype = mujoco.mjtTrn.mjTRN_JOINT
+    a.dyntype = mujoco.mjtDyn.mjDYN_NONE
+    a.gaintype = mujoco.mjtGain.mjGAIN_FIXED
+    a.biastype = mujoco.mjtBias.mjBIAS_NONE
+    a.gear[0] = gear
+    a.forcelimited = True
+    a.forcerange[:] = (-effort_limit, effort_limit)
+    a.ctrllimited = True
+    a.ctrlrange[:] = (-effort_limit, effort_limit)
+    j = spec.joint(joint_name)
+    j.armature = armature
+    j.frictionloss = frictionloss
+    return a
+
+
 @dataclass(kw_only=True)
-class BuiltinPositionActuatorCfg:
-    joint_names_expr: tuple[str, ...]
+class BuiltinPositionActuatorCfg(ActuatorCfg):
     stiffness: float
     damping: float
     effort_limit: float | None = None
-    armature: float = 0.0
-    frictionloss: float = 0.0
 
     def build(self, joint_ids, joint_names) -> "BuiltinPositionActuator":
         return BuiltinPositionActuator(self, joint_ids, joint_names)
@@ -85,5 +114,5 @@ class BuiltinPositionActuator(Actuator):
     is_passthrough = True
     target = "position"
 
-    def compute(self, state, cmd: ActuatorCmd):
+    def compute(self, state, cmd: ActuatorCmd, rng=None):
         return cmd.position_target

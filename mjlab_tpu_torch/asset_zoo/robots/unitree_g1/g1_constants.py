@@ -19,6 +19,7 @@ from typing import TYPE_CHECKING
 
 from mjlab_tpu_torch.actuator.builtin import BuiltinPositionActuatorCfg
 from mjlab_tpu_torch.entity.entity import EntityCfg, InitialStateCfg
+from mjlab_tpu_torch.utils.actuator import ElectricActuator
 from mjlab_tpu_torch.utils.spec_config import CollisionCfg
 
 if TYPE_CHECKING:
@@ -70,6 +71,12 @@ ARMATURE_4010 = reflected_inertia_from_two_stage_planetary(
 )
 
 EFFORT_5020, EFFORT_7520_14, EFFORT_7520_22, EFFORT_4010 = 25.0, 88.0, 139.0, 5.0
+
+# the motor classes: reflected inertia, velocity limit (rad/s), effort limit
+ACTUATOR_5020 = ElectricActuator(ARMATURE_5020, 37.0, EFFORT_5020)
+ACTUATOR_7520_14 = ElectricActuator(ARMATURE_7520_14, 32.0, EFFORT_7520_14)
+ACTUATOR_7520_22 = ElectricActuator(ARMATURE_7520_22, 20.0, EFFORT_7520_22)
+ACTUATOR_4010 = ElectricActuator(ARMATURE_4010, 22.0, EFFORT_4010)
 
 NATURAL_FREQ = 10 * 2.0 * 3.1415926535  # 10 Hz
 DAMPING_RATIO = 2.0

@@ -40,6 +40,7 @@ struct EnvFields {
   EnvField jnt_stiffness; // (E, njnt)
   EnvField act_gainprm;   // (E, nu, 10): the first three of a row read
   EnvField act_biasprm;   // (E, nu, 10)
+  EnvField act_forcerange; // (E, nu, 2): randomize_effort_limits writes it
 };
 
 struct SmoothTables {

@@ -66,6 +66,17 @@ __device__ __forceinline__ int mi(const int* p, int i) { return __ldg(p + i); }
 __device__ __forceinline__ float mcv(const float* c, EnvField f, int i, int e) {
   return f.p ? __ldg(f.p + (size_t)e * f.stride + i * f.width) : __ldg(c + i);
 }
+// x clamped to [lo, hi], a NaN x kept (torch.clamp's and jnp.clip's rule;
+// fminf/fmaxf alone would return a bound, hiding a NaN from the NaN guard)
+__device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
+  return x != x ? x : fminf(fmaxf(x, lo), hi);
+}
+
+// element k of row i of such a field whose rows hold n floats in the table
+__device__ __forceinline__ float mcvk(const float* c, EnvField f, int i, int k, int n,
+                                      int e) {
+  return f.p ? __ldg(f.p + (size_t)e * f.stride + i * f.width + k) : __ldg(c + i * n + k);
+}
 __device__ __forceinline__ V3 mcv3(const float* c, EnvField f, int i, int e) {
   if (!f.p) return mc3(c, i);
   const float* r = f.p + (size_t)e * f.stride + i * f.width;

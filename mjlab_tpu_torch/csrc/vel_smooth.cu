@@ -219,7 +219,7 @@ vel_smooth_kernel(SmoothTables t, SmoothTree tr, const float* __restrict__ q,
       const float vel = vi * gear;
       float c = __ldg(ctrl + u * E + e);
       if (mi(t.act_ctrllimited, u))
-        c = fminf(fmaxf(c, mc(t.act_ctrlrange, 2 * u)), mc(t.act_ctrlrange, 2 * u + 1));
+        c = clamp_nan(c, mc(t.act_ctrlrange, 2 * u), mc(t.act_ctrlrange, 2 * u + 1));
       const V3 gp = mcv3(t.act_gainprm, t.env.act_gainprm, u, e);
       const V3 bp = mcv3(t.act_biasprm, t.env.act_biasprm, u, e);
       const bool gain_affine = mi(t.act_gaintype, u) == 1;
@@ -227,9 +227,10 @@ vel_smooth_kernel(SmoothTables t, SmoothTree tr, const float* __restrict__ q,
       const float gain = gain_affine ? gp.x + gp.y * length + gp.z * vel : gp.x;
       const float bs = bias_affine ? bp.x + bp.y * length + bp.z * vel : 0.f;
       float force = gain * c + bs;
-      const float lo = mc(t.act_forcerange, 2 * u), hi = mc(t.act_forcerange, 2 * u + 1);
+      const float lo = mcvk(t.act_forcerange, t.env.act_forcerange, u, 0, 2, e);
+      const float hi = mcvk(t.act_forcerange, t.env.act_forcerange, u, 1, 2, e);
       const bool limited = mi(t.act_forcelimited, u);
-      if (limited) force = fminf(fmaxf(force, lo), hi);
+      if (limited) force = clamp_nan(force, lo, hi);
       afrc[u * E + e] = force;
       avel[u * E + e] = vel;
       act = act + force * gear;

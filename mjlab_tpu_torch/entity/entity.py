@@ -4,11 +4,13 @@ PyTorch counterpart of mjlab_tpu/entity/entity.py. The config
 (``EntityCfg``: the spec, its editors and actuators, the initial state) is
 shared with the scene's spec side (scene/scene.py build_entity_spec). At
 run time an Entity resolves its global indices from the port's Model by
-its "{name}/" prefix (``initialize``; no MuJoCo needed), owns its per-env
-state (joint targets, encoder bias) as tensors updated in place, and
-writes its actuators' controls into data.ctrl once per physics substep
-(``apply_actuator_controls``). Reads and writes of the physics state go
-through the EntityData view (entity/data.py).
+its "{name}/" prefix (``initialize``; no MuJoCo needed), builds its
+actuator groups (any ActuatorCfg: builtin, PD, DC, delayed, learned, XML),
+owns its per-env state (joint targets, encoder bias, each group's state)
+as tensors updated in place, and writes its actuators' controls into
+data.ctrl once per physics substep (``apply_actuator_controls``). Reads
+and writes of the physics state go through the EntityData view
+(entity/data.py).
 """
 
 from __future__ import annotations
@@ -264,7 +266,7 @@ class Entity:
         ctx.entity_states[self.name] = EntityState(
             joint_pos_target=zeros(), joint_vel_target=zeros(),
             joint_effort_target=zeros(), encoder_bias=zeros(),
-            actuator_states={str(i): a.initialize(E, dev)
+            actuator_states={str(i): a.initialize(E, dev, ctx.rng)
                              for i, a in enumerate(self.actuators)},
         )
         self._data_view = EntityData(self)
@@ -281,17 +283,17 @@ class Entity:
         st = self.state
         out = [st.joint_pos_target, st.joint_vel_target, st.joint_effort_target,
                st.encoder_bias]
-        for s in st.actuator_states.values():
-            if isinstance(s, torch.Tensor):
-                out.append(s)
+        for i, act in enumerate(self.actuators):
+            out += act.state_tensors(st.actuator_states[str(i)])
         return out
 
     # -- per-substep control --
 
     def apply_actuator_controls(self) -> None:
-        """Every actuator group's ctrl from the joint targets, written into
-        data.ctrl; runs once per physics substep
-        (mjlab_tpu/entity/entity.py:416-443)."""
+        """Every actuator group's ctrl from the joint targets, in the
+        groups' order, written into data.ctrl; runs once per physics
+        substep (mjlab_tpu/entity/entity.py:416-443). A group's state
+        advances in place, and its draws come from the env's Rng."""
         if not self.actuators:
             return
         st = self.state
@@ -309,12 +311,13 @@ class Entity:
                 joint_pos=qpos[:, j],
                 joint_vel=qvel[:, j],
             )
-            out = act.compute(st.actuator_states[str(i)], cmd)
+            out = act.compute(st.actuator_states[str(i)], cmd, self.ctx.rng)
             ctrl = ctrl.index_copy(1, act.ctrl_ids, out.to(ctrl.dtype))
         self.ctx.data = d.replace(ctrl=ctrl)
 
     def reset(self, mask: torch.Tensor) -> None:
-        """Reset the actuator groups' state of the masked envs."""
+        """Reset the actuator groups' state of the masked envs, in the
+        groups' order (mjlab_tpu/entity/entity.py:445-452)."""
         st = self.state
         for i, act in enumerate(self.actuators):
-            act.reset(st.actuator_states[str(i)], mask)
+            act.reset(st.actuator_states[str(i)], mask, self.ctx.rng)

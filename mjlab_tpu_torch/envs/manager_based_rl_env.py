@@ -14,7 +14,8 @@ CUDA graph. A step is, in the JAX env's order (_traced_step, 419-469):
    (and the JAX package's batched step on the CPU), so that the
    terminations and rewards read frames one substep behind qpos;
 3. the episode counters;
-4. terminations, then rewards;
+4. the NaN guard's record and check, where it is enabled; terminations,
+   then rewards;
 5. the masked reset of the envs that are done, then the kinematic
    refresh of every env;
 6. the command, the interval events, the observations.
@@ -116,8 +117,6 @@ class ManagerBasedRlEnv:
                  render_mode=None, capture: bool = True):
         if render_mode is not None:
             raise NotImplementedError("rendering is not ported yet")
-        if cfg.sim.nan_guard is not None and getattr(cfg.sim.nan_guard, "enabled", False):
-            raise NotImplementedError("the NaN guard is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.render_mode = render_mode
@@ -132,7 +131,18 @@ class ManagerBasedRlEnv:
 
         # 2. the scene's runtime on the Simulation, and the refresh that the
         # managers' dry runs read
-        self.scene.initialize(self.sim, xml_sensors)
+        self.scene.initialize(self.sim, xml_sensors, rng=self.rng)
+
+        # the NaN guard (mjlab_tpu/envs/manager_based_rl_env.py:190-199): a
+        # rolling history of the physics state, recorded inside the step
+        self.nan_guard = None
+        guard_cfg = cfg.sim.nan_guard
+        if guard_cfg is not None and guard_cfg.enabled:
+            from mjlab_tpu_torch.utils.nan_guard import NanGuard
+
+            m = self.sim.model
+            self.nan_guard = NanGuard(guard_cfg, self.num_envs, m.nq, m.nv, m.nu,
+                                      self.device, model=self._shared_model)
         self.sim.refresh()
 
         # 3. the terrain's per-env state, then the managers, in the JAX
@@ -194,6 +204,19 @@ class ManagerBasedRlEnv:
 
     # -- helpers --
 
+    @property
+    def rng(self) -> Rng:
+        """The env's random source; setting it also points the scene's
+        actuator groups at the new one."""
+        return self._rng
+
+    @rng.setter
+    def rng(self, rng) -> None:
+        self._rng = rng
+        ctx = getattr(getattr(self, "scene", None), "ctx", None)
+        if ctx is not None:
+            ctx.rng = rng
+
     def _scene_model(self):
         """(Model or MjModel, the XML sensor rows) of the scene; a Model
         from the scene's model file gets the scene's generated terrain."""
@@ -213,6 +236,13 @@ class ManagerBasedRlEnv:
             return model, xml_sensors_from_arrays(extra)
         mj = self.scene.compile()
         return mj, xml_sensors(mj)
+
+    def _shared_model(self):
+        """The Simulation's Model with every per-env field at its shared
+        value (what the NaN guard writes beside its dump)."""
+        import dataclasses
+
+        return dataclasses.replace(self.sim.model, **self.sim._default_fields)
 
     def const(self, value, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """A constant tensor on the env's device, made once per value (a
@@ -301,6 +331,9 @@ class ManagerBasedRlEnv:
                     self.reward_manager, self.curriculum_manager):
             out += mgr.state_tensors()
         out += [getattr(self.sim.model, n) for n in self.sim._default_fields]
+        if self.nan_guard is not None:
+            out += self.nan_guard.state_tensors()
+        # last: the first step adds its logs' buffers
         out += list(self._log_out.values())
         return out
 
@@ -332,6 +365,8 @@ class ManagerBasedRlEnv:
 
     def _after_physics(self) -> None:
         """Everything of a step after the decimation loop."""
+        if self.nan_guard is not None:
+            self.nan_guard.record(self.sim.data)
         self._term_log.clear()
         self.episode_length_buf.add_(1)
         self.common_step_counter.add_(1)
@@ -385,4 +420,6 @@ class ManagerBasedRlEnv:
         return None
 
     def close(self) -> None:
-        pass
+        """Write the NaN guard's dump if an env went bad (a host read)."""
+        if self.nan_guard is not None:
+            self.nan_guard.dump_if_detected()

@@ -1,16 +1,16 @@
-"""Event term library: resets, pushes and domain randomisation of model
-fields.
+"""Event term library: resets, pushes, external wrenches and domain
+randomisation of model fields and actuator groups.
 
-PyTorch counterpart of the part of mjlab_tpu/envs/mdp/events.py that the
-ported tasks run: randomize_terrain, reset_scene_to_default,
-reset_root_state_uniform, reset_joints_by_offset, push_by_setting_velocity,
-randomize_field (on the Model fields Simulation.expand_model_fields
-carries per env) and randomize_encoder_bias. Every term takes (env, env_mask, **params) and writes
-only the masked envs, in place (the entity view's writes, or the
-expanded Model field), drawing from the env's Rng in the JAX term's order.
-A DR write always starts from the field's default value, so that resets
-do not accumulate. The other event terms of the JAX file raise
-NotImplementedError naming themselves.
+PyTorch counterpart of mjlab_tpu/envs/mdp/events.py: randomize_terrain,
+reset_scene_to_default, reset_root_state_uniform, reset_joints_by_offset,
+push_by_setting_velocity, apply_external_force_torque, randomize_field (on
+the Model fields Simulation.expand_model_fields carries per env),
+randomize_pd_gains, randomize_effort_limits, randomize_encoder_bias and
+sync_actuator_delays. Every term takes (env, env_mask, **params) and
+writes only the masked envs, in place (the entity view's writes, an
+expanded Model field, or an actuator group's state), drawing from the
+env's Rng in the JAX term's order. A DR write always starts from the
+field's default value, so that resets do not accumulate.
 """
 
 from __future__ import annotations
@@ -53,21 +53,6 @@ def _rand(rng, distribution, lo, hi, shape):
     if distribution == "gaussian":
         return lo + hi * rng.normal(shape)
     raise ValueError(distribution)
-
-
-def _not_ported(name: str):
-    def term(env, env_mask, **params):
-        raise NotImplementedError(f"event term {name} is not ported yet")
-
-    term.__name__ = name
-    term.__doc__ = f"{name}: not ported yet (raises NotImplementedError)."
-    return term
-
-
-apply_external_force_torque = _not_ported("apply_external_force_torque")
-randomize_pd_gains = _not_ported("randomize_pd_gains")
-randomize_effort_limits = _not_ported("randomize_effort_limits")
-sync_actuator_delays = _not_ported("sync_actuator_delays")
 
 
 # ---------------------------------------------------------------------------
@@ -156,6 +141,27 @@ def reset_joints_by_offset(
     lims = data.soft_joint_pos_limits.expand(E, J, 2).to(torch.float32)
     jp = torch.minimum(torch.maximum(jp, lims[..., 0]), lims[..., 1])
     data.write_joint_state(jp, jv, env_ids=env_mask)
+
+
+def apply_external_force_torque(
+    env,
+    env_mask,
+    force_range: tuple = (0.0, 0.0),
+    torque_range: tuple = (0.0, 0.0),
+    asset_cfg: SceneEntityCfg = _DEFAULT,
+):
+    """A sampled constant wrench (world force and torque at the com) on
+    asset_cfg's bodies of the masked envs, written into xfrc_applied
+    (mjlab_tpu/envs/mdp/events.py:183-210): force, then torque, each
+    U[lo, hi) of (num_envs, bodies, 3)."""
+    entity = env.scene[asset_cfg.name]
+    ids = asset_cfg.body_ids
+    nb = len(entity.indexing.body_ids) if isinstance(ids, slice) else int(ids.numel())
+    E = env.num_envs
+    force = env.rng.uniform((E, nb, 3), *force_range)
+    torque = env.rng.uniform((E, nb, 3), *torque_range)
+    entity.data.write_external_wrench(
+        force, torque, body_ids=None if isinstance(ids, slice) else ids, env_ids=env_mask)
 
 
 def randomize_encoder_bias(
@@ -283,3 +289,115 @@ def randomize_field(
         new = torch.where(comp_mask, new, sub_default[None])
     m = env_mask.reshape((E,) + (1,) * sub_default.ndim)
     cur.index_copy_(1, ids, torch.where(m, new.to(cur.dtype), cur[:, ids]))
+
+
+def _expanded(env, field: str):
+    """The Model field's (num_envs, ...) tensor, or None when it is
+    shared."""
+    cur = getattr(env.sim.model, field)
+    shared = env.sim.get_default_field(field)
+    return cur if cur.dim() == shared.dim() + 1 else None
+
+
+def randomize_pd_gains(
+    env,
+    env_mask,
+    stiffness_scale: tuple | None = None,
+    damping_scale: tuple | None = None,
+    asset_cfg: SceneEntityCfg = _DEFAULT,
+    distribution: str = "uniform",
+):
+    """Scale every actuator group's PD gains from their defaults
+    (mjlab_tpu/envs/mdp/events.py:327-393): per group a stiffness and a
+    damping draw of (num_envs, joints), whatever its type; a builtin
+    position group writes the per-env actuator_gainprm and biasprm (kp;
+    -kp, -kd; RuntimeError when they are not expanded), an ideal PD group
+    (DC and learned too) its state's gains; other groups (delayed, XML)
+    keep theirs. As in the JAX package, a learned group's state has no
+    gains here (an AttributeError)."""
+    from mjlab_tpu_torch.actuator.builtin import BuiltinPositionActuator
+    from mjlab_tpu_torch.actuator.pd import IdealPdActuator
+
+    entity = env.scene[asset_cfg.name]
+    E = env.num_envs
+    st = entity.state
+    for i, act in enumerate(entity.actuators):
+        nj = len(act.joint_names)
+        s_scale = (_rand(env.rng, distribution, *stiffness_scale, (E, nj))
+                   if stiffness_scale else None)
+        d_scale = (_rand(env.rng, distribution, *damping_scale, (E, nj))
+                   if damping_scale else None)
+        if isinstance(act, BuiltinPositionActuator):
+            gain = _expanded(env, "actuator_gainprm")
+            bias = _expanded(env, "actuator_biasprm")
+            if gain is None or bias is None:
+                raise RuntimeError(
+                    "actuator_gainprm/biasprm not env-expanded; set "
+                    "domain_randomization=True with field='actuator_gainprm'")
+            cid = act.ctrl_ids
+            kp0 = env.sim.get_default_field("actuator_gainprm")[cid, 0]
+            kd0 = -env.sim.get_default_field("actuator_biasprm")[cid, 2]
+            kp = kp0[None] * (s_scale if s_scale is not None else 1.0)
+            kd = kd0[None] * (d_scale if d_scale is not None else 1.0)
+            m = env_mask[:, None]
+            gain[:, cid, 0] = torch.where(m, kp, gain[:, cid, 0]).to(gain.dtype)
+            bias[:, cid, 1] = torch.where(m, -kp, bias[:, cid, 1]).to(bias.dtype)
+            bias[:, cid, 2] = torch.where(m, -kd, bias[:, cid, 2]).to(bias.dtype)
+        elif isinstance(act, IdealPdActuator):
+            pstate = st.actuator_states[str(i)]
+            kp = pstate.default_stiffness[None] * (s_scale if s_scale is not None else 1.0)
+            kd = pstate.default_damping[None] * (d_scale if d_scale is not None else 1.0)
+            IdealPdActuator.set_gains(pstate, env_mask, stiffness=kp, damping=kd)
+
+
+def randomize_effort_limits(
+    env,
+    env_mask,
+    scale: tuple = (1.0, 1.0),
+    asset_cfg: SceneEntityCfg = _DEFAULT,
+    distribution: str = "uniform",
+):
+    """Scale every actuator group's effort limit from its default
+    (mjlab_tpu/envs/mdp/events.py:396-436): an ideal PD group (DC and
+    learned too) its state's limit, one draw of (num_envs, joints); any
+    other group the per-env actuator_forcerange, one draw of (num_envs,
+    actuators), or nothing and no draw when the field is not expanded (a
+    silent no-op, as in the JAX package)."""
+    from mjlab_tpu_torch.actuator.pd import IdealPdActuator
+
+    entity = env.scene[asset_cfg.name]
+    E = env.num_envs
+    st = entity.state
+    for i, act in enumerate(entity.actuators):
+        if not isinstance(act, IdealPdActuator):
+            fr = _expanded(env, "actuator_forcerange")
+            if fr is None:
+                continue
+            cid = act.ctrl_ids
+            s = _rand(env.rng, distribution, *scale, (E, len(cid)))
+            new = env.sim.get_default_field("actuator_forcerange")[cid][None] * s[..., None]
+            m = env_mask[:, None, None]
+            fr[:, cid] = torch.where(m, new, fr[:, cid]).to(fr.dtype)
+            continue
+        pstate = st.actuator_states[str(i)]
+        s = _rand(env.rng, distribution, *scale, (E, len(act.joint_names)))
+        IdealPdActuator.set_effort_limit(pstate, env_mask, pstate.default_effort_limit[None] * s)
+
+
+def sync_actuator_delays(
+    env,
+    env_mask,
+    min_lag: int,
+    max_lag: int,
+    asset_cfg: SceneEntityCfg = _DEFAULT,
+):
+    """The same lag range for every delayed actuator group of the entity
+    (mjlab_tpu/envs/mdp/events.py:460-479; every env, whatever the
+    mask)."""
+    from mjlab_tpu_torch.actuator.delayed import DelayedActuator
+
+    entity = env.scene[asset_cfg.name]
+    st = entity.state
+    for i, act in enumerate(entity.actuators):
+        if isinstance(act, DelayedActuator):
+            DelayedActuator.set_lags(st.actuator_states[str(i)], min_lag, max_lag)

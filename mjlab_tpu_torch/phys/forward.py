@@ -46,10 +46,10 @@ def _actuator_vel_deriv(m: Model, d: Data) -> torch.Tensor:
         device_array(m, "gain_affine", lambda: m.actuator_gaintype == 1),
         gp[:, 2] * inp, 0.0,
     )
-    fr = m.actuator_forcerange
+    fr = m.actuator_forcerange  # (nu, 2), or (E, nu, 2) per env
     saturated = device_array(
         m, "actuator_forcelimited", lambda: m.actuator_forcelimited.astype(bool)
-    ) & ((d.actuator_force <= fr[:, 0]) | (d.actuator_force >= fr[:, 1]))
+    ) & ((d.actuator_force <= fr[..., 0]) | (d.actuator_force >= fr[..., 1]))
     return torch.where(saturated, 0.0, dfdv)
 
 

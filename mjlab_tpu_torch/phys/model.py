@@ -89,7 +89,7 @@ SMOOTH_VECTOR_FIELDS = frozenset({
 PER_ENV_SMOOTH_FIELDS = frozenset({
     "body_mass", "body_ipos", "body_inertia", "geom_pos", "dof_damping",
     "dof_armature", "jnt_stiffness", "qpos0", "actuator_gainprm",
-    "actuator_biasprm",
+    "actuator_biasprm", "actuator_forcerange",
 })
 
 

@@ -219,9 +219,9 @@ def fwd_actuation(m: Model, d: Data) -> Data:
         bp[:, 0] + bp[:, 1] * length + bp[:, 2] * velocity, 0.0,
     )
     force = gain * ctrl + bias
-    fr = m.actuator_forcerange
+    fr = m.actuator_forcerange  # (nu, 2), or (E, nu, 2) per env
     force = torch.where(_flag(m, "actuator_forcelimited"),
-                        torch.clamp(force, fr[:, 0], fr[:, 1]), force)
+                        torch.clamp(force, fr[..., 0], fr[..., 1]), force)
     return d.replace(
         actuator_velocity=velocity, actuator_force=force,
         qfrc_actuator=torch.einsum("euv,eu->ev", d.actuator_moment, force),

@@ -174,7 +174,7 @@ _ENV_FIELDS = (
     ("body_inertia", "body_inertia"), ("geom_pos", "geom_pos"),
     ("dof_armature", "dof_armature"), ("dof_damping", "dof_damping"),
     ("jnt_stiffness", "jnt_stiffness"), ("act_gainprm", "actuator_gainprm"),
-    ("act_biasprm", "actuator_biasprm"),
+    ("act_biasprm", "actuator_biasprm"), ("act_forcerange", "actuator_forcerange"),
 )
 
 

@@ -125,6 +125,9 @@ class OnPolicyRunner:
                               update_ms=marks[1].elapsed_time(marks[2]))
             self.timings.append(timing)
             self._log(host, steps_per_iter / dt)
+            guard = getattr(self.env, "nan_guard", None)
+            if guard is not None:
+                guard.dump_if_detected()
             if on_iteration is not None:
                 on_iteration(host)
             if self.log_dir and self.iteration % self.cfg.save_interval == 0:

@@ -202,8 +202,9 @@ class SimContext:
     Simulation, in place once it is static) and the per-env state tensors
     of the entities and sensors, by name."""
 
-    def __init__(self, sim: "Simulation"):
+    def __init__(self, sim: "Simulation", rng=None):
         self.sim = sim
+        self.rng = rng  # the env's Rng: the actuators' draws
         self.entity_states: dict[str, object] = {}
         self.sensor_states: dict[str, object] = {}
 
@@ -271,13 +272,16 @@ class Scene:
     # -- runtime --
 
     def initialize(self, sim: "Simulation",
-                   sensors: tuple[XmlSensor, ...] = ()) -> SimContext:
+                   sensors: tuple[XmlSensor, ...] = (), rng=None) -> SimContext:
         """Resolve every entity and sensor against sim's Model and give
         them their per-env state; ``sensors`` are the XML-declared
-        sensors, wrapped as builtin sensors under their prefixed names."""
+        sensors, wrapped as builtin sensors under their prefixed names;
+        ``rng`` (utils/random.py Rng) is what the actuator groups draw
+        from (a Rng of seed 0 on sim's device when None)."""
         from mjlab_tpu_torch.sensor.builtin_sensor import BuiltinSensor
+        from mjlab_tpu_torch.utils.random import Rng
 
-        self.ctx = ctx = SimContext(sim)
+        self.ctx = ctx = SimContext(sim, rng if rng is not None else Rng(0, sim.device))
         for entity in self.entities.values():
             entity.initialize(ctx)
         for row in sensors:

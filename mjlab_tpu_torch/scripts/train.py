@@ -205,8 +205,6 @@ def run_train(
         raise NotImplementedError(
             "--distributed: data-parallel training (torch.distributed with NCCL) is not "
             "ported")
-    if enable_nan_guard:
-        raise NotImplementedError("--enable-nan-guard: the NaN guard is not ported")
     if registry_name is not None:
         raise NotImplementedError(
             "--registry-name is not ported: fetching a motion from the W&B registry needs "
@@ -228,6 +226,10 @@ def run_train(
         agent_cfg.seed = seed
     if max_iterations:
         agent_cfg.max_iterations = max_iterations
+    if enable_nan_guard:
+        from mjlab_tpu_torch.utils.nan_guard import NanGuardCfg
+
+        env_cfg.sim.nan_guard = NanGuardCfg(enabled=True)
     _apply_overrides(env_cfg, env_overrides or [])
     _apply_overrides(agent_cfg, agent_overrides or [])
     if resume:

@@ -101,9 +101,9 @@ class SimulationCfg:
     contact_sensor_maxmatch (the most contact slots one contact-sensor
     row may match; sensor/contact_sensor.py checks it). Accepted and
     unused, as in the JAX package: njmax (constraint rows are laid out
-    statically) and ls_parallel (every env is a batch lane). nan_guard is
-    carried for the env, which reads it (the NaN guard is not ported
-    yet)."""
+    statically) and ls_parallel (every env is a batch lane). nan_guard (a
+    utils/nan_guard.py NanGuardCfg) is carried for the env, which reads
+    it."""
 
     nconmax: int | None = None
     njmax: int | None = None

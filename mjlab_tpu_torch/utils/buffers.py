@@ -39,18 +39,25 @@ class CircularBuffer:
         """Invalidate the masked envs' history."""
         self.num_pushes.masked_fill_(mask, 0)
 
-    def append(self, value: torch.Tensor) -> None:
+    def append(self, value: torch.Tensor, when: torch.Tensor | None = None) -> None:
         """Append a batch frame; envs with no push since their reset get the
         value in every slot, so reads before the window fills return the
-        oldest real frame."""
+        oldest real frame. ``when`` (a 0-d bool tensor): append only if it
+        is true, with no host read (the NaN guard's recording)."""
         T = self.max_len
         slot = torch.remainder(self.ptr, T).reshape(1).long()
         value = value.to(self.buf.dtype)
+        if when is not None:
+            value = torch.where(when, value, self.buf.index_select(0, slot)[0])
         self.buf.index_copy_(0, slot, value[None])
-        first = (self.num_pushes == 0).reshape((1, -1) + (1,) * (value.ndim - 1))
+        first = self.num_pushes == 0
+        if when is not None:
+            first = first & when
+        first = first.reshape((1, -1) + (1,) * (value.ndim - 1))
         self.buf.copy_(torch.where(first, value[None], self.buf))
-        self.ptr.add_(1)
-        self.num_pushes.add_(1)
+        step = 1 if when is None else when.to(torch.int32)
+        self.ptr.add_(step)
+        self.num_pushes.add_(step)
 
     def get(self, lag) -> torch.Tensor:
         """LIFO read: lag 0 the newest frame, lag k k pushes ago; lag () or

@@ -182,7 +182,8 @@ def test_kernels_match_plain_versions(E, cuda):
 def _per_env_fields(m, rng, names=tuple(sorted(pm.PER_ENV_SMOOTH_FIELDS)), E=None):
     """m with ``names`` per env (E, ...), drawn as a randomisation event
     would: offsets of centimetres, scales of +-20-50 %, springs on every
-    joint, qpos0 moved; the actuators' three parameters scaled."""
+    joint, qpos0 moved; the actuators' three parameters scaled, their force
+    ranges cut to 5-100 %."""
     upd = {}
     for n in names:
         v = getattr(m, n)
@@ -203,6 +204,8 @@ def _per_env_fields(m, rng, names=tuple(sorted(pm.PER_ENV_SMOOTH_FIELDS)), E=Non
             x += u(0.0, 5.0)
         elif n == "qpos0":
             x += g(0.05)
+        elif n == "actuator_forcerange":
+            x *= u(0.05, 1.0)[..., :1]  # ranges cut, so that some forces saturate
         else:
             x[..., :3] *= u(0.8, 1.2)[..., :3]
         upd[n] = x.contiguous()
@@ -1189,3 +1192,82 @@ def test_captured_jump_env_matches_eager_bit_for_bit(cuda):
         got = (float(term.state["target_height"]), float(term.state["height_tolerance"]),
                float(cap.reward_manager.weights["landing_stability"]))
         np.testing.assert_allclose(got, want, rtol=1e-7)
+
+
+def _explicit_envs(cuda, E=300, seed=5, captures=(False, True)):
+    """The explicit-actuator G1 env (tasks/velocity/config/g1/explicit.py)
+    on one seed, eager and captured: the same draws."""
+    import tempfile
+
+    from mjlab_tpu_torch.tasks.velocity.config.g1.explicit import make_g1_explicit_env
+
+    out = []
+    for capture in captures:
+        env = make_g1_explicit_env(E, cuda, capture=capture, seed=seed,
+                                   nan_dir=tempfile.mkdtemp())
+        env.reset()
+        out.append(env)
+    return out
+
+
+def test_vel_smooth_with_per_env_forcerange_matches_plain_version(cuda):
+    """Kernels 1-4 against their plain versions on the explicit env's state
+    (E = 300, the ragged edge): its delayed DC legs and PD arms drive
+    motors, the wrists' force range, gain and bias per env (reset draws),
+    then every actuator's force range cut to 5-100 % per env so that many
+    forces saturate: kernel 3 reads the range per env in its force clip
+    and its implicit diagonal's saturation test."""
+    (env,) = _explicit_envs(cuda, captures=(False,))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for _ in range(5):
+        env.step(0.5 * torch.randn(env.num_envs, 29, generator=gen, device=cuda))
+    fr = env.sim.model.actuator_forcerange
+    assert fr.shape == (env.num_envs, 29, 2)
+    fr.mul_(torch.empty(fr.shape[:2] + (1,), device=cuda).uniform_(0.05, 1.0, generator=gen))
+    env.sim.step()
+    hi = fr[..., 1]
+    saturated = (env.sim.data.actuator_force.abs() - hi).abs() < 1e-5
+    assert int(saturated.sum()) > 0
+    # errors relative to the coordinate scale: 300 envs on a grid of env
+    # origins tens of metres across
+    length = float(env.sim.data.xpos.abs().max())
+    _check_kernels(env.sim.model, env.sim.data, cuda, stable_only=True, length=length)
+
+
+def test_captured_explicit_env_matches_eager_bit_for_bit(cuda):
+    """The explicit env captured against its eager twin over 4 steps: the
+    delayed legs' lags drawn inside the graph, the reset events' gains and
+    effort limits, the NaN guard's window; a NaN written into env 3's
+    wrist gain between replays ends env 3 through nan_detection in both,
+    both guards flag it alone, and their dumps hold the same arrays."""
+    eager, cap = _explicit_envs(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    robot = cap.scene["robot"]
+    wrist = int(next(a for a in robot.actuators if a.is_passthrough).ctrl_ids[0])
+    for i in range(4):
+        if i == 2:
+            for env in (eager, cap):
+                env.sim.model.actuator_gainprm[3, wrist, 0] = float("nan")
+        act = 0.5 * torch.randn(eager.num_envs, 29, generator=gen, device=cuda)
+        oe = [t.clone() for t in eager.step(act)[1:4]]
+        oc = cap.step(act)[1:4]
+        torch.cuda.synchronize()
+        for x, y in zip(oe, oc):
+            assert torch.equal(torch.nan_to_num(x, 7.0), torch.nan_to_num(y, 7.0)), i
+        for f in ("qpos", "qvel"):
+            assert torch.equal(getattr(eager.sim.data, f), getattr(cap.sim.data, f)), (i, f)
+        for x, y in zip(eager.scene.state_tensors(), cap.scene.state_tensors()):
+            assert torch.equal(x, y), i
+        if i == 2:
+            assert torch.nonzero(oc[1]).flatten().tolist() == [3]
+    assert cap.captured
+    for x, y in zip(eager.nan_guard.state_tensors(), cap.nan_guard.state_tensors()):
+        assert torch.equal(x, y)
+    assert torch.nonzero(cap.nan_guard.bad_envs).flatten().tolist() == [3]
+    paths = []
+    for env in (eager, cap):
+        env.close()
+        paths.append(env.nan_guard.dumped)
+    with np.load(paths[0]) as a, np.load(paths[1]) as b:
+        for k in ("bad_envs", "qpos", "qvel", "ctrl"):
+            np.testing.assert_array_equal(a[k], b[k])

@@ -4,18 +4,20 @@ port against the JAX package, on the CPU.
 The fields a domain randomisation event writes (phys/model.py
 PER_ENV_SMOOTH_FIELDS: body_mass, body_ipos, body_inertia, geom_pos,
 dof_damping, dof_armature, jnt_stiffness, qpos0, actuator_gainprm,
-actuator_biasprm) may carry a leading env axis; the plain versions of
+actuator_biasprm, actuator_forcerange) may carry a leading env axis; the plain versions of
 kernels 1-3 then read each env's value through Params.plane, as the
 kernels read it through mcv (csrc/smooth_tree.cuh).
 
 - 3 physics steps of the toy with a mocap body (the box foot on the plane,
   a position actuator and a motor, implicitfast; the mocap frames per env)
-  with per-env fields against the JAX package's step_hybrid with those
+  with per-env fields (the actuators force-limited, per-env force ranges
+  that saturate some of them: the force clip and the implicit diagonal's
+  saturation test) against the JAX package's step_hybrid with those
   fields in ``bf`` (its vmapped smooth stages: the JAX tests of the Pallas
   path with DR planes are marked slow), at float32 within the step
   tolerances of tests/test_smooth_pallas.py:209 (qpos 1e-4, qvel 1e-3,
   qacc 5e-3): each field alone, body_ipos with dof_damping (that test's
-  case), and all ten at once;
+  case), and all eleven at once;
 - the refresh with per-env body_ipos, body_mass and geom_pos against the
   vmapped JAX refresh (tests/test_refresh_envlast.py:138) within its 5e-6;
 - a write of a per-env field between two steps is read by the next step;
@@ -24,7 +26,7 @@ kernels read it through mcv (csrc/smooth_tree.cuh).
   naming the field, in expand_model_fields, check_supported and the
   kernels' DeviceTables.
 
-The JAX step is compiled once for the mocap toy with all ten fields
+The JAX step is compiled once for the mocap toy with all eleven fields
 batched; a case with fewer per-env fields gives the JAX Model the shared
 value in every env for the others.
 """
@@ -57,8 +59,14 @@ E = 16
 FIELDS = tuple(sorted(PER_ENV_SMOOTH_FIELDS))
 STEP_TOL = (("qpos", 1e-4), ("qvel", 1e-3), ("qacc", 5e-3))
 
-# tests/test_smooth_pallas.py MOCAP_XML: the toy with a mocap body
+# tests/test_smooth_pallas.py MOCAP_XML: the toy with a mocap body, its two
+# actuators force-limited at +-1000 (never reached with the shared range;
+# the per-env draws of actuator_forcerange saturate some)
 MOCAP_XML = TOY_XML.replace(
+    'kp="30" kv="2"/>', 'kp="30" kv="2" forcelimited="true" forcerange="-1000 1000"/>',
+).replace(
+    'gear="1.5"/>', 'gear="1.5" forcelimited="true" forcerange="-1000 1000"/>',
+).replace(
     "</worldbody>",
     """    <body name="target" mocap="true" pos="1 0 0.5">
       <geom type="sphere" size="0.02" contype="0" conaffinity="0"
@@ -90,6 +98,10 @@ def _draw(name: str, shared: np.ndarray, rng) -> np.ndarray:
         out += u(0.0, 5.0)
     elif name == "qpos0":
         out += n(0.05)
+    elif name == "actuator_forcerange":
+        # +-(0.5-6) per env and actuator: some of the toy's forces saturate
+        hi = u(0.5, 6.0)[..., :1]
+        out = np.concatenate([-hi, hi], -1)
     else:  # actuator_gainprm, actuator_biasprm: the three parameters read
         out[..., :3] *= u(0.8, 1.2)[..., :3]
     return out
@@ -177,6 +189,11 @@ def test_step_with_per_env_fields_matches_jax(toy, case):
         shared.step()
     moved = (sim.data.qacc - shared.data.qacc).abs().amax(1)
     assert int((moved > 1e-4).sum()) >= E // 2, case
+    if "actuator_forcerange" in CASES[case]:
+        # some forces sit at their env's bound, others inside it
+        hi = sim.model.actuator_forcerange[..., 1]
+        at = (sim.data.actuator_force.abs() - hi).abs() < 1e-6
+        assert 0 < int(at.sum()) < at.numel(), case
 
 
 def test_write_between_steps_is_read_by_the_next_step(toy):

@@ -28,8 +28,8 @@ The file also checks the quantities the terms read of the two Models
 the port env of each of the four velocity tasks, with its play variant,
 builds, resets and steps with MuJoCo blocked, that it runs on CUDA unless
 asked for the CPU, the registry and the learners' configs, the ONNX
-deployment metadata, and what is not ported (the NaN guard; a terrain
-type other than plane and generator). The rough G1 and the Go1 envs are
+deployment metadata, what is not ported (a terrain type other than
+plane and generator), and that an enabled NaN guard builds. The rough G1 and the Go1 envs are
 held against the JAX package in tests/test_torch_env_rough.py and
 tests/test_torch_env_go1.py.
 """
@@ -341,9 +341,10 @@ def test_registry_matches_jax():
 
 def test_rough_terrain_and_nan_guard_raise():
     """What the port's env refuses: a terrain type other than plane and
-    generator, a model file whose terrain is not the scene's, and an
-    enabled NaN guard. (Rough terrain itself builds: the rough tasks run
-    in tests/test_torch_env_rough.py.)"""
+    generator, and a model file whose terrain is not the scene's. (Rough
+    terrain itself builds: the rough tasks run in
+    tests/test_torch_env_rough.py.) An enabled NaN guard, which the env
+    refused until the guard was ported, builds."""
     from mjlab_tpu_torch.envs import ManagerBasedRlEnv
     from mjlab_tpu_torch.tasks import load_env_cfg
 
@@ -358,10 +359,14 @@ def test_rough_terrain_and_nan_guard_raise():
     with pytest.raises(ValueError, match="height fields"):
         ManagerBasedRlEnv(cfg, device="cpu")
 
-    class _Guard:
-        enabled = True
+    # an enabled NaN guard builds (it was refused before the guard was
+    # ported): its windows are empty and nothing is detected yet
+    from mjlab_tpu_torch.utils.nan_guard import NanGuardCfg
 
     cfg = load_env_cfg(G1_TASK)
-    cfg.sim.nan_guard = _Guard()
-    with pytest.raises(NotImplementedError, match="NaN guard"):
-        ManagerBasedRlEnv(cfg, device="cpu")
+    cfg.scene.num_envs = 2
+    cfg.sim.nan_guard = NanGuardCfg(enabled=True, buffer_size=5)
+    env = ManagerBasedRlEnv(cfg, device="cpu", capture=False)
+    assert env.nan_guard is not None and not bool(env.nan_guard.stopped)
+    assert env.nan_guard.windows()["qpos"].shape == (2, 5, env.sim.model.nq)
+    assert env.nan_guard.dump_if_detected() is None

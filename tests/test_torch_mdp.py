@@ -294,25 +294,68 @@ def test_reset_scene_to_default_matches_jax(envs):
     _close(want, got)
 
 
-@pytest.mark.parametrize("name", ["apply_external_force_torque", "randomize_pd_gains",
-                                  "randomize_effort_limits", "sync_actuator_delays",
-                                  "randomize_terrain"])
+@pytest.mark.parametrize("name", ["randomize_terrain"])
 def test_unported_event_raises_naming_itself(envs, name):
-    """Each event term not ported raises naming itself. randomize_terrain is
-    ported (test_randomize_terrain_matches_jax): on the flat env's plane it
-    draws nothing and changes no state, as the JAX term does there.
-    randomize_encoder_bias is ported (test_randomize_encoder_bias_matches_jax)."""
+    """Every event term of the JAX file is ported. randomize_terrain
+    (test_randomize_terrain_matches_jax): on the flat env's plane it draws
+    nothing and changes no state, as the JAX term does there. The four
+    actuator and wrench terms: test_actuator_event_on_builtin_groups_matches_jax
+    here and tests/test_torch_env_explicit.py on explicit groups;
+    randomize_encoder_bias: test_randomize_encoder_bias_matches_jax."""
     from mjlab_tpu_torch.envs.mdp import events
 
     penv = envs[1]
-    if name == "randomize_terrain":
-        state = torch.get_rng_state(), penv.rng.generator.get_state()
-        events.randomize_terrain(penv, torch.ones(E, dtype=torch.bool))
-        assert penv.scene.terrain.generator is None
-        assert torch.equal(penv.rng.generator.get_state(), state[1])
-        return
-    with pytest.raises(NotImplementedError, match=name):
-        getattr(events, name)(penv, torch.ones(E, dtype=torch.bool))
+    state = torch.get_rng_state(), penv.rng.generator.get_state()
+    getattr(events, name)(penv, torch.ones(E, dtype=torch.bool))
+    assert penv.scene.terrain.generator is None
+    assert torch.equal(penv.rng.generator.get_state(), state[1])
+
+
+@pytest.mark.parametrize("name", ["apply_external_force_torque", "randomize_pd_gains",
+                                  "randomize_effort_limits", "sync_actuator_delays"])
+def test_actuator_event_on_builtin_groups_matches_jax(envs, name):
+    """The four actuator and wrench terms on the registered G1 (every group
+    a builtin position actuator, no field expanded), against the JAX terms
+    with their draws played back: the wrench on the torso of the masked
+    envs (xfrc_applied); randomize_pd_gains raises RuntimeError (the gains
+    are not per env); randomize_effort_limits is a silent no-op that draws
+    nothing (forcerange shared); sync_actuator_delays finds no delayed
+    group."""
+    from mjlab_tpu.envs.mdp import events as jev
+    from mjlab_tpu.managers.scene_entity_config import SceneEntityCfg as JCfg
+    from mjlab_tpu_torch.envs.mdp import events as pev
+    from mjlab_tpu_torch.managers.scene_entity_config import SceneEntityCfg as PCfg
+
+    params = {"apply_external_force_torque": dict(force_range=(-20.0, 20.0),
+                                                  torque_range=(-5.0, 5.0)),
+              "randomize_pd_gains": dict(stiffness_scale=(0.8, 1.2),
+                                         damping_scale=(0.8, 1.2)),
+              "randomize_effort_limits": dict(scale=(0.8, 1.2)),
+              "sync_actuator_delays": dict(min_lag=0, max_lag=2)}[name]
+
+    def run(e, jax_side):
+        cfg = (JCfg if jax_side else PCfg)("robot", body_names=("torso_link",))
+        cfg.resolve(e.scene)
+        mask = jnp.asarray(MASK) if jax_side else torch.as_tensor(MASK)
+        fn = getattr(jev if jax_side else pev, name)
+        if name == "randomize_pd_gains":
+            with pytest.raises(RuntimeError, match="not env-expanded"):
+                fn(e, mask, asset_cfg=cfg, **params)
+        else:
+            fn(e, mask, asset_cfg=cfg, **params)
+        d = e.ctx.data if jax_side else e.sim.data
+        model = e.ctx.model if jax_side else e.sim.model
+        out = {"xfrc": d.xfrc_applied, "forcerange": model.actuator_forcerange,
+               "gainprm": model.actuator_gainprm}
+        return out if jax_side else {k: v.clone() for k, v in out.items()}
+    penv = envs[1]
+    xfrc = penv.sim.data.xfrc_applied.clone()
+    want, got = _draws_pair(envs, lambda e: run(e, True), lambda e: run(e, False))
+    # the shared envs' later tests see the state they saw before
+    penv.sim.data = penv.sim.data.replace(xfrc_applied=xfrc)
+    _close(want, got, atol=DRAW_ATOL)
+    if name == "apply_external_force_torque":
+        assert np.abs(tnp(got["xfrc"])).max() > 0
 
 
 def _command_state(env, jax_side):

@@ -477,3 +477,43 @@ def test_save_load_model_roundtrip(tmp_path):
     for n in pm.static_fields():
         if n != "pairs":
             _assert_static_equal(getattr(m, n), getattr(m2, n), n)
+
+
+@pytest.mark.parametrize("against", ["port_spec", "jax_spec"])
+def test_explicit_model_file_matches_fresh_conversions(against):
+    """g1_velocity_flat_explicit.npz (tasks/velocity/config/g1/explicit.py:
+    motors for the DC and PD groups, position actuators for the wrists) is
+    the conversion of the explicit scene compiled now, array for array,
+    with its keyframe and XML sensors: from the port's spec edits, and
+    from the JAX package's (its twin's scene, torch_port_common
+    .jax_explicit_env_cfg), whose MjModel converts to the same Model."""
+    from mjlab_tpu_torch.scene.scene import (
+        Scene, model_file_scene_cfg, xml_sensors, xml_sensors_from_arrays,
+    )
+    from mjlab_tpu_torch.tasks.velocity.config.g1 import explicit as X
+    from torch_port_common import jax_explicit_env_cfg
+
+    cfg = X.g1_explicit_env_cfg()
+    if against == "port_spec":
+        mj = Scene(model_file_scene_cfg(cfg.scene)).compile()
+    else:
+        from mjlab_tpu.scene import Scene as JaxScene
+
+        mj = JaxScene(jax_explicit_env_cfg(1).scene).compile()
+    cfg.sim.mujoco.apply(mj)
+    m = pm.put_model(mj, dtype=torch.float64, nconmax=cfg.sim.nconmax, device="cpu")
+    saved, extra = pm.load_model(X.EXPLICIT_MODEL, dtype=torch.float64, device="cpu")
+    for n in pm.tensor_fields():
+        assert torch.equal(getattr(m, n), getattr(saved, n)), n
+    for n in pm.static_fields():
+        if n != "pairs":
+            _assert_static_equal(getattr(m, n), getattr(saved, n), n)
+    for f in dataclasses.fields(pm.PairTable):
+        _assert_static_equal(getattr(m.pairs, f.name), getattr(saved.pairs, f.name), f.name)
+    np.testing.assert_array_equal(extra["key_qpos"], mj.key_qpos[0])
+    np.testing.assert_array_equal(extra["key_ctrl"], mj.key_ctrl[0])
+    assert xml_sensors_from_arrays(extra) == xml_sensors(mj)
+    # motors (gain 1, no bias, ctrl and force limited) on every joint but
+    # the four wrist pitch and yaw joints, which keep position actuators
+    motor = (mj.actuator_biastype == 0) & (mj.actuator_ctrllimited == 1)
+    assert int(motor.sum()) == 25 and int((~motor).sum()) == 4

@@ -558,13 +558,38 @@ def test_cli_help_enumerates_nested_fields(capsys, monkeypatch):
     assert "--device" in out and out.count("--env.") > 100
 
 
-@pytest.mark.parametrize("flag", ["distributed", "enable_nan_guard", "registry_name"])
+@pytest.mark.parametrize("flag", ["distributed", "registry_name"])
 def test_cli_unported_flags_raise(flag):
     import mjlab_tpu_torch.scripts.train as T
 
-    value = True if flag in ("distributed", "enable_nan_guard") else "x"
+    value = True if flag == "distributed" else "x"
     with pytest.raises(NotImplementedError, match="not ported"):
         T.run_train(G1_TASK, device="cpu", **{flag: value})
+
+
+def test_cli_runs_with_the_nan_guard(tmp_path, monkeypatch):
+    """--enable-nan-guard (mjlab_tpu/scripts/train.py:205-208) turns the
+    env's NaN guard on and trains: the env records its window in every
+    step, and with no NaN nothing is written."""
+    import mjlab_tpu_torch.scripts.train as T
+    from mjlab_tpu_torch.rl.runner import OnPolicyRunner
+
+    seen = {}
+    learn = OnPolicyRunner.learn
+
+    def spy(self, *a, **kw):
+        out = learn(self, *a, **kw)
+        seen["guard"] = self.env.nan_guard
+        return out
+
+    monkeypatch.setattr(OnPolicyRunner, "learn", spy)
+    monkeypatch.chdir(tmp_path)
+    T.run_train(G1_TASK, num_envs=2, max_iterations=1, device="cpu", enable_nan_guard=True,
+                log_dir=str(tmp_path / "run"), agent_overrides=["num_steps_per_env=2"])
+    guard = seen["guard"]
+    assert guard is not None and guard.cfg.enabled
+    assert int(guard.buffers["qpos"].ptr) == 2 and not bool(guard.stopped)
+    assert not (tmp_path / "nan_dumps").exists()
 
 
 CLI_ARGS = [G1_TASK, "--device", "cpu", "--num-envs", "4", "--max-iterations", "1",

@@ -8,6 +8,7 @@ package's Model leaves become the port's Model through model_from_numpy.
 from __future__ import annotations
 
 import dataclasses
+import os
 import weakref
 
 import jax
@@ -861,3 +862,116 @@ def check_env_logs(out, step: int) -> None:
     for k in want:
         ref = _reference(out, step, lambda o: o["log"][k], got[k])
         assert rel_err(ref, got[k]) < VELOCITY_ENV_TOL["log"], k
+
+
+# ---------------------------------------------------------------------------
+# the G1 env with explicit actuator groups (tasks/velocity/config/g1/
+# explicit.py) and its JAX twin
+# ---------------------------------------------------------------------------
+
+
+class JitDraws:
+    """Records every jax.random.uniform / normal / randint draw in the order
+    the JAX program makes them, inside jitted code too (an ordered
+    jax.debug.callback per draw, so a scan's draws come once per
+    iteration), as JaxDraws does: ("uniform", the unit draws), ("normal",
+    draws), ("integers", draws). Patch while the JAX env traces its step
+    and reset (``with JitDraws() as draws``); ``take()`` hands the draws so
+    far to a ReplayRng and starts a new list."""
+
+    def __init__(self):
+        self.log: list[tuple[str, np.ndarray]] = []
+
+    def _rec(self, kind, x):
+        jax.debug.callback(lambda v: self.log.append((kind, np.array(v))), x, ordered=True)
+
+    def __enter__(self):
+        self._orig = (jax.random.uniform, jax.random.normal, jax.random.randint)
+        uniform, normal, randint = self._orig
+
+        def rec_uniform(key, shape=(), dtype=float, minval=0.0, maxval=1.0):
+            self._rec("uniform", uniform(key, shape, dtype))
+            return uniform(key, shape, dtype, minval, maxval)
+
+        def rec_normal(key, shape=(), dtype=float):
+            out = normal(key, shape, dtype)
+            self._rec("normal", out)
+            return out
+
+        def rec_randint(key, shape, minval, maxval, dtype=int):
+            out = randint(key, shape, minval, maxval, dtype)
+            self._rec("integers", out)
+            return out
+
+        jax.random.uniform, jax.random.normal, jax.random.randint = (
+            rec_uniform, rec_normal, rec_randint)
+        return self
+
+    def __exit__(self, *exc):
+        jax.random.uniform, jax.random.normal, jax.random.randint = self._orig
+        return False
+
+    def take(self) -> "JitDraws":
+        jax.effects_barrier()
+        out = JitDraws()
+        out.log, self.log = self.log, []
+        return out
+
+
+def jax_explicit_env_cfg(E: int, buffer_size: int = 100):
+    """The JAX package's twin of the port's explicit G1 env config
+    (explicit.py): the JAX flat G1 config with the same groups, events,
+    termination and NaN guard, built from explicit.py's plain data."""
+    os.environ.setdefault("MJLAB_QUIET", "1")
+    import mjlab_tpu.tasks as jtasks
+    from mjlab_tpu.actuator import (
+        BuiltinPositionActuatorCfg, DcMotorActuatorCfg, DelayedActuatorCfg, IdealPdActuatorCfg,
+    )
+    from mjlab_tpu.envs.mdp import events, terminations
+    from mjlab_tpu.managers.manager_term_config import EventTermCfg, TerminationTermCfg
+    from mjlab_tpu.managers.scene_entity_config import SceneEntityCfg
+    from mjlab_tpu.utils.nan_guard import NanGuardCfg
+    from mjlab_tpu_torch.tasks.velocity.config.g1 import explicit as X
+
+    cfg = jtasks.load_env_cfg(G1_TASK)
+    cfg.scene.num_envs = E
+    groups = []
+    for kind, a, vmax in X.GROUPS:
+        common = dict(joint_names_expr=a.joint_names_expr, stiffness=a.stiffness,
+                      damping=a.damping, effort_limit=a.effort_limit, armature=a.armature)
+        if kind == "builtin":
+            groups.append(BuiltinPositionActuatorCfg(**common))
+        elif kind == "pd":
+            groups.append(IdealPdActuatorCfg(**common))
+        else:
+            base = DcMotorActuatorCfg(**common, saturation_effort=a.effort_limit,
+                                      velocity_limit=vmax)
+            groups.append(DelayedActuatorCfg(joint_names_expr=a.joint_names_expr,
+                                             base_cfg=base, **X.DELAY_PARAMS))
+    # a copy: the JAX G1 configs share one articulation object
+    robot = cfg.scene.entities["robot"]
+    robot.articulation = dataclasses.replace(robot.articulation, actuators=tuple(groups))
+    cfg.events["pd_gains"] = EventTermCfg(
+        func=events.randomize_pd_gains, mode="reset", params=dict(X.PD_GAIN_PARAMS))
+    cfg.events["effort_limits"] = EventTermCfg(
+        func=events.randomize_effort_limits, mode="reset", params=dict(X.EFFORT_PARAMS))
+    cfg.events["actuator_delays"] = EventTermCfg(
+        func=events.sync_actuator_delays, mode="startup", params=dict(X.LAG_PARAMS))
+    cfg.events["external_wrench"] = EventTermCfg(
+        func=events.apply_external_force_torque, mode="interval",
+        interval_range_s=X.WRENCH_INTERVAL_S,
+        params=dict(X.WRENCH_PARAMS, asset_cfg=SceneEntityCfg("robot",
+                                                              body_names=(X.WRENCH_BODY,))))
+    cfg.terminations["nan_term"] = TerminationTermCfg(func=terminations.nan_detection)
+    cfg.sim.nan_guard = NanGuardCfg(enabled=True, buffer_size=buffer_size)
+    return cfg
+
+
+def jax_expand_actuator_fields(jenv) -> None:
+    """explicit.expand_actuator_fields on the JAX env (its Simulation, its
+    context and its state)."""
+    from mjlab_tpu_torch.tasks.velocity.config.g1.explicit import EXPANDED_FIELDS
+
+    jenv.sim.expand_model_fields(list(EXPANDED_FIELDS))
+    jenv.ctx.model = jenv.sim.model
+    jenv._state = jenv._state.replace(model=jenv.sim.model)
