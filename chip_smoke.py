@@ -3,15 +3,38 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py --only-explicit  # this slice's two paths, no result line
+    python3 chip_smoke.py --only-sensors   # this slice's two paths, no result line
+    python3 chip_smoke.py --only-explicit  # the explicit-actuator paths, no result line
     python3 chip_smoke.py --only-jump      # the jump paths, no result line
     python3 chip_smoke.py --only-tracking  # the tracking paths, no result line
     python3 chip_smoke.py --only-yam     # the lift-cube paths, no result line
     python3 chip_smoke.py --only-rough   # the rough-terrain paths, no result line
 
-Twenty main paths, each driven at 4096 envs through its public entry
+Twenty-two main paths, each driven at 4096 envs through its public entry
 points, and the six kernels they run. This slice's main path is training
-the G1 flat-velocity env with mixed explicit actuator groups
+the G1 flat-velocity env whose critic reads every builtin sensor type
+(mjlab_tpu_torch/tasks/velocity/config/g1/sensors.py: force, torque,
+magnetometer, a rangefinder down from the pelvis, the joint, joint-limit
+and actuator types on the legs, every frame type with and without a
+reference frame, the subtree and energy types, the clock; three contact
+sensors of the feet: maxforce with every field, mindist in the world
+frame, none with a force per slot), kernels 1-4 inside each replay:
+
+- g1_sensors_train: PPO on that env through the flat G1 task's runner and
+  PPO config, three learn() iterations, with the learner checks, the
+  checkpoint round trip and the ONNX: every reading computed inside the
+  env's graph and fed to the critic;
+- g1_sensors_env: the env captured against an eager twin bit for bit,
+  every sensor reading included, across forced resets and a forced state
+  with joints past their range pressed into their limits (the joint-limit
+  sensors live: how many envs per sensor printed); the rangefinder's hits
+  printed; eager and captured env-steps/s; kernels 1-4 against their
+  plain versions on the env's state; 64 envs on the card against the CPU
+  port on the same draws, every output and every reading held (relative
+  to max(1, |plain|, the coordinate scale), each at the tolerance of
+  what it reads; the rangefinder's hits equal).
+
+The G1 flat-velocity env with mixed explicit actuator groups
 (mjlab_tpu_torch/tasks/velocity/config/g1/explicit.py: delayed DC motors
 on the legs, ideal PD on the arms and waist, builtin position actuators on
 the wrists with their force range, gain and bias per env; the PD-gain and
@@ -1704,13 +1727,35 @@ EXPLICIT_NAN_DIR = "build/nan_dumps"
 EXPLICIT_NAN_ENV, EXPLICIT_QVEL_NAN_ENV = 5, 9
 ENV_KINDS["explicit"] = dict(ENV_KINDS["velocity"])
 
+# the G1 flat-velocity env whose critic reads every builtin sensor type
+# (mjlab_tpu_torch/tasks/velocity/config/g1/sensors.py; a configuration of
+# the registered flat task, not a registered task): the label its paths
+# pass for a task name
+SENSORS_TASK = "G1-Velocity-Flat-Sensor-Suite"
+ENV_KINDS["sensors"] = dict(ENV_KINDS["velocity"])
+# its forced joint-limit state: (env residue mod 5, joint, qpos past the
+# range, the action that presses the joint into its limit): the left knee
+# (range -0.087 .. 2.88) below, the right ankle pitch (-0.87 .. 0.52)
+# above (tests/test_torch_env_explicit.py)
+SENSOR_LIMITS = ((1, "left_knee_joint", -0.35, -4.0), (2, "right_ankle_pitch_joint", 0.75, 4.0))
+# the readings card against CPU by their class (sensors.READING_CLASS and
+# CONTACT_FIELD_CLASS, the CPU pair's rule, tests/test_torch_env_explicit.py):
+# relative to max(1, |plain|max, the coordinate scale); a slot's force and
+# torque relative to the step's largest slot force; found equal; the
+# rangefinder's hits equal
+READING_TOL = {"position": 1e-4, "velocity": 1e-3, "force": 5e-3, "count": 0.0,
+               "slot_force": 6e-3}
+
 
 def env_kind(env) -> dict:
     """The env's ENV_KINDS entry: the lift-cube, tracking and jump tasks'
-    by their command, the explicit env by its NaN guard."""
+    by their command, the explicit env by its NaN guard, the sensor-suite
+    env by its maxforce contact sensor."""
     terms = env.command_manager.active_terms
     if env.nan_guard is not None:
         return ENV_KINDS["explicit"]
+    if "feet_maxforce" in env.scene.sensors:
+        return ENV_KINDS["sensors"]
     if "lift_height" in terms:
         return ENV_KINDS["yam"]
     if "jump" in terms:
@@ -1743,6 +1788,10 @@ def make_env(num_envs: int, device: str, capture: bool = True, seed: int = SEED,
         nan_dir = tempfile.mkdtemp(dir=os.path.join(here, EXPLICIT_NAN_DIR))
         return make_g1_explicit_env(num_envs, device, capture=capture, seed=seed,
                                     nan_dir=nan_dir)
+    if task == SENSORS_TASK:
+        from mjlab_tpu_torch.tasks.velocity.config.g1.sensors import make_g1_sensors_env
+
+        return make_g1_sensors_env(num_envs, device, capture=capture, seed=seed)
     cfg = load_env_cfg(task)
     cfg.scene.num_envs = num_envs
     cfg.seed = seed
@@ -1775,6 +1824,113 @@ def force_resets(env, tip: torch.Tensor, late: torch.Tensor, shift=None) -> None
         qpos[shift, :3] += torch.tensor(ROUGH_SHIFT, dtype=qpos.dtype, device=qpos.device)
     env.sim.data = env.sim.data.replace(qpos=qpos)
     env.episode_length_buf[late] = env.max_episode_length - 1
+
+
+def force_limits(env, free: torch.Tensor) -> dict:
+    """Put joints of the sensor-suite env past their range (SENSOR_LIMITS,
+    the envs of each residue mod 5 among ``free``), in place: {joint:
+    (env mask, the action column that drives it, the pressing action)}."""
+    m = env.sim.model
+    term = env.action_manager.get_term("joint_pos")
+    joints = [env.scene["robot"].joint_names[i] for i in term._joint_ids.tolist()]
+    idx = torch.arange(env.num_envs, device=env.device)
+    qpos = env.sim.data.qpos.clone()
+    out = {}
+    for r, joint, value, push in SENSOR_LIMITS:
+        mask = (idx % 5 == r) & free
+        qpos[mask, int(m.jnt_qposadr[m.joint_names.index(f"robot/{joint}")])] = value
+        out[joint] = (mask, joints.index(joint), push)
+    env.sim.data = env.sim.data.replace(qpos=qpos)
+    return out
+
+
+def press_limits(act: torch.Tensor, forced: dict) -> torch.Tensor:
+    """The actions with the forced envs' joints pressed into their limits."""
+    act = act.clone()
+    for mask, col, push in forced.values():
+        act[mask, col] = push
+    return act
+
+
+def limits_live(path: str, env, forced: dict, label: str) -> dict:
+    """How many envs read a live (non-zero) value per joint-limit sensor;
+    fails unless nine in ten forced envs have their joint past its limit
+    and the limit row carrying force (a joint can leave its limit within
+    the control step, as 3 of 638 pressed ankles of robots knocked over
+    did in a run, and a row's force is 0 where the joint already
+    accelerates out of the limit faster than the constraint asks)."""
+    from mjlab_tpu_torch.tasks.velocity.config.g1.sensors import BUILTIN_SENSORS
+
+    live = {}
+    for name, t, obj, _, _ in BUILTIN_SENSORS:
+        if t in ("jointlimitpos", "jointlimitvel", "jointlimitfrc"):
+            live[name] = int((env.scene[name].data[:, 0] != 0).sum())
+    log(f"[env] {path} {label}: envs with a live joint-limit reading, by sensor: {live} "
+        f"(forced: " + ", ".join(f"{j} {int(v[0].sum())}" for j, v in forced.items()) + ")")
+    for joint, (mask, _, _) in forced.items():
+        stem = joint.replace("_joint", "")
+        pos = env.scene[f"{stem}_limit_pos"].data[mask, 0]
+        frc = env.scene[f"{stem}_limit_frc"].data[mask, 0]
+        n = int(mask.sum())
+        if not (int((pos < 0).sum()) >= 0.9 * n and int((frc > 0).sum()) >= 0.9 * n):
+            raise AssertionError(f"{path} {label}: {joint}'s limit is live in too few "
+                                 f"forced envs ({int((pos < 0).sum())} positions, "
+                                 f"{int((frc > 0).sum())} forces of {n})")
+    return live
+
+
+def rangefinder_hits(path: str, env, label: str) -> int:
+    """The envs whose pelvis ray meets a geom; fails below half."""
+    d = env.scene["pelvis_range"].data[:, 0]
+    hits = int((d > 0).sum())
+    log(f"[env] {path} {label}: the rangefinder hits in {hits} of {env.num_envs} envs, "
+        f"distance {float(d[d > 0].min()):.4f}-{float(d.max()):.4f} m")
+    if hits < env.num_envs // 2:
+        raise AssertionError(f"{path} {label}: the rangefinder hits in {hits} envs")
+    return hits
+
+
+def readings_agree(path: str, label: str, env, ref: dict, got: dict) -> dict:
+    """Every sensor reading of got's critic (the card) against ref's (the
+    CPU), column by column (sensors.critic_columns) at READING_TOL by its
+    class, relative to max(1, |ref|max, the coordinate scale); the slot
+    forces relative to the largest slot force; the rangefinder's hit sets
+    equal, then its distances: {column: rel err}."""
+    from mjlab_tpu_torch.tasks.velocity.config.g1.sensors import (
+        SLOT_FORCE_SCALE, critic_columns, reading_class,
+    )
+
+    cols = critic_columns(env)
+    r_all, g_all = ref["critic"].cpu(), got["critic"].cpu()
+    length = coordinate_scale(env.sim.data.xpos)
+    rows = max(1.0, float(r_all[:, cols[SLOT_FORCE_SCALE]].abs().max()))
+    errs = {}
+    for name, sl in cols.items():
+        cls = reading_class(env, name)
+        if cls is None:
+            continue
+        r, g, tol = r_all[:, sl], g_all[:, sl], READING_TOL[cls]
+        if tol == 0.0:
+            if not torch.equal(r, g):
+                raise AssertionError(f"{path} {label}: {name} differs")
+            errs[name] = 0.0
+            continue
+        if name.startswith("sensor/") and \
+                env.scene[name[len("sensor/"):]].cfg.sensor_type == "rangefinder":
+            if not torch.equal(r < 0, g < 0):
+                raise AssertionError(f"{path} {label}: the rangefinder hits other geoms")
+        if cls == "slot_force":
+            errs[name] = float((r.double() - g.double()).abs().max()) / rows
+        else:
+            errs[name] = rel_err(r, g, length)
+        if not errs[name] < tol:
+            raise AssertionError(f"{path} {label}: reading {name} rel err {errs[name]:.3e} "
+                                 f">= {tol:.0e}")
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    log(f"[env] {path} {label}: {len(errs)} sensor readings held (coordinate scale "
+        f"{length:.1f} m, largest slot force {rows:.1f} N); the largest errors: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst))
+    return errs
 
 
 def force_lift_resets(env, ground: torch.Tensor, late: torch.Tensor,
@@ -2095,6 +2251,8 @@ def env_on_card_matches_cpu(seed: int, task: str = ENV_TASK, path: str = "g1_env
 
     def held(label, outs, unheld=()):
         errs = assert_envs_agree(label, cpu, outs[1], card, outs[0], path, unheld=unheld)
+        if kind is ENV_KINDS["sensors"]:
+            errs["readings"] = readings_agree(path, label, cpu, outs[1], outs[0])
         dc, dp = card.sim.data, cpu.sim.data
         for f, tol in E2E_TOL[kind["physics"]]:
             errs[f] = err = rel_err(getattr(dp, f), getattr(dc, f).cpu())
@@ -2122,7 +2280,18 @@ def env_on_card_matches_cpu(seed: int, task: str = ENV_TASK, path: str = "g1_env
         a.copy_(b)
     card.rng.draw = _HostRng(seed + 1, "cuda").draw
     cpu.rng.draw = _HostRng(seed + 1, "cpu").draw
-    outs = [outputs(e, acts[1]) for e in (card, cpu)]
+    act = acts[1]
+    if kind is ENV_KINDS["sensors"]:
+        # joints past their range and pressed into their limits in both:
+        # the joint-limit readings live in the second step
+        every = torch.ones(ENV_CPU_ENVS, dtype=torch.bool)
+        forced = force_limits(cpu, every)
+        forced_card = force_limits(card, every.to(card.device))
+        act = press_limits(act, forced)
+    outs = [outputs(e, act) for e in (card, cpu)]
+    if kind is ENV_KINDS["sensors"]:
+        errs["limits_live"] = limits_live(path, card, forced_card, f"card, {ENV_CPU_ENVS} "
+                                          "envs, the second step")
     errs["second_step"] = held(f"card vs CPU, {ENV_CPU_ENVS} envs, a second step from the "
                                "card's state", outs)
     if kind is ENV_KINDS["explicit"]:
@@ -2391,7 +2560,8 @@ def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
     yam = kind is ENV_KINDS["yam"]
     tracking = kind is ENV_KINDS["tracking"]
     explicit = kind is ENV_KINDS["explicit"]
-    bitwise = yam or tracking or jump or explicit
+    sensors = kind is ENV_KINDS["sensors"]
+    bitwise = yam or tracking or jump or explicit or sensors
     expected = expected_launches(kind["solve"], cap.cfg.decimation)
     log(f"[env] {path}: the first step() captured the env step and replayed it in "
         f"{capture_s:.2f} s ({CAPTURE_WARMUP} warm-up steps, the last with host "
@@ -2443,13 +2613,22 @@ def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
             e.common_step_counter.fill_(counters[0])
         else:
             force_resets(e, tip, late, shift)
+    limits = {}
     for i, act in enumerate(check):
         if jump and i == 1:
             for e in (eager, cap):
                 e.common_step_counter.fill_(counters[1])
+        if sensors and i >= 1:
+            # joints past their range, pressed into their limits from the
+            # second check step on (written in both twins between replays)
+            if i == 1:
+                forced_limits = [force_limits(e, ~(tip | late)) for e in (eager, cap)][1]
+            act = press_limits(act, forced_limits)
         oe = env_outputs(eager, eager.step(act))
         oc = env_outputs(cap, cap.step(act))
         torch.cuda.synchronize()
+        if sensors and i >= 1:
+            limits[f"step {i + 1}"] = limits_live(path, cap, forced_limits, f"step {i + 1}")
         if i == 0 and tracking:
             forced = tracking_forced(path, cap, forced_sets, before)
         elif i == 0 and jump:
@@ -2483,6 +2662,8 @@ def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
             com_seen(path, cap, com)
     if jump:
         forced["landed_share"] = jump_landed(path, jump_name, cap, drop)
+    if sensors:
+        hits = rangefinder_hits(path, cap, f"after {n_check} check steps")
     if explicit:
         # the NaN step in both twins (the captured one between replays),
         # then their dumps, bit for bit
@@ -2612,6 +2793,12 @@ def run_env_path(capture_kernels: int | None, task: str = ENV_TASK,
         if not bool(at_bound.any()):
             raise AssertionError(f"{path}: no force at its bound for the kernel check")
         summary["nan_dumps"] = nan_dumps
+        summary["kernel_checks"] = check_kernels(cap.sim, path, env_state=True)
+    if sensors:
+        # the kernels on the env's state after the timed steps: the robots
+        # walking on random actions, every sensor read in each replay
+        summary.update(joint_limit_live_envs=limits, rangefinder_hits=hits)
+        log(f"[check] {path}: kernels 1-4 on the env's state")
         summary["kernel_checks"] = check_kernels(cap.sim, path, env_state=True)
     if jump:
         summary["forced_resets"] = forced
@@ -2752,7 +2939,21 @@ TRAIN_ITERATIONS = 3
 # minibatch KL 1e-4, the learning rates equal to 1e-6)
 TRAIN_CHECK_ENVS = 256
 TRAIN_TOL = {"params": 1e-5, "outlier_share": 1e-3, "outlier_step": 0.1, "moments": 1e-3,
-             "kl": 1e-4, "lr": 1e-6, "stats": 1e-4}
+             "kl": 1e-4, "lr": 1e-6, "stats": 1e-4, "flip_share": 1e-3, "tie": 1e-4}
+# The surrogate's branches: a sample whose probability ratio lies at the
+# clip range's edge to a few ulps takes one branch on the card and the
+# other on the CPU, and its gradient term appears in one update and not the
+# other (the sensor-suite env's first update: 6 of 61,440 decisions
+# differed, and the two minibatches that held them moved the actor's
+# gradients by 5-8 %, the std's Adam moment 6.4e-3 at the end; every other
+# minibatch's gradients agreed to 1e-4). So the moments are held against
+# the CPU update replaying the card's decisions (the analog of the solve's
+# held qfrc where Newton iteration counts differ). A decision may differ
+# only at a tie: the replaying update's own decision against the card's
+# (the two learners' states track each other there), where the ratio lies
+# within TRAIN_TOL["tie"] (relative) of a clip edge, or the normalised
+# advantage within it of 0, on both sides; the flipped decisions of the
+# plain CPU update are counted besides
 
 
 def make_train_runner(env=None, task: str = ENV_TASK):
@@ -2765,8 +2966,9 @@ def make_train_runner(env=None, task: str = ENV_TASK):
     from mjlab_tpu_torch.rl import OnPolicyRunner, RslRlVecEnvWrapper
     from mjlab_tpu_torch.tasks import load_rl_cfg, load_runner_cls
 
-    # the explicit env trains with the flat G1 task's PPO config and runner
-    rl_task = ENV_TASK if task == EXPLICIT_TASK else task
+    # the explicit and sensor-suite envs train with the flat G1 task's PPO
+    # config and runner
+    rl_task = ENV_TASK if task in (EXPLICIT_TASK, SENSORS_TASK) else task
     agent = load_rl_cfg(rl_task)
     agent.seed = SEED
     if env is None:
@@ -2785,10 +2987,12 @@ def learner_snapshot(ppo, envs: int) -> dict:
             "storage": {k: ppo.storage[k][:, :envs].clone() for k in keep}}
 
 
-def update_on(device: str, runner, snap: dict) -> "object":
+def update_on(device: str, runner, snap: dict, record: list | None = None,
+              replay: list | None = None) -> "object":
     """A learner of TRAIN_CHECK_ENVS envs on ``device`` with the card
     learner's state and storage slice, after one update() whose
-    permutations come from _HostRng."""
+    permutations come from _HostRng; ``record`` / ``replay``: its
+    surrogate's branch decisions (_branch_surrogate)."""
     from mjlab_tpu_torch.rl.ppo import PPO
 
     src = runner.ppo
@@ -2802,16 +3006,93 @@ def update_on(device: str, runner, snap: dict) -> "object":
             if k in snap["storage"]:
                 v.copy_(snap["storage"][k])
     ppo.rng = _HostRng(SEED + 5, device)
+    if record is not None or replay is not None:
+        ppo.surrogate = _branch_surrogate(ppo, record, replay)
     ppo.update()
     return ppo
 
 
+def _branch_surrogate(ppo, record: list | None = None, replay: list | None = None):
+    """PPO.surrogate of ``ppo`` with its two branch decisions per sample
+    (which term the minimum takes, and whether the ratio lies inside the
+    clip range, where the clamp passes its gradient), its ratios and its
+    advantages, appended to ``record`` per minibatch as (take1, inside,
+    ratio, adv); with
+    ``replay`` (another learner's record, in minibatch order) the loss
+    takes the replayed decisions in place of its own."""
+    clip = ppo.cfg.algorithm.clip_param
+    lo, hi = 1 - clip, 1 + clip
+    plain = ppo.surrogate
+    it = iter(replay) if replay is not None else None
+
+    def surrogate(ratio, adv):
+        with torch.no_grad():
+            take1 = ratio * adv < torch.clamp(ratio, lo, hi) * adv
+            inside = (ratio >= lo) & (ratio <= hi)
+        if record is not None:
+            record.append((take1.cpu(), inside.cpu(), ratio.detach().cpu(), adv.detach().cpu()))
+        if it is None:
+            return plain(ratio, adv)
+        take1, inside = (x.to(ratio.device) for x in next(it)[:2])
+        clipped = torch.where(inside, ratio, torch.clamp(ratio, lo, hi).detach())
+        return -torch.mean(torch.where(take1, ratio * adv, clipped * adv))
+
+    return surrogate
+
+
+def branch_flips(path: str, mine: list, card: list, clip: float) -> dict:
+    """The decisions of ``mine`` (a CPU learner's record, _branch_surrogate)
+    that differ from ``card``'s; each must be a tie in both records: the
+    ratio within TRAIN_TOL["tie"] (relative) of a clip edge, or the
+    normalised advantage within TRAIN_TOL["tie"] of 0 (its sign decides
+    the minimum). Also the largest relative difference of the two
+    records' ratios."""
+    flips = 0
+    edge = torch.tensor([1 - clip, 1 + clip], dtype=torch.float64)
+    rounding, far = 0.0, 0.0
+    for (a, b, r, u), (c, d, s, v) in zip(mine, card):
+        r, s = r.double(), s.double()
+        rounding = max(rounding, float(((r - s).abs() / s.abs()).max()))
+        differ = (a != c) | (b != d)
+        flips += int((a != c).sum()) + int((b != d).sum())
+        if not differ.any():
+            continue
+        gap = torch.maximum(*((x[differ, None] / edge - 1).abs().min(-1).values for x in (r, s)))
+        zero = torch.maximum(u[differ].abs(), v[differ].abs()).double()
+        gap = torch.minimum(gap, zero)
+        far = max(far, float(gap.max()))
+        if not bool((gap <= TRAIN_TOL["tie"]).all()):
+            raise AssertionError(
+                f"{path} update card vs CPU: a surrogate branch decision differs away from a "
+                f"tie (the ratio {float(gap.max()):.3e} from a clip edge and the advantage "
+                f"as far from 0; tie limit {TRAIN_TOL['tie']:.0e})")
+    return {"flips": flips, "tie_gap": far, "ratio_rounding": rounding}
+
+
 def update_card_matches_cpu(runner, snap: dict, path: str = "g1_train") -> dict:
     """The update phase on the card (TF32 off) against the CPU port on the
-    same learner state, storage and permutations."""
-    cpu, card = update_on("cpu", runner, snap), update_on("cuda", runner, snap)
+    same learner state, storage and permutations. Adam's moments are held
+    against a CPU update that takes the card's surrogate branch decisions
+    (_branch_surrogate; the plain CPU update where no decision differs),
+    whose own decisions may differ from the card's only at ties
+    (branch_flips); the plain CPU update's flipped decisions are counted,
+    at most TRAIN_TOL["flip_share"] of them."""
+    cpu_dec, card_dec, own_dec = [], [], []
+    cpu = update_on("cpu", runner, snap, record=cpu_dec)
+    card = update_on("cuda", runner, snap, record=card_dec)
     torch.cuda.synchronize()
+    clip = runner.ppo.cfg.algorithm.clip_param
+    flips = sum(int((a != c).sum()) + int((b != d).sum())
+                for (a, b, *_), (c, d, *_) in zip(cpu_dec, card_dec))
+    decisions = sum(a.numel() + b.numel() for a, b, *_ in cpu_dec)
+    replayed = (update_on("cpu", runner, snap, record=own_dec, replay=card_dec) if flips
+                else cpu)
+    # the replaying update's own decisions: up to the plain update's first
+    # flip they are its decisions, after it they are taken on the card's
+    # state; each that differs must be a tie
+    ties = branch_flips(path, own_dec if flips else cpu_dec, card_dec, clip)
     want, got = cpu.learner_tensors(), card.learner_tensors()
+    other = replayed.learner_tensors()
     lrs = [r[-1] for r in cpu.minibatch_stats.tolist()]
     steps = float(np.sum(lrs, dtype=np.float64))
     errs = {"params": 0.0, "outliers": 0, "moments": 0.0}
@@ -2829,13 +3110,24 @@ def update_card_matches_cpu(runner, snap: dict, path: str = "g1_train") -> dict:
                 raise AssertionError(f"{path} update card vs CPU {k}: {off} of {err.numel()} "
                                      f"entries off, at most {float(err.max()):.3e}")
         elif k.startswith("adam_"):
-            e = float((w.double() - g.double()).abs().max()) / max(
+            ref = other[k].double()
+            e = float((ref - g.double()).abs().max()) / max(float(ref.abs().max()), 1e-30)
+            plain = float((w.double() - g.double()).abs().max()) / max(
                 float(w.double().abs().max()), 1e-30)
-            errs["moments"] = max(errs["moments"], e)
+            if plain >= errs.get("moments_plain_cpu", 0.0):
+                errs["moments_plain_cpu"], errs["moments_plain_cpu_worst"] = plain, k
+            if e > errs["moments"]:
+                errs["moments"], errs["moments_worst"] = e, k
             if not e < TRAIN_TOL["moments"]:
-                raise AssertionError(f"{path} update card vs CPU {k}: {e:.3e}")
+                raise AssertionError(f"{path} update card vs CPU {k}: {e:.3e} ({flips} of "
+                                     f"{decisions} branch decisions differ)")
         elif not torch.equal(w, g) and k != "lr":
             raise AssertionError(f"{path} update card vs CPU: {k} differs")
+    errs.update(branch_flips=flips, branch_decisions=decisions, tie_flips=ties["flips"],
+                tie_gap=ties["tie_gap"], ratio_rounding=ties["ratio_rounding"])
+    if flips > TRAIN_TOL["flip_share"] * decisions:
+        raise AssertionError(f"{path} update card vs CPU: {flips} of {decisions} surrogate "
+                             "branch decisions differ")
     if errs["outliers"] > TRAIN_TOL["outlier_share"] * total:
         raise AssertionError(f"{path} update card vs CPU: {errs['outliers']} of {total} "
                              f"param entries off by >= {TRAIN_TOL['params']:.0e}")
@@ -2847,7 +3139,13 @@ def update_card_matches_cpu(runner, snap: dict, path: str = "g1_train") -> dict:
         f"{runner.cfg.num_steps_per_env} steps of the card's first rollout, "
         f"{sc.shape[0]} minibatches): params rel err {errs['params']:.3e} ({errs['outliers']} "
         f"of {total} entries >= {TRAIN_TOL['params']:.0e}; summed steps {steps:.3e}), Adam "
-        f"moments {errs['moments']:.3e}, KL {errs['kl']:.3e}, lr {errs['lr']:.3e}, losses "
+        f"moments {errs['moments']:.3e} ({errs.get('moments_worst')}; against the plain CPU "
+        f"update {errs['moments_plain_cpu']:.3e}, {errs['moments_plain_cpu_worst']}; {flips} "
+        f"of {decisions} surrogate branch decisions differ; the replaying update's "
+        f"{ties['flips']} differ, each a tie: the ratio or the advantage at most "
+        f"{ties['tie_gap']:.3e} from a clip edge or 0 (limit {TRAIN_TOL['tie']:.0e}); card and "
+        f"CPU ratios {ties['ratio_rounding']:.3e} apart at most), KL {errs['kl']:.3e}, "
+        f"lr {errs['lr']:.3e}, losses "
         f"{errs['losses']:.3e}; KL per minibatch " + ", ".join(f"{x:.4f}" for x in sc[:, 3]))
     for k in ("kl", "lr"):
         if not errs[k] < TRAIN_TOL[k]:
@@ -3285,18 +3583,18 @@ def run_forward_path() -> tuple[dict, dict, dict]:
     return kernels, launches, summary
 
 
-# the kernel rows' numbers: the kernel checks of the path that runs the
-# kernel (the G1 physics for kernels 1-4, the YAM for 5, g1_forward for 6;
-# every path's checks, the rough envs' and the YAM env's included, under
-# "per_path"), and the launches of the main paths: the rough-terrain
-# training run for kernels 1-4 (g1_rough_train: the env's capture in the
+# the kernel rows' numbers: the kernel checks of a path that runs the
+# kernel (the explicit env's state for kernels 1-4, the YAM physics for 5,
+# g1_forward for 6; every path's checks, the sensor-suite env's included,
+# under "per_path"), and the launches of the main paths: this slice's
+# training run for kernels 1-4 (g1_sensors_train: the env's capture in the
 # first rollout step), the YAM's training run for kernel 5 (yam_train),
 # g1_forward for kernel 6
 CHECK_PATH = {"kin_com": "g1_explicit_env", "crb_packed": "g1_explicit_env",
               "vel_smooth": "g1_explicit_env", "newton_assemble_solve": "g1_explicit_env",
               "newton_assemble_solve_elliptic": "yam", "newton_solve_dense": "g1_forward"}
-LAUNCH_PATH = {"kin_com": "g1_explicit_train", "crb_packed": "g1_explicit_train",
-               "vel_smooth": "g1_explicit_train", "newton_assemble_solve": "g1_explicit_train",
+LAUNCH_PATH = {"kin_com": "g1_sensors_train", "crb_packed": "g1_sensors_train",
+               "vel_smooth": "g1_sensors_train", "newton_assemble_solve": "g1_sensors_train",
                "newton_assemble_solve_elliptic": "yam_train",
                "newton_solve_dense": "g1_forward"}
 
@@ -3393,6 +3691,19 @@ def run_explicit_paths() -> tuple[dict, dict]:
     return launches, summary
 
 
+def run_sensors_paths() -> tuple[dict, dict]:
+    """g1_sensors_env and g1_sensors_train, the G1 flat-velocity env whose
+    critic reads every builtin sensor type (this slice's main path), the
+    training path with the learner checks: (launches by path, summary by
+    path)."""
+    launches, summary = {}, {}
+    launches["g1_sensors_env"], summary["g1_sensors_env"] = run_env_path(
+        None, SENSORS_TASK, "g1_sensors_env")
+    launches["g1_sensors_train"], summary["g1_sensors_train"] = run_train_path(
+        SENSORS_TASK, "g1_sensors_train")
+    return launches, summary
+
+
 def run_rough_paths() -> tuple[dict, dict]:
     """g1_rough_env, go1_rough_env and g1_rough_train: (launches by path,
     summary by path)."""
@@ -3454,6 +3765,13 @@ def main() -> int:
         log(json.dumps({"jump": jump, "num_envs": NUM_ENVS}))
         log("[partial] --only-jump: the other paths did not run; no result")
         return 0
+    if sys.argv[1:2] == ["--only-sensors"]:
+        # a quick run of the sensor-suite env and training paths alone: no
+        # result line
+        launches, sensors = run_sensors_paths()
+        log(json.dumps({"sensors": sensors, "num_envs": NUM_ENVS}))
+        log("[partial] --only-sensors: the other paths did not run; no result")
+        return 0
     if sys.argv[1:2] == ["--only-explicit"]:
         # a quick run of the explicit-actuator env and training paths
         # alone: no result line
@@ -3504,6 +3822,10 @@ def main() -> int:
     launches.update(explicit_launches)
     per_path["g1_explicit_env"] = explicit["g1_explicit_env"]["kernel_checks"]
     per_step.update({p: explicit[p]["launches_per_control_step"] for p in explicit})
+    sensors_launches, sensors = run_sensors_paths()
+    launches.update(sensors_launches)
+    per_path["g1_sensors_env"] = sensors["g1_sensors_env"]["kernel_checks"]
+    per_step.update({p: sensors[p]["launches_per_control_step"] for p in sensors})
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3518,6 +3840,7 @@ def main() -> int:
     log(json.dumps({"tracking": tracking, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"jump": jump, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"explicit": explicit, "num_envs": NUM_ENVS, "power_limit": smi}))
+    log(json.dumps({"sensors": sensors, "num_envs": NUM_ENVS, "power_limit": smi}))
     log(json.dumps({"paths": summary, "num_envs": NUM_ENVS,
                     "control_steps": CONTROL_STEPS,
                     "seconds": time.perf_counter() - t_start}))

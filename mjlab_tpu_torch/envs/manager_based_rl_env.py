@@ -376,7 +376,8 @@ class ManagerBasedRlEnv:
         self._refresh_kinematics()
         self.command_manager.compute(self.step_dt)
         self.event_manager.apply_interval(self.step_dt)
-        self._obs = self.observation_manager.compute(update_history=True)
+        with self.scene.ctx.read_group():
+            self._obs = self.observation_manager.compute(update_history=True)
         logs.update(self._term_log)
         for k, v in logs.items():
             if k not in self._log_out:
@@ -409,7 +410,8 @@ class ManagerBasedRlEnv:
         logs = self._reset_masked(mask)
         self._refresh_kinematics()
         self.command_manager.compute(self.step_dt)
-        self._obs = self.observation_manager.compute(update_history=True)
+        with self.scene.ctx.read_group():
+            self._obs = self.observation_manager.compute(update_history=True)
         return self._obs, {"log": logs}
 
     def seed(self, seed: int) -> int:

@@ -15,6 +15,7 @@ included, and the engine has no connect or weld equalities.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mjlab_tpu_torch.phys.data import Data
@@ -37,11 +38,17 @@ def rne_postconstraint(m: Model, d: Data):
     cfrc_ext[:, 0] = 0.0
 
     # contacts: the world force f at the contact point acts +f on the
-    # second geom's body and -f on the first (MuJoCo's frame convention)
+    # second geom's body and -f on the first (MuJoCo's frame convention).
+    # Each body's sum over the K compacted slots is a reduction over a
+    # one-hot of the bodies that take part in contacts, not a scatter of
+    # atomic adds, so that it is the same bit for bit on every run (a
+    # captured step against its eager twin)
     if m.ncon_max and m.pairs.ncon:
         pt = m.pairs
         b1 = device_array(m, "slot_body1", lambda: m.geom_bodyid[pt.con_geom1], torch.long)
         b2 = device_array(m, "slot_body2", lambda: m.geom_bodyid[pt.con_geom2], torch.long)
+        bodies = device_array(m, "contact_bodies", lambda: np.unique(np.concatenate(
+            [m.geom_bodyid[pt.con_geom1], m.geom_bodyid[pt.con_geom2]])), torch.long)
         sel = d.con_sel.long()  # (E, K)
         cb1, cb2 = b1[sel], b2[sel]
         pos = d.con_packed_c[..., 2:5]
@@ -51,8 +58,10 @@ def rne_postconstraint(m: Model, d: Data):
             O = torch.take_along_dim(O_all, bids[..., None], dim=1)  # (E, K, 3)
             return torch.cat([cross(pos - O, f), f], dim=-1)
 
-        cfrc_ext = cfrc_ext.scatter_add(1, cb2[..., None].expand(E, -1, 6), spatial_at(cb2))
-        cfrc_ext = cfrc_ext.scatter_add(1, cb1[..., None].expand(E, -1, 6), -spatial_at(cb1))
+        on1 = (cb1[..., None] == bodies).to(dtype)[..., None]  # (E, K, C, 1)
+        on2 = (cb2[..., None] == bodies).to(dtype)[..., None]
+        per_body = (on2 * spatial_at(cb2)[:, :, None] - on1 * spatial_at(cb1)[:, :, None]).sum(1)
+        cfrc_ext = cfrc_ext.index_add(1, bodies, per_body)  # each body once
         cfrc_ext[:, 0] = 0.0
 
     # cacc: forward pass from the world's -gravity

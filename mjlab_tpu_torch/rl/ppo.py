@@ -352,6 +352,14 @@ class PPO:
             a = st["advantage"]
             a.copy_((a - a.mean()) / (a.std(correction=0) + 1e-8))
 
+    def surrogate(self, ratio: torch.Tensor, adv: torch.Tensor) -> torch.Tensor:
+        """The clipped surrogate loss of the probability ratios and the
+        advantages (rsl-rl's, a loss over -advantages)."""
+        clip = self.cfg.algorithm.clip_param
+        surr1 = ratio * adv
+        surr2 = torch.clamp(ratio, 1 - clip, 1 + clip) * adv
+        return -torch.mean(torch.minimum(surr1, surr2))
+
     def loss(self, mb: dict):
         """(total loss, {surrogate, value_loss, entropy, kl}) of a minibatch."""
         alg = self.cfg.algorithm
@@ -361,10 +369,7 @@ class PPO:
         adv = mb["advantage"]
         if alg.normalize_advantage_per_mini_batch:
             adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
-        surr1 = ratio * adv
-        surr2 = torch.clamp(ratio, 1 - alg.clip_param, 1 + alg.clip_param) * adv
-        # rsl-rl formulates the surrogate as a loss over -advantages
-        surrogate = -torch.mean(torch.minimum(surr1, surr2))
+        surrogate = self.surrogate(ratio, adv)
         value = self.ac.value(mb["cobs"])
         if alg.use_clipped_value_loss:
             v_clipped = mb["value"] + torch.clamp(value - mb["value"], -alg.clip_param,

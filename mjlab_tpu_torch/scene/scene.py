@@ -26,6 +26,7 @@ YAM arm and the cube).
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import TYPE_CHECKING
 
@@ -200,13 +201,38 @@ class SimContext:
     """The runtime state the composed scene reads and writes: the
     Simulation's Model and Data (``data`` writes go through the
     Simulation, in place once it is static) and the per-env state tensors
-    of the entities and sensors, by name."""
+    of the entities and sensors, by name. ``rne_post()`` is the
+    rne_postconstraint the acceleration and force sensors read, shared by
+    the reads inside one ``read_group()``."""
 
     def __init__(self, sim: "Simulation", rng=None):
         self.sim = sim
         self.rng = rng  # the env's Rng: the actuators' draws
         self.entity_states: dict[str, object] = {}
         self.sensor_states: dict[str, object] = {}
+        self._group: dict | None = None
+
+    @contextmanager
+    def read_group(self):
+        """Sensor reads that share one rne_postconstraint: the Data must
+        not change inside the group (the env wraps its observations in
+        one); the shared value is dropped when the group ends."""
+        self._group = {}
+        try:
+            yield self
+        finally:
+            self._group = None
+
+    def rne_post(self):
+        """(cacc, cfrc_int, cfrc_ext) of the current Data (phys/rne_post.py):
+        once per read group, else computed anew."""
+        from mjlab_tpu_torch.phys.rne_post import rne_postconstraint
+
+        if self._group is None:
+            return rne_postconstraint(self.model, self.data)
+        if "rne_post" not in self._group:
+            self._group["rne_post"] = rne_postconstraint(self.model, self.data)
+        return self._group["rne_post"]
 
     @property
     def model(self):

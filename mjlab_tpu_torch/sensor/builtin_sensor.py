@@ -1,18 +1,43 @@
 """Builtin sensors computed from the batched physics state.
 
-PyTorch counterpart of mjlab_tpu/sensor/builtin_sensor.py for the types
-the G1 XML declares (mjlab_tpu/asset_zoo/robots/unitree_g1/xmls/g1.xml
-313-318): gyro, velocimeter and accelerometer on a site frame, and
-subtreeangmom of a body. The object frames (``_Frame``) resolve bodies,
-xbodies, geoms and sites, as the JAX package's do. The config surface and
-the classification of MuJoCo's sensor types are the JAX package's; a
-sensor of any other type raises NotImplementedError naming it when the
-scene initializes it.
+PyTorch counterpart of mjlab_tpu/sensor/builtin_sensor.py: every builtin
+type of the JAX package but the three tendon types, computed from the
+env-first Data the step and the refresh leave (the JAX package's
+``_compute``, type by type):
 
-The accelerometer reads rne_postconstraint (phys/rne_post.py) of the
-current Data on every read: with a static Data (a captured control step)
-the tensors keep their identity across steps, so a cache keyed on them, as
-the JAX package keys its cache on id(data), would go stale.
+- site: accelerometer, velocimeter, gyro, force, torque, magnetometer,
+  rangefinder (phys/ray.py along the site's z axis, the site's body
+  excluded);
+- joint (hinge or slide; jointactuatorfrc any joint): jointpos,
+  jointvel, jointlimitpos, jointlimitvel, jointlimitfrc (MuJoCo's one
+  limit row of the nearer side, at ``neq_jnt + nv + index`` of
+  efc_force), jointactuatorfrc;
+- actuator: actuatorpos, actuatorvel, actuatorfrc;
+- frame (a body, xbody, geom or site, with an optional reference frame):
+  framepos, framequat, framexaxis, frameyaxis, framezaxis, framelinvel,
+  frameangvel, framelinacc, frameangacc (the last two ignore the
+  reference, as MuJoCo does), and upvector (framezaxis's other name);
+- body: subtreecom, subtreelinvel, subtreeangmom;
+- global: e_potential (gravity and the hinge, slide and free-translation
+  springs), e_kinetic (the armature term included, per env where the Model
+  carries dof_armature so), clock (each env's time).
+
+The tendon types (tendonpos, tendonvel, tendonactuatorfrc) raise
+NotImplementedError: the port's Simulation refuses tendons until the
+general engine is ported (ROADMAP.md queue 1 item 4).
+
+What the env-last step writes decides what some types read inside an env:
+the step writes actuator_force and actuator_velocity but not
+actuator_length or qfrc_actuator, which only a full forward() writes, as
+in the JAX package; actuatorpos and jointactuatorfrc then read the value
+the last forward() or reset left (ROADMAP.md queue 3).
+
+The accelerometer, force, torque and frame-acceleration types read
+rne_postconstraint (phys/rne_post.py) through ``SimContext.rne_post``:
+computed once per read group (the env's observations,
+``SimContext.read_group``), else once per read. The JAX package caches it
+by id() of the Data, which says nothing under a captured step whose
+tensors keep their identity across replays.
 """
 
 from __future__ import annotations
@@ -20,11 +45,14 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Literal
 
+import numpy as np
 import torch
 
-from mjlab_tpu_torch.phys.math import cross, mul_quat
+from mjlab_tpu_torch.phys import ray as phys_ray
+from mjlab_tpu_torch.phys.math import conj_quat, cross, mul_quat
+from mjlab_tpu_torch.phys.model import host_array
 from mjlab_tpu_torch.phys.rne_post import (
-    object_acceleration, object_velocity, rne_postconstraint,
+    object_acceleration, object_velocity, transform_force,
 )
 from mjlab_tpu_torch.sensor.sensor import Sensor, SensorCfg
 
@@ -53,9 +81,15 @@ _SPATIAL_FRAME_TYPES = {"body", "xbody", "geom", "site"}
 _SENSORS_ALLOWING_REF = _FRAME_SENSORS - {"upvector"}
 _GLOBAL_SENSORS = {"e_potential", "e_kinetic", "clock"}
 
-# the types this package computes; the others of the JAX package's surface
-# are still to port
-PORTED_TYPES = frozenset({"gyro", "velocimeter", "accelerometer", "subtreeangmom"})
+_TENDON_TYPES = frozenset({"tendonpos", "tendonvel", "tendonactuatorfrc"})
+
+# the types this package computes: the JAX package's surface but the
+# tendon types
+PORTED_TYPES = frozenset(
+    _SITE_SENSORS | _FRAME_SENSORS | _BODY_SENSORS | _GLOBAL_SENSORS | set(_OBJ_REQUIREMENTS)
+) - _TENDON_TYPES
+
+_JNT_FREE, _JNT_SLIDE, _JNT_HINGE = 0, 2, 3
 
 # mjtSensor member name -> (sensor type, object kind) of the XML-declared
 # sensors the scene wraps (the JAX package's _SPEC_SENSOR_TYPES)
@@ -220,10 +254,11 @@ class BuiltinSensor(Sensor):
     @classmethod
     def from_xml_sensor(cls, scene, row: "XmlSensor") -> "BuiltinSensor":
         """Wrap an XML-declared sensor (the JAX scene's auto-wrap,
-        mjlab_tpu/sensor/builtin_sensor.py from_spec_sensor)."""
+        mjlab_tpu/sensor/builtin_sensor.py from_spec_sensor): a reference
+        frame only for the types that take one."""
         obj = ObjRef(type=row.objtype, name=row.objname) if row.objname else None
         ref = None
-        if row.refname and row.type in _SENSORS_ALLOWING_REF:
+        if row.refname and not row.refname.endswith("/") and row.type in _SENSORS_ALLOWING_REF:
             ref = ObjRef(type=row.reftype, name=row.refname)
         sensor = cls(BuiltinSensorCfg(sensor_type=row.type, obj=obj, ref=ref,
                                       cutoff=row.cutoff), scene)
@@ -233,44 +268,193 @@ class BuiltinSensor(Sensor):
     def initialize(self, ctx: "SimContext") -> None:
         self.ctx = ctx
         t = self.cfg.sensor_type
-        if t not in PORTED_TYPES:
+        if t in _TENDON_TYPES:
             raise NotImplementedError(
-                f"sensor '{self.name}': builtin sensor type '{t}' is not ported "
-                f"yet (ported: {sorted(PORTED_TYPES)})"
+                f"sensor '{self.name}': builtin sensor type '{t}' waits for tendons, "
+                "which the port's Simulation refuses until the general engine is "
+                "ported (ROADMAP.md queue 1 item 4)"
             )
+        if t not in PORTED_TYPES:
+            raise NotImplementedError(f"sensor '{self.name}': unknown sensor type '{t}'")
         m = ctx.model
-        if t in _SITE_SENSORS:
-            self._frame = _Frame(m, self.cfg.obj)
+        obj = self.cfg.obj
+        if t in _GLOBAL_SENSORS:
+            if t == "e_potential":
+                # hinge, slide and free joints with a spring (the ball's
+                # quaternion spring is not carried, as in the JAX package)
+                stiff = host_array(m, "jnt_stiffness")
+                self._springs = [
+                    (int(m.jnt_type[j]), int(m.jnt_qposadr[j]), float(stiff[j]))
+                    for j in range(m.njnt) if float(stiff[j]) != 0.0
+                ]
             return
-        # subtreeangmom: the body's subtree (static topology)
-        bid = _object_id(m, "body", self.cfg.obj.prefixed_name())
-        self.body_id = bid
-        self.tree_id = int(m.body_rootid[bid])
-        sub, stack = [], [bid]
-        while stack:
-            b = stack.pop()
-            sub.append(b)
-            stack += [c for c in range(m.nbody) if c != b and int(m.body_parentid[c]) == b]
-        self._subtree_bodies = torch.as_tensor(sorted(sub), dtype=torch.long,
-                                               device=m.device)
+        if t in _SITE_SENSORS or t in _FRAME_SENSORS:
+            self._frame = _Frame(m, obj)
+            self._ref = _Frame(m, self.cfg.ref) if self.cfg.ref is not None else None
+            return
+        if t in _BODY_SENSORS:
+            bid = _object_id(m, "body", obj.prefixed_name())
+            self.body_id = bid
+            self.tree_id = int(m.body_rootid[bid])
+            sub, stack = [], [bid]
+            while stack:
+                b = stack.pop()
+                sub.append(b)
+                stack += [c for c in range(m.nbody)
+                          if c != b and int(m.body_parentid[c]) == b]
+            self._subtree_bodies = torch.as_tensor(sorted(sub), dtype=torch.long,
+                                                   device=m.device)
+            return
+        name = obj.prefixed_name()
+        if _OBJ_REQUIREMENTS[t] == "actuator":
+            if name not in m.actuator_names:
+                raise ValueError(f"actuator '{name}' not found")
+            self._act_id = m.actuator_names.index(name)
+            return
+        if name not in m.joint_names:
+            raise ValueError(f"joint '{name}' not found")
+        jid = m.joint_names.index(name)
+        if t != "jointactuatorfrc" and int(m.jnt_type[jid]) not in (_JNT_HINGE, _JNT_SLIDE):
+            raise ValueError(f"sensor '{t}' requires a scalar (hinge/slide) joint")
+        self._jnt_id = jid
+        self._jnt_qadr = int(m.jnt_qposadr[jid])
+        self._jnt_vadr = int(m.jnt_dofadr[jid])
+        lo, hi = host_array(m, "jnt_range")[jid]
+        self._jnt_range = (float(lo), float(hi))
+        self._jnt_limited = bool(m.jnt_limited[jid])
+        # MuJoCo's limit row of the joint: [equality][dof friction][limits]
+        pos = np.flatnonzero(np.asarray(m.limit_jntid) == jid)
+        self._limit_row = None if pos.size == 0 else m.neq_jnt + m.nv + int(pos[0])
 
-    def _compute(self) -> torch.Tensor:
-        d, m = self.ctx.data, self.ctx.model
-        t = self.cfg.sensor_type
-        if t == "subtreeangmom":
-            sub = self._subtree_bodies
-            h_tot = torch.einsum("ebij,ebj->ebi", d.cinert[:, sub], d.cvel[:, sub]).sum(1)
-            mass = m.body_mass[..., sub].to(d.xipos.dtype)  # (nsub,) or per env (E, nsub)
-            com = ((mass[..., None] * d.xipos[:, sub]).sum(1)
-                   / torch.clamp(mass.sum(-1, keepdim=True), min=1e-12))
-            O = d.subtree_com[:, self.tree_id]
-            return h_tot[:, 0:3] + cross(O - com, h_tot[:, 3:6])
+    # -- reading --
+
+    def _limit_terms(self, d):
+        """(active, dist, side) of the joint's limit: the nearer side's one
+        row, active where it is violated."""
+        q = d.qpos[:, self._jnt_qadr]
+        lo, hi = self._jnt_range
+        dlo, dhi = q - lo, hi - q
+        lower_closer = dlo < dhi
+        dist = torch.where(lower_closer, dlo, dhi)
+        side = torch.where(lower_closer, 1.0, -1.0)
+        active = (dist < 0.0) & self._jnt_limited
+        return active, dist, side
+
+    def _joint_sensor(self, d, t):
+        a = self._jnt_vadr
+        if t == "jointpos":
+            return d.qpos[:, self._jnt_qadr, None]
+        if t == "jointvel":
+            return d.qvel[:, a, None]
+        if t == "jointactuatorfrc":
+            return d.qfrc_actuator[:, a, None]
+        active, dist, side = self._limit_terms(d)
+        if t == "jointlimitpos":
+            return torch.where(active, dist, 0.0)[:, None]
+        if t == "jointlimitvel":
+            return torch.where(active, side * d.qvel[:, a], 0.0)[:, None]
+        if self._limit_row is None:  # jointlimitfrc of a joint without a limit
+            return torch.zeros_like(d.qpos[:, :1])
+        return torch.where(active, d.efc_force[:, self._limit_row], 0.0)[:, None]
+
+    def _global(self, d, m, t):
+        if t == "clock":
+            return d.time.reshape(-1, 1).expand(d.qpos.shape[0], 1)
+        if t == "e_kinetic":
+            ke = 0.5 * torch.einsum("ebi,ebij,ebj->e", d.cvel, d.cinert, d.cvel)
+            arm = torch.broadcast_to(m.dof_armature.to(d.qvel.dtype), d.qvel.shape)
+            return (ke + 0.5 * (arm * d.qvel ** 2).sum(-1))[:, None]
+        g = m.opt.gravity.to(d.qpos.dtype)
+        mass = torch.broadcast_to(m.body_mass.to(d.qpos.dtype), d.xipos.shape[:2])
+        pe = -(mass * torch.einsum("ebk,k->eb", d.xipos, g)).sum(1)
+        for jt, qadr, k in self._springs:
+            if jt in (_JNT_HINGE, _JNT_SLIDE):
+                dq = d.qpos[:, qadr] - m.qpos_spring[..., qadr]
+                pe = pe + 0.5 * k * dq * dq
+            elif jt == _JNT_FREE:  # the translational part only
+                dq = d.qpos[:, qadr:qadr + 3] - m.qpos_spring[..., qadr:qadr + 3]
+                pe = pe + 0.5 * k * (dq * dq).sum(-1)
+        return pe[:, None]
+
+    def _body(self, d, m, t):
+        sub = self._subtree_bodies
+        mass = torch.broadcast_to(m.body_mass.to(d.xipos.dtype), d.xipos.shape[:2])[:, sub]
+        msum = mass.sum(1, keepdim=True)
+        if t == "subtreecom":
+            return (mass[..., None] * d.xipos[:, sub]).sum(1) / torch.clamp(msum, min=1e-12)
+        # the subtree's momentum about subtree_com of its tree's root
+        h_tot = torch.einsum("ebij,ebj->ebi", d.cinert[:, sub], d.cvel[:, sub]).sum(1)
+        if t == "subtreelinvel":
+            return h_tot[:, 3:6] / torch.clamp(msum, min=1e-12)
+        # subtreeangmom: the angular momentum moved to the subtree's com
+        com = (mass[..., None] * d.xipos[:, sub]).sum(1) / torch.clamp(msum, min=1e-12)
+        O = d.subtree_com[:, self.tree_id]
+        return h_tot[:, 0:3] + cross(O - com, h_tot[:, 3:6])
+
+    def _site(self, d, m, t):
         fr = self._frame
         if t in ("gyro", "velocimeter"):
             v = fr.vel(d, local=True)
             return v[:, 0:3] if t == "gyro" else v[:, 3:6]
-        cacc, _, _ = rne_postconstraint(m, d)  # accelerometer
-        return fr.acc(d, cacc, local=True)[:, 3:6]
+        if t == "magnetometer":
+            return torch.einsum("eji,j->ei", fr.mat(d), m.opt.magnetic.to(d.qpos.dtype))
+        if t == "rangefinder":
+            vec = fr.mat(d)[..., :, 2]  # the site's z axis
+            return phys_ray.raycast(m, d, fr.pos(d), vec, fr.body_id)[:, None]
+        cacc, cfrc_int, _ = self.ctx.rne_post()
+        if t == "accelerometer":
+            return fr.acc(d, cacc, local=True)[:, 3:6]
+        # force, torque: the interaction force of the site's body, moved to
+        # the site, in its frame
+        frc = transform_force(cfrc_int[:, fr.body_id], fr.pos(d),
+                              d.subtree_com[:, fr.root_id])
+        part = frc[:, 3:6] if t == "force" else frc[:, 0:3]
+        return torch.einsum("eji,ej->ei", fr.mat(d), part)
+
+    def _frame_sensor(self, d, t):
+        fr, ref = self._frame, self._ref
+        if t == "framepos":
+            p = fr.pos(d)
+            if ref is None:
+                return p
+            return torch.einsum("eji,ej->ei", ref.mat(d), p - ref.pos(d))
+        if t == "framequat":
+            q = fr.quat(d)
+            return q if ref is None else mul_quat(conj_quat(ref.quat(d)), q)
+        if t in ("framexaxis", "frameyaxis", "framezaxis", "upvector"):
+            axis = fr.mat(d)[..., :, {"framexaxis": 0, "frameyaxis": 1}.get(t, 2)]
+            return axis if ref is None else torch.einsum("eji,ej->ei", ref.mat(d), axis)
+        if t in ("framelinvel", "frameangvel"):
+            v = fr.vel(d, local=False)
+            if ref is None:
+                return v[:, 3:6] if t == "framelinvel" else v[:, 0:3]
+            vr = ref.vel(d, local=False)
+            if t == "frameangvel":
+                rel = v[:, 0:3] - vr[:, 0:3]
+            else:  # with the transport term of the rotating reference frame
+                rel = v[:, 3:6] - vr[:, 3:6] - cross(vr[:, 0:3], fr.pos(d) - ref.pos(d))
+            return torch.einsum("eji,ej->ei", ref.mat(d), rel)
+        # framelinacc, frameangacc (no reference, as in MuJoCo)
+        cacc, _, _ = self.ctx.rne_post()
+        a = fr.acc(d, cacc, local=False)
+        return a[:, 3:6] if t == "framelinacc" else a[:, 0:3]
+
+    def _compute(self) -> torch.Tensor:
+        d, m = self.ctx.data, self.ctx.model
+        t = self.cfg.sensor_type
+        if t in _GLOBAL_SENSORS:
+            return self._global(d, m, t)
+        if t in _BODY_SENSORS:
+            return self._body(d, m, t)
+        if t in _SITE_SENSORS:
+            return self._site(d, m, t)
+        if t in _FRAME_SENSORS:
+            return self._frame_sensor(d, t)
+        if _OBJ_REQUIREMENTS[t] == "actuator":
+            src = {"actuatorpos": d.actuator_length, "actuatorvel": d.actuator_velocity,
+                   "actuatorfrc": d.actuator_force}[t]
+            return src[:, self._act_id, None]
+        return self._joint_sensor(d, t)
 
     @property
     def data(self) -> torch.Tensor:

@@ -9,12 +9,18 @@ contact activity (con_found, condist) and the forces of the compacted
 slots (con_force_c, con_torque_c) over those slots. Object names resolve
 from the Model's names, so no MuJoCo is needed.
 
-Ported: the fields found, force, torque and dist, reduce "netforce" (every
-field; dist, pos, normal and tangent read zero there, as in MuJoCo) and
-reduce "none" or "mindist" with found and dist, secondary_policy first /
-any / error, and track_air_time. The other reductions and fields (pos,
-normal, tangent, a force or torque per slot, global_frame) raise
-NotImplementedError.
+The whole surface of the JAX sensor: the fields found, force, torque,
+dist, pos, normal and tangent; reduce "netforce" (one world-frame row per
+primary; dist, pos, normal and tangent read zero there, as in MuJoCo),
+"mindist", "maxforce" and "none" (the top num_slots active slots per
+primary by distance, by force magnitude, or in slot order), with a force
+and torque per slot in the contact frame whose normal points from the
+primary to the secondary (the first tangent flipped with it), or in the
+world frame with global_frame; secondary_policy first / any / error; and
+track_air_time. Positions, frames and forces are read from the compacted
+K-slot record of the step (con_packed_c, con_force_c, con_torque_c): a
+found slot outside the K compacted ones reads zero there, as it carries
+no solver force.
 
 The air-time state is four (num_envs, M) tensors updated in place once per
 physics substep, so that a captured control step carries them.
@@ -61,12 +67,12 @@ class ContactSensorCfg(SensorCfg):
         bad = set(self.fields) - _FIELDS
         if bad:
             raise ValueError(f"unknown contact sensor fields: {sorted(bad)}")
-        if self.reduce == "maxforce" or self.global_frame or (
-            self.reduce != "netforce" and set(self.fields) - {"found", "dist"}
-        ):
-            raise NotImplementedError(
-                f"contact sensor '{self.name}': reduce {self.reduce!r} with fields "
-                f"{self.fields} (global_frame {self.global_frame}) is not ported yet"
+        if (self.global_frame and self.reduce != "netforce"
+                and {"force", "torque"} & set(self.fields)
+                and not {"normal", "tangent"} <= set(self.fields)):
+            raise ValueError(
+                f"Sensor '{self.name}': global_frame=True requires 'normal' "
+                "and 'tangent' in fields"
             )
 
     def build(self, scene):
@@ -133,6 +139,17 @@ def _resolve_objects(m, match: ContactMatch) -> list[tuple[str, set]]:
         bodies = set(_subtree_bodies(m, b) if match.mode == "subtree" else [b])
         objs.append((ln, {g for g in range(m.ngeom) if int(m.geom_bodyid[g]) in bodies}))
     return objs
+
+
+def pyramid_to_force(dim: int, mu: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The contact-frame force of pyramid edge forces (mj_contactForce):
+    f_normal = sum(rows), f_k = mu_k (rows[2k] - rows[2k + 1])."""
+    if dim == 1:
+        return rows[..., :1]
+    fn = rows.sum(-1, keepdim=True)
+    fk = [(mu[..., k] * (rows[..., 2 * k] - rows[..., 2 * k + 1]))[..., None]
+          for k in range(dim - 1)]
+    return torch.cat([fn] + fk, dim=-1)
 
 
 class ContactSensor(Sensor):
@@ -255,7 +272,6 @@ class ContactSensor(Sensor):
         fields = set(cfg.fields)
         active = self._active(d)
         E = active.shape[0]
-        dt = d.condist.dtype
         found_count = active.sum(-1).to(torch.int32)  # (E, M)
         out = ContactData()
         if cfg.reduce == "netforce":
@@ -271,22 +287,9 @@ class ContactSensor(Sensor):
             for name, width in (("dist", None), ("pos", 3), ("normal", 3), ("tangent", 3)):
                 if name in fields:
                     shape = (E, M * NR) if width is None else (E, M * NR, width)
-                    setattr(out, name, torch.zeros(shape, dtype=dt, device=d.condist.device))
+                    setattr(out, name, d.condist.new_zeros(shape))
         else:
-            dist = torch.where(active, d.condist[:, self.slot_table], torch.inf)
-            if cfg.reduce == "mindist":
-                key = dist
-            else:  # "none": the static order among the active slots
-                order = torch.arange(S, dtype=dt, device=dist.device)
-                key = torch.where(active, order[None, None], torch.inf)
-            order = torch.argsort(key, dim=-1, stable=True)[..., :NR]  # (E, M, NR)
-            picked = torch.take_along_dim(active, order, dim=-1)
-            if "found" in fields:
-                out.found = torch.where(picked, found_count[..., None], 0).reshape(E, -1)
-            if "dist" in fields:
-                out.dist = torch.where(
-                    picked, torch.take_along_dim(dist, order, dim=-1), 0.0
-                ).reshape(E, -1)
+            self._reduce_slots(out, d, active, found_count)
         if cfg.track_air_time:
             s = ctx.sensor_states[self.name]
             out.current_air_time = s.current_air_time
@@ -294,6 +297,71 @@ class ContactSensor(Sensor):
             out.last_air_time = s.last_air_time
             out.last_contact_time = s.last_contact_time
         return out
+
+    def _reduce_slots(self, out: ContactData, d, active, found_count) -> None:
+        """The top num_slots active slots of each primary ("mindist": the
+        nearest; "maxforce": the largest force; "none": the first in slot
+        order), their fields into out."""
+        cfg = self.cfg
+        fields = set(cfg.fields)
+        E, M, S = active.shape
+        NR = cfg.num_slots
+        sgn = self.slot_sign[None, :, :, None]
+        force_w = torque_w = None
+        if {"force", "torque"} & fields or cfg.reduce == "maxforce":
+            # the world force (torque) on the primary, per static slot
+            force_w = self._expand_compacted(d, d.con_force_c) * sgn
+            if "torque" in fields:
+                torque_w = self._expand_compacted(d, d.con_torque_c) * sgn
+        dist = torch.where(active, d.condist[:, self.slot_table], torch.inf)
+        if cfg.reduce == "mindist":
+            key = dist
+        elif cfg.reduce == "maxforce":
+            key = torch.where(active, -torch.linalg.vector_norm(force_w, dim=-1), torch.inf)
+        else:  # "none": the static order among the active slots
+            rank = torch.arange(S, dtype=d.condist.dtype, device=dist.device)
+            key = torch.where(active, rank[None, None], torch.inf)
+        order = torch.argsort(key, dim=-1, stable=True)[..., :NR]  # (E, M, NR)
+        R = order.shape[-1]
+        picked = torch.take_along_dim(active, order, dim=-1)
+        if "found" in fields:
+            out.found = torch.where(picked, found_count[..., None], 0).reshape(E, -1)
+        if "dist" in fields:
+            out.dist = torch.where(
+                picked, torch.take_along_dim(dist, order, dim=-1), 0.0
+            ).reshape(E, -1)
+        if not {"force", "torque", "pos", "normal", "tangent"} & fields:
+            return
+        # -1 where the primary is the contact's geom2: MuJoCo's frame then
+        # reads (s n, s t1, t2) with s = -sign, from primary to secondary
+        sflip = -torch.take_along_dim(self.slot_sign.expand(E, M, S), order, dim=-1)
+
+        def pick(x):  # (E, M, S, ...) -> (E, M, R, ...)
+            idx = order.reshape(order.shape + (1,) * (x.ndim - 3))
+            return torch.take_along_dim(x, idx, dim=2)
+
+        frame = None
+        if {"force", "torque", "normal", "tangent"} & fields:
+            frame = pick(self._expand_compacted(d, d.con_packed_c[..., 17:26])
+                         .reshape(E, M, S, 3, 3))  # (E, M, R, 3, 3)
+        for name, w in (("force", force_w), ("torque", torque_w)):
+            if name not in fields:
+                continue
+            w_by = -pick(w)  # world, applied BY the primary
+            if not cfg.global_frame:
+                comps = torch.einsum("emrfx,emrx->emrf", frame, w_by)
+                w_by = torch.stack([sflip * comps[..., 0], sflip * comps[..., 1],
+                                    comps[..., 2]], dim=-1)
+            setattr(out, name, torch.where(picked[..., None], w_by, 0.0).reshape(E, M * R, 3))
+        if "pos" in fields:
+            pos = pick(self._expand_compacted(d, d.con_packed_c[..., 2:5]))
+            out.pos = torch.where(picked[..., None], pos, 0.0).reshape(E, M * R, 3)
+        for name, row in (("normal", 0), ("tangent", 1)):
+            if name in fields:
+                # the engine's normal points geom1 -> geom2; MuJoCo flips
+                # the first tangent with it (a right-handed frame)
+                v = frame[..., row, :] * sflip[..., None]
+                setattr(out, name, torch.where(picked[..., None], v, 0.0).reshape(E, M * R, 3))
 
     @staticmethod
     def _tile(x, NR):

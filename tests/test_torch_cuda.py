@@ -1271,3 +1271,52 @@ def test_captured_explicit_env_matches_eager_bit_for_bit(cuda):
     with np.load(paths[0]) as a, np.load(paths[1]) as b:
         for k in ("bad_envs", "qpos", "qvel", "ctrl"):
             np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_captured_sensors_env_matches_eager_bit_for_bit(cuda):
+    """The sensor-suite G1 env (tasks/velocity/config/g1/sensors.py: every
+    builtin type but the tendon types, three contact sensors, all read by
+    the critic inside the graph) captured against its eager twin over 4
+    steps (E = 300), every output equal bit for bit (the critic holds every
+    reading, sensors.critic_columns); before step 2 env 7's left knee is
+    put past its range in both (written between replays) and its action
+    presses it into the limit: the joint-limit readings are live, and the
+    pelvis's rangefinder hits in every env."""
+    from mjlab_tpu_torch.tasks.velocity.config.g1 import sensors as S
+
+    eager, cap = (S.make_g1_sensors_env(300, cuda, capture=c, seed=5) for c in (False, True))
+    for env in (eager, cap):
+        env.reset()
+    cols = S.critic_columns(cap)
+    assert cols["sensor/pelvis_range"].stop - cols["sensor/pelvis_range"].start == 1
+    m = cap.sim.model
+    knee = int(m.jnt_qposadr[m.joint_names.index("robot/left_knee_joint")])
+    term = cap.action_manager.get_term("joint_pos")
+    joints = [cap.scene["robot"].joint_names[i] for i in term._joint_ids.tolist()]
+    col = joints.index("left_knee_joint")
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for i in range(4):
+        act = 0.5 * torch.randn(300, 29, generator=gen, device=cuda)
+        if i >= 2:
+            act[7, col] = -4.0
+        if i == 2:
+            for env in (eager, cap):
+                q = env.sim.data.qpos.clone()
+                q[7, knee] = -0.35
+                env.sim.data = env.sim.data.replace(qpos=q)
+        oe = eager.step(act)
+        oe = ({k: v.clone() for k, v in oe[0].items()}, *[t.clone() for t in oe[1:4]])
+        oc = cap.step(act)
+        torch.cuda.synchronize()
+        for k in ("policy", "critic"):
+            assert torch.equal(oe[0][k], oc[0][k]), (i, k)
+        for x, y in zip(oe[1:], oc[1:4]):
+            assert torch.equal(x, y), i
+        for f in ("qpos", "qvel"):
+            assert torch.equal(getattr(eager.sim.data, f), getattr(cap.sim.data, f)), (i, f)
+        critic = oc[0]["critic"]
+        assert bool((critic[:, cols["sensor/pelvis_range"]] > 0).all()), i
+        if i >= 2:
+            assert float(critic[7, cols["sensor/left_knee_limit_pos"]][0]) < 0, i
+            assert float(critic[7, cols["sensor/left_knee_limit_frc"]][0]) > 0, i
+    assert cap.captured

@@ -517,3 +517,52 @@ def test_explicit_model_file_matches_fresh_conversions(against):
     # the four wrist pitch and yaw joints, which keep position actuators
     motor = (mj.actuator_biastype == 0) & (mj.actuator_ctrllimited == 1)
     assert int(motor.sum()) == 25 and int((~motor).sum()) == 4
+
+
+@pytest.mark.parametrize("against", ["port_spec", "jax_spec"])
+def test_sensors_model_file_matches_fresh_conversions(against):
+    """g1_velocity_flat_sensors.npz (tasks/velocity/config/g1/sensors.py:
+    the flat G1 scene with the rangefinder site on the pelvis) is the
+    conversion of that scene compiled now, array for array, with its
+    keyframe and XML sensors: from the port's spec edit, and from the JAX
+    package's twin (torch_port_common.jax_sensors_env_cfg). It carries
+    every field the sensor types read (site_quat, geom_quat, body_iquat,
+    jnt_range, jnt_limited, limit_jntid, opt.magnetic, jnt_stiffness,
+    qpos_spring, geom_type, geom_size, geom_bodyid), the added site's
+    frame pointing down."""
+    from mjlab_tpu_torch.scene.scene import (
+        Scene, model_file_scene_cfg, xml_sensors, xml_sensors_from_arrays,
+    )
+    from mjlab_tpu_torch.tasks.velocity.config.g1 import sensors as S
+    from torch_port_common import jax_sensors_env_cfg
+
+    cfg = S.g1_sensors_env_cfg()
+    if against == "port_spec":
+        mj = Scene(model_file_scene_cfg(cfg.scene)).compile()
+    else:
+        from mjlab_tpu.scene import Scene as JaxScene
+
+        mj = JaxScene(jax_sensors_env_cfg(1).scene).compile()
+    cfg.sim.mujoco.apply(mj)
+    m = pm.put_model(mj, dtype=torch.float64, nconmax=cfg.sim.nconmax, device="cpu")
+    saved, extra = pm.load_model(S.SENSORS_MODEL, dtype=torch.float64, device="cpu")
+    for n in pm.tensor_fields():
+        assert torch.equal(getattr(m, n), getattr(saved, n)), n
+    for n in pm.static_fields():
+        if n != "pairs":
+            _assert_static_equal(getattr(m, n), getattr(saved, n), n)
+    for f in dataclasses.fields(pm.PairTable):
+        _assert_static_equal(getattr(m.pairs, f.name), getattr(saved.pairs, f.name), f.name)
+    np.testing.assert_array_equal(extra["key_qpos"], mj.key_qpos[0])
+    np.testing.assert_array_equal(extra["key_ctrl"], mj.key_ctrl[0])
+    assert xml_sensors_from_arrays(extra) == xml_sensors(mj)
+    for n in ("site_quat", "geom_quat", "body_iquat", "jnt_range", "jnt_stiffness",
+              "qpos_spring", "geom_size"):
+        np.testing.assert_array_equal(getattr(saved, n).numpy(), getattr(mj, n), err_msg=n)
+    for n in ("jnt_limited", "geom_type", "geom_bodyid"):
+        np.testing.assert_array_equal(np.asarray(getattr(saved, n)), getattr(mj, n), err_msg=n)
+    np.testing.assert_array_equal(saved.limit_jntid, np.flatnonzero(mj.jnt_limited))
+    np.testing.assert_array_equal(saved.opt.magnetic.numpy(), mj.opt.magnetic)
+    site = saved.site_names.index(f"robot/{S.RANGEFINDER_SITE[1]}")
+    assert saved.site_bodyid[site] == saved.body_names.index("robot/pelvis")
+    np.testing.assert_allclose(saved.site_quat[site].numpy(), S.RANGEFINDER_SITE[3])

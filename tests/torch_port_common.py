@@ -975,3 +975,65 @@ def jax_expand_actuator_fields(jenv) -> None:
     jenv.sim.expand_model_fields(list(EXPANDED_FIELDS))
     jenv.ctx.model = jenv.sim.model
     jenv._state = jenv._state.replace(model=jenv.sim.model)
+
+
+# ---------------------------------------------------------------------------
+# the G1 env whose critic reads every sensor type (tasks/velocity/config/
+# g1/sensors.py) and its JAX twin
+# ---------------------------------------------------------------------------
+
+
+def jax_contact_fields(env, sensor_name: str):
+    """The JAX twin of sensors.contact_fields."""
+    from mjlab_tpu_torch.tasks.velocity.config.g1.sensors import CONTACT_FIELDS
+
+    data = env.scene[sensor_name].data
+    parts = [jnp.reshape(x, (x.shape[0], -1)).astype(jnp.float32)
+             for x in (getattr(data, f) for f in CONTACT_FIELDS) if x is not None]
+    return jnp.concatenate(parts, axis=-1)
+
+
+def jax_add_sensor_suite(cfg):
+    """The JAX package's twin of sensors.add_sensor_suite, in place: the
+    same rangefinder site, builtin and contact sensors and critic terms,
+    built from sensors.py's plain data."""
+    from mjlab_tpu.envs.mdp import observations
+    from mjlab_tpu.managers.manager_term_config import ObservationTermCfg
+    from mjlab_tpu.sensor.builtin_sensor import BuiltinSensorCfg, ObjRef
+    from mjlab_tpu.sensor.contact_sensor import ContactMatch, ContactSensorCfg
+    from mjlab_tpu_torch.tasks.velocity.config.g1 import sensors as S
+
+    robot = cfg.scene.entities["robot"]
+    spec_fn = robot.spec_fn
+    cfg.scene.entities["robot"] = dataclasses.replace(
+        robot, spec_fn=lambda: S.add_rangefinder_site(spec_fn()))
+
+    def ref(o):
+        return None if o is None else ObjRef(type=o[0], name=o[1], entity="robot")
+
+    builtin = tuple(BuiltinSensorCfg(name=n, sensor_type=t, obj=ref(o), ref=ref(r), cutoff=c)
+                    for n, t, o, r, c in S.BUILTIN_SENSORS)
+    contact = tuple(ContactSensorCfg(
+        name=n, primary=ContactMatch(mode="subtree", pattern=S.FEET, entity="robot"),
+        secondary=ContactMatch(mode="body", pattern="terrain/terrain"), fields=f,
+        reduce=r, num_slots=k, global_frame=g) for n, r, f, k, g in S.CONTACT_SENSORS)
+    cfg.scene.sensors = tuple(cfg.scene.sensors) + builtin + contact
+    terms = cfg.observations["critic"].terms
+    for name in S.XML_SENSORS + tuple(s[0] for s in S.BUILTIN_SENSORS):
+        terms[f"sensor/{name}"] = ObservationTermCfg(
+            func=observations.builtin_sensor, params={"sensor_name": name})
+    for name, *_ in S.CONTACT_SENSORS:
+        terms[f"contact/{name}"] = ObservationTermCfg(
+            func=jax_contact_fields, params={"sensor_name": name})
+    return cfg
+
+
+def jax_sensors_env_cfg(E: int):
+    """The JAX package's twin of the port's sensor-suite G1 env config
+    (sensors.g1_sensors_env_cfg): the JAX flat G1 config with the suite."""
+    os.environ.setdefault("MJLAB_QUIET", "1")
+    import mjlab_tpu.tasks as jtasks
+
+    cfg = jtasks.load_env_cfg(G1_TASK)
+    cfg.scene.num_envs = E
+    return jax_add_sensor_suite(cfg)
